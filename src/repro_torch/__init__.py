@@ -1,0 +1,11 @@
+"""SelectFormer reproduction on PyTorch and CUDA — the port of `repro`.
+
+Module paths mirror `src/repro/` so every counterpart is easy to find;
+the package imports torch, never jax, and nothing of `repro`. Entry
+points run on the card (`device="cuda"`) unless the caller passes
+`device="cpu"`. Ported so far: the private sieve's serving path —
+`core/executor.WaveExecutor.score_phase` over `engine/forward.proxy_entropy`
+interpreted by `engine/mpc.MPCEngine` on the additive 2PC backend (RING32
+and RING64), then `mpc/quickselect.top_k_indices` — with its integer
+products on the hand-written CUDA kernels of `kernels/`.
+"""

@@ -1,0 +1,10 @@
+"""Hand-written Hopper kernels of the port (CUDA C++ for sm_90a in
+`csrc/`, built with nvcc and bound with ctypes by `build.py`).
+
+  ring_matmul.py    batched wrapping int32/int64 GEMM — the integer
+                    products the TPU build left to XLA
+  secure_matmul.py  both parties' Beaver combine in one launch — the
+                    port of the Pallas secure_matmul kernel
+  ref.py            plain torch versions (the bitwise oracles)
+  ops.py            dispatch + launch counters
+"""
