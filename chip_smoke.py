@@ -10,10 +10,14 @@ result line):
      count, and an nvcc build of every kernel from src/repro_torch/kernels/
      csrc/ (one nvcc per source, all started together) with its
      `-Xptxas -v` register / shared-memory / spill lines;
-  2. every kernel against its plain torch version on the card, int32 and
-     int64, at the main path's shapes plus ragged and broadcast-batch
-     shapes: results must be bitwise equal; each is timed with CUDA events
-     beside its plain version and its roofline bound;
+  2. every kernel against its plain torch version on the card: the ring
+     kernels on int32 and int64, at the main path's shapes plus ragged and
+     broadcast-batch shapes, bitwise; the float kernels (flash_attn,
+     entropy_head, mlp_softmax_attn) at the clear paths' shapes plus
+     ragged, causal and bfloat16 ones, within 1e-4 (attention) and 1e-5
+     (entropy) of max |plain| in float32. Each is timed with CUDA events
+     beside its plain version, its roofline bound and, for flash_attn,
+     torch's scaled_dot_product_attention (a yardstick, not on the path);
   3. the main path: the two-phase private sieve at BERT-base width
      (d_model 768, 12 heads, d_head 64; proxies <1,1,2> then <3,12,16>;
      batch 4, seq 512, 2 classes; a pool of 64 candidates from --seed,
@@ -28,7 +32,19 @@ result line):
      (depth cut to CPU_LAYERS to bound the CPU's time; widths stay
      full);
   5. clear against MPC: the max |decoded MPC - clear entropy| per ring
-     over the phase-2 candidates (printed, not gated).
+     over the phase-2 candidates (printed, not gated);
+  6. the clear scoring paths at full width: (a) the BERT-base target
+     (12 layers, d_model 768, vocab 30,522, 2 classes, random weights
+     from --seed) scores a 64-candidate pool by prediction entropy in
+     batches of 16 and keeps the top 8 (the Oracle), then reads its
+     accuracy on 64 test examples — flash_attn once a layer a batch,
+     entropy_head once a scored batch, no plain version; one batch at
+     depth 1 then agrees with the CPU; (b) the two-phase clear sieve
+     (ClearEngine, full MLP variant, the phase-3 proxies, 64 -> 24 -> 8,
+     batch 4) — mlp_softmax_attn once a layer a batch; one phase-2 batch
+     agrees with the CPU; its survivors' overlap with the MPC sieve's is
+     printed. Each is profiled (torch.profiler, CUDA activity): wall and
+     device kernel time.
 
 The last lines are the card's `nvidia-smi` name and power limit, one
 `{"kernels": [...]}` JSON line, and the result line
@@ -51,10 +67,17 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # adds run on the same cores (int64 emulated), so 67 T/s bounds them
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
+# float kernels against their plain versions, of max(1, max |plain|):
+# float32 attention (sums reassociated), float32 entropy, bfloat16 outputs
+TOL, EH_TOL, BF16_TOL = 1e-4, 1e-5, 1e-2
 
 DEVICE = "cuda"
 RING_MATMUL_TPU = "src/repro/mpc/protocols/additive2pc.py:71"
 SECURE_MATMUL_TPU = "src/repro/kernels/secure_matmul.py:60"
+FLASH_ATTN_TPU = "src/repro/kernels/flash_attn.py:69"
+ENTROPY_HEAD_TPU = "src/repro/kernels/entropy_head.py:53"
+MLP_SOFTMAX_ATTN_TPU = "src/repro/kernels/mlp_softmax_attn.py:74"
+CSRC = "src/repro_torch/kernels/csrc"
 
 
 def log(*a):
@@ -250,6 +273,136 @@ def phase_kernels(seed: int) -> dict:
     return out
 
 
+def _rel_err(got, want) -> tuple[float, float]:
+    """(max |got - want|, that over max(1, max |want|))."""
+    err = _max_err(got, want)
+    return err, err / max(1.0, float(want.double().abs().max()))
+
+
+def phase_float_kernels(seed: int) -> dict:
+    """The float kernels against their plain versions: (label, inputs,
+    timed?) cases at the clear paths' shapes, float32 within TOL of
+    max |plain|, bfloat16 within BF16_TOL (one bf16 rounding of the
+    output). The timed case is the one the main path (phase 6) runs."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import entropy_head as eh
+    from repro_torch.kernels import flash_attn as fa
+    from repro_torch.kernels import mlp_softmax_attn as msa
+    from repro_torch.kernels import ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    f32, bf16 = torch.float32, torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(seed + 100)
+
+    def randn(shape, dtype=f32, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale) \
+            .to(dtype)
+
+    def check(name, label, got, want, tol, res):
+        torch.cuda.synchronize()
+        err, rel = _rel_err(got, want)
+        if not rel <= tol:
+            fail(f"{name} {label}: kernel vs plain error {err:.3g} "
+                 f"({rel:.3g} of max |plain|, limit {tol})")
+        key = "max_abs_err" if got.dtype != bf16 else "bf16_max_abs_err"
+        res[key] = max(res.get(key, 0.0), err)
+        log(f"[2] {name} {label}: max err {err:.3g} ({rel:.3g} of max "
+            f"|plain|, limit {tol})")
+
+    out = {}
+    # flash_attn: (label, BH, S, Dh, dtype, causal, timed); BH 192 is the
+    # Oracle's batch of 16 x 12 heads at BERT width
+    res = out["flash_attn"] = {}
+    for label, bh, sq, dh, dt, causal, timed in (
+            ("path (Oracle batch)", 192, 512, 64, f32, False, True),
+            ("48 heads", 48, 512, 64, f32, False, False),
+            ("causal", 48, 512, 64, f32, True, False),
+            ("ragged", 48, 100, 64, f32, False, False),
+            ("ragged causal", 48, 100, 64, f32, True, False),
+            ("bf16", 48, 512, 64, bf16, False, False)):
+        q, k, v = (randn((bh, sq, dh), dt) for _ in range(3))
+        check("flash_attn", f"{label} ({bh},{sq},{dh})",
+              fa.launch(q, k, v, causal),
+              ref.flash_attn(q, k, v, causal=causal),
+              TOL if dt == f32 else BF16_TOL, res)
+        if not timed:
+            continue
+        res["ms"] = cuda_ms(fa.launch, q, k, v, causal)
+        res["plain_ms"] = cuda_ms(lambda *a: ref.flash_attn(*a, causal=causal),
+                                  q, k, v)
+        res["library_ms"] = cuda_ms(
+            lambda *a: F.scaled_dot_product_attention(*a, is_causal=causal),
+            q[None], k[None], v[None])
+        lib_err = _max_err(F.scaled_dot_product_attention(
+            q[None], k[None], v[None])[0], ref.flash_attn(q, k, v,
+                                                          causal=False))
+        res["bound_ms"], res["bound_by"] = _bound_ms(
+            4 * bh * sq * dh * 4, 4.0 * bh * sq * sq * dh)
+        res["shape"] = f"({bh},{sq},{dh}) f32 non-causal"
+        log(f"[2] flash_attn {res['shape']}: {res['ms']:.4f} ms, plain "
+            f"{res['plain_ms']:.4f} ms, sdpa {res['library_ms']:.4f} ms "
+            f"(max err vs plain {lib_err:.3g}), bound "
+            f"{res['bound_ms']:.4f} ms ({res['bound_by']})")
+
+    # entropy_head: (label, R, V, dtype, timed); (16, 2) is the Oracle's
+    # batch of 16 over 2 classes; (256, 30522) a vocabulary-wide head
+    res = out["entropy_head"] = {}
+    for label, r, v, dt, timed in (
+            ("path (Oracle batch)", 16, 2, f32, True),
+            ("64 x 2", 64, 2, f32, False),
+            ("vocab", 256, 30522, f32, True),
+            ("ragged", 7, 1000, f32, False),
+            ("vocab bf16", 256, 30522, bf16, False)):
+        x = randn((r, v), dt, 3.0)
+        check("entropy_head", f"{label} ({r},{v})", eh.launch(x),
+              ref.entropy_head(x), EH_TOL, res)
+        if not timed:
+            continue
+        t = {"ms": cuda_ms(eh.launch, x),
+             "plain_ms": cuda_ms(ref.entropy_head, x)}
+        t["bound_ms"], t["bound_by"] = _bound_ms((r * v + r) * 4,
+                                                 4.0 * r * v)
+        t["shape"] = f"({r},{v}) f32"
+        if label == "vocab":
+            res["vocab"] = t
+        else:
+            res.update(t)
+        log(f"[2] entropy_head {t['shape']}: {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.6f} ms "
+            f"({t['bound_by']})")
+
+    # mlp_softmax_attn: (label, BH, S, Dh, hid, dtype, timed); the clear
+    # sieve's phase 2 (<3,12,16>, batch 4) gives BH 48, hid 16, phase 1
+    # (<1,1,2>) BH 4, hid 2
+    res = out["mlp_softmax_attn"] = {}
+    for label, bh, sq, dh, hid, dt, timed in (
+            ("path phase 2", 48, 512, 64, 16, f32, True),
+            ("hid 2", 48, 512, 64, 2, f32, False),
+            ("path phase 1", 4, 512, 64, 2, f32, False),
+            ("ragged", 48, 100, 64, 16, f32, False),
+            ("bf16", 48, 512, 64, 16, bf16, False)):
+        q, k, v = (randn((bh, sq, dh), dt) for _ in range(3))
+        w = (randn((sq, hid), scale=0.2), randn((hid,), scale=0.1),
+             randn((hid, sq), scale=0.2), randn((sq,), scale=0.01))
+        check("mlp_softmax_attn", f"{label} ({bh},{sq},{dh}) hid {hid}",
+              msa.launch(q, k, v, *w), ref.mlp_softmax_attn(q, k, v, *w),
+              TOL if dt == f32 else BF16_TOL, res)
+        if not timed:
+            continue
+        res["ms"] = cuda_ms(msa.launch, q, k, v, *w)
+        res["plain_ms"] = cuda_ms(ref.mlp_softmax_attn, q, k, v, *w)
+        ops = 2.0 * bh * sq * sq * (dh + hid) + 2.0 * bh * sq * hid * dh \
+            + 2.0 * bh * hid * sq * dh + 2.0 * bh * sq * dh
+        res["bound_ms"], res["bound_by"] = _bound_ms(
+            (4 * bh * sq * dh + 2 * sq * hid + hid + sq) * 4, ops)
+        res["shape"] = f"({bh},{sq},{dh}) hid {hid} f32"
+        log(f"[2] mlp_softmax_attn {res['shape']}: {res['ms']:.4f} ms, "
+            f"plain {res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} "
+            f"ms ({res['bound_by']})")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
@@ -352,6 +505,43 @@ def phase_sieve(seed: int, proxies) -> dict:
     return results
 
 
+def _device_events(prof) -> list:
+    import torch
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def _event_ms(e) -> float:
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0)) / 1e3
+
+
+def profiled(fn):
+    """fn() under torch.profiler (CUDA activity only), ending in a
+    synchronize: (its result, wall s, summed kernel ms, {kernel name:
+    (ms, count)} of the five hand-written kernels and of the four
+    costliest kernels under "top: <name>")."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    events = _device_events(prof)
+    ours = {}
+    for e in events:
+        for name in ("flash_attn", "entropy_head", "mlp_softmax_attn",
+                     "ring_matmul", "secure_matmul"):
+            if f"{name}_kernel" in e.key:
+                ms, n = ours.get(name, (0.0, 0))
+                ours[name] = (ms + _event_ms(e), n + e.count)
+    for e in sorted(events, key=_event_ms, reverse=True)[:4]:
+        ours[f"top: {e.key[:90]}"] = (_event_ms(e), e.count)
+    return out, wall, sum(_event_ms(e) for e in events), ours
+
+
 def phase_profile(seed: int, proxies) -> dict:
     """Where one phase-2 wave's device time goes: one RING64 wave of WAVE
     batches under torch.profiler (CUDA activity only: the CPU side adds
@@ -379,12 +569,8 @@ def phase_profile(seed: int, proxies) -> dict:
                        pool, specs[1])
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-
-    def ms(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0)) / 1e3
+    kernels = _device_events(prof)
+    ms = _event_ms
 
     def share(*words):
         return sum(ms(e) for e in kernels if any(w in e.key for w in words))
@@ -409,8 +595,8 @@ def phase_profile(seed: int, proxies) -> dict:
 def phase_card_vs_cpu(seed: int, proxies) -> None:
     import numpy as np
     import torch
-    from repro_torch.core.proxy import ProxySpec, share_proxy, tree_leaves, \
-        tree_rebuild
+    from repro_torch.core.proxy import ProxySpec, share_proxy
+    from repro_torch.core.tree import tree_leaves, tree_rebuild
     from repro_torch.engine import MPCEngine, proxy_entropy
     from repro_torch.mpc import prng
     from repro_torch.mpc.ring import RING32, RING64
@@ -480,6 +666,170 @@ def phase_clear_vs_mpc(proxies, sieve) -> dict:
     return errs
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the clear scoring paths at full width
+# ---------------------------------------------------------------------------
+
+TARGET_POOL, TARGET_TEST, TARGET_BATCH, TARGET_KEEP = 64, 64, 16, 8
+
+
+def _report(tag, name, wall, kernel_ms, ours, smi) -> dict:
+    info = {"wall_s": wall, "device_kernel_ms": kernel_ms,
+            "device_busy_share": kernel_ms / (wall * 1e3),
+            "kernels": {k: {"ms": v[0], "count": v[1]}
+                        for k, v in ours.items()}}
+    log(f"[{tag}] {name} ({smi}): " + json.dumps(info))
+    return info
+
+
+def phase_target(seed: int, smi: str) -> dict:
+    """The Oracle selection and the accuracy readout of the BERT-base
+    target on the card, then one batch at depth 1 against the CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.paper_targets import BERT
+    from repro_torch.core import target, tree
+    from repro_torch.data.tasks import make_classification_task
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models.transformer import layer_slice
+    task = make_classification_task(seed, n_pool=TARGET_POOL,
+                                    n_test=TARGET_TEST, seq=SEQ,
+                                    vocab=BERT.vocab_size, n_classes=CLASSES)
+    t0 = time.time()
+    params = target.init_classifier(
+        torch.Generator(device=DEVICE).manual_seed(seed), BERT, CLASSES,
+        device=DEVICE)
+    torch.cuda.synchronize()
+    log(f"[6a] BERT-base target: random weights on the card in "
+        f"{time.time() - t0:.2f} s")
+    pool = task.pool_tokens
+
+    def run():
+        ents = torch.cat([target.prediction_entropy(params, BERT,
+                                                    pool[i:i + TARGET_BATCH])
+                          for i in range(0, len(pool), TARGET_BATCH)])
+        acc = target.accuracy(params, BERT, task.test_tokens,
+                              task.test_labels)
+        return ents, acc
+
+    for reset in (kops.reset_fa_stats, kops.reset_eh_stats):
+        reset()
+    (ents, acc), wall, kernel_ms, ours = profiled(run)
+    fa, eh = kops.fa_stats(), kops.eh_stats()
+    batches = -(-TARGET_POOL // TARGET_BATCH) + 1    # scored + accuracy
+    top = np.sort(np.argsort(ents.cpu().numpy())[-TARGET_KEEP:])
+    info = _report("6a", f"Oracle ({TARGET_POOL} candidates, batches of "
+                   f"{TARGET_BATCH}) + accuracy ({TARGET_TEST})", wall,
+                   kernel_ms, ours, smi)
+    info.update(launches={"flash_attn": fa, "entropy_head": eh},
+                oracle_top=top.tolist(), accuracy=acc)
+    log(f"[6a] launches flash_attn {fa}, entropy_head {eh}; Oracle keeps "
+        f"{top.tolist()}; accuracy {acc:.4f}")
+    if fa != {"kernel": BERT.n_layers * batches, "ref": 0}:
+        fail(f"target: flash_attn {fa}, want {BERT.n_layers * batches} "
+             "kernel launches and no plain call")
+    if eh["kernel"] <= 0 or eh["ref"]:
+        fail(f"target: entropy_head {eh}")
+    if ents.shape != (TARGET_POOL,) or not torch.isfinite(ents).all():
+        fail(f"target: entropy of shape {tuple(ents.shape)} or not finite")
+    if not 0.0 <= acc <= 1.0:
+        fail(f"target: accuracy {acc}")
+
+    cpu = tree.to_device({k: (layer_slice(v, slice(0, CPU_LAYERS))
+                              if k == "layers" else v)
+                          for k, v in params.items() if k != "unembed"},
+                         "cpu")
+    tok = pool[:TARGET_BATCH]
+    t0 = time.time()
+    want = (target.classifier_logits(cpu, BERT, tok, n_layers=CPU_LAYERS),
+            target.prediction_entropy(cpu, BERT, tok, n_layers=CPU_LAYERS))
+    cpu_s = time.time() - t0
+    got = (target.classifier_logits(params, BERT, tok, n_layers=CPU_LAYERS),
+           target.prediction_entropy(params, BERT, tok, n_layers=CPU_LAYERS))
+    errs = [_rel_err(g.cpu(), w) for g, w in zip(got, want)]
+    log(f"[6a] card vs CPU at depth {CPU_LAYERS} (CPU {cpu_s:.1f} s): "
+        f"logits max err {errs[0][0]:.3g}, entropy max err {errs[1][0]:.3g}")
+    if max(rel for _, rel in errs) > TOL:
+        fail(f"target: card and CPU differ by {errs} (limit {TOL})")
+    info["card_vs_cpu_max_err"] = max(err for err, _ in errs)
+    return info
+
+
+def phase_clear_sieve(seed: int, proxies, sieve, smi: str) -> dict:
+    """The two-phase clear sieve on ClearEngine at BERT-base width, then
+    one phase-2 batch against the CPU."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.core import tree
+    from repro_torch.core.selection import _phase_keep, clear_phase
+    from repro_torch.engine import FULL_VARIANT, ClearEngine, proxy_entropy
+    from repro_torch.kernels import ops as kops
+    from repro_torch.mpc.ring import RING32, RING64
+    cfg, specs, pps = proxies
+    specs = [dataclasses.replace(specs[0], selectivity=KEEPS[0] / POOL),
+             *specs[1:]]
+    keeps = _phase_keep(POOL, KEEPS[-1], specs)
+    if keeps != list(KEEPS):
+        fail(f"clear sieve: keeps {keeps}, want {list(KEEPS)}")
+    pool = np.random.default_rng(seed).integers(0, cfg.vocab_size,
+                                                (POOL, SEQ))
+
+    def run():
+        surviving, phases = np.arange(POOL), []
+        for spec, pp, keep in zip(specs, pps, keeps):
+            n = len(surviving)
+            surviving, appraisal, ents = clear_phase(
+                ClearEngine(), pp, cfg, pool, surviving, spec, keep,
+                FULL_VARIANT, batch=BATCH)
+            if ents.shape != (n,) or not np.isfinite(ents).all():
+                fail(f"clear sieve: scores of shape {ents.shape} or not "
+                     "finite")
+            phases.append({"candidates": n, "keep": keep,
+                           "appraisal": appraisal,
+                           "survivors": surviving.tolist()})
+        return phases
+
+    kops.reset_msa_stats()
+    kops.reset_eh_stats()
+    phases, wall, kernel_ms, ours = profiled(run)
+    msa = kops.msa_stats()
+    want = sum(spec.n_layers * -(-p["candidates"] // BATCH)
+               for spec, p in zip(specs, phases))
+    info = _report("6b", f"clear sieve {POOL} -> {' -> '.join(map(str, keeps))}"
+                   f" (batch {BATCH})", wall, kernel_ms, ours, smi)
+    info.update(phases=phases, launches={"mlp_softmax_attn": msa})
+    log(f"[6b] launches mlp_softmax_attn {msa} (want {want}), "
+        f"entropy_head {kops.eh_stats()}")
+    if msa != {"kernel": want, "ref": 0}:
+        fail(f"clear sieve: mlp_softmax_attn {msa}, want {want} kernel "
+             "launches and no plain call")
+    overlap = {ring.name: len(set(phases[-1]["survivors"])
+                              & set(sieve[ring.name]["phases"][-1]
+                                    ["survivors"]))
+               for ring in (RING32, RING64)}
+    info["overlap_with_mpc"] = overlap
+    log(f"[6b] clear survivors {phases[-1]['survivors']}; shared with the "
+        f"MPC sieve's (of {KEEPS[-1]}): {overlap}")
+
+    tok = pool[np.asarray(phases[0]["survivors"])[:BATCH]]
+    got = proxy_entropy(ClearEngine(), pps[1], cfg,
+                        torch.as_tensor(tok, device=DEVICE), specs[1])
+    cpu_pp = tree.to_device(pps[1], "cpu")
+    t0 = time.time()
+    want_s = proxy_entropy(ClearEngine(), cpu_pp, cfg, torch.as_tensor(tok),
+                           specs[1])
+    err, rel = _rel_err(got.cpu(), want_s)
+    log(f"[6b] card vs CPU, one phase-2 batch (CPU {time.time() - t0:.1f} "
+        f"s): max err {err:.3g}")
+    if rel > TOL:
+        fail(f"clear sieve: card and CPU scores differ by {err} "
+             f"(limit {TOL})")
+    info["card_vs_cpu_max_err"] = err
+    return info
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -500,6 +850,7 @@ def main(argv=None) -> int:
     t_all = time.time()
     smi = phase_build()
     kern = phase_kernels(args.seed)
+    fkern = phase_float_kernels(args.seed)
     proxies = build_proxies(args.seed)
     t0 = time.time()
     sieve = phase_sieve(args.seed, proxies)
@@ -509,17 +860,20 @@ def main(argv=None) -> int:
     phase_card_vs_cpu(args.seed, proxies)
     log(f"[4] card vs CPU: {time.time() - t0:.1f} s")
     errs = phase_clear_vs_mpc(proxies, sieve)
+    t0 = time.time()
+    tgt = phase_target(args.seed, smi)
+    log(f"[6a] target phase: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    csieve = phase_clear_sieve(args.seed, proxies, sieve, smi)
+    log(f"[6b] clear sieve phase: {time.time() - t0:.1f} s")
 
     kernels = []
-    for name, src, tpu in (
-            ("ring_matmul", "src/repro_torch/kernels/csrc/ring_matmul.cu",
-             RING_MATMUL_TPU),
-            ("secure_matmul",
-             "src/repro_torch/kernels/csrc/secure_matmul.cu",
-             SECURE_MATMUL_TPU)):
+    for name, tpu in (("ring_matmul", RING_MATMUL_TPU),
+                      ("secure_matmul", SECURE_MATMUL_TPU)):
         k32, k64 = kern[name]["int32"], kern[name]["int64"]
         kernels.append({
-            "name": name, "route": "cuda", "source": src, "replaces": tpu,
+            "name": name, "route": "cuda", "source": f"{CSRC}/{name}.cu",
+            "replaces": tpu,
             "launches": sieve["launches"][name],
             "max_abs_err": max(k32["max_abs_err"], k64["max_abs_err"]),
             "ms": k32["ms"], "plain_ms": k32["plain_ms"],
@@ -528,6 +882,26 @@ def main(argv=None) -> int:
             "library_note": f"torch has no CUDA int32/int64 matmul "
                             f"({kern['library_error']})",
             "shape": k32["shape"], "dtype": "int32", "int64": k64})
+    launches = {
+        "flash_attn": tgt["launches"]["flash_attn"]["kernel"],
+        "entropy_head": tgt["launches"]["entropy_head"]["kernel"],
+        "mlp_softmax_attn": csieve["launches"]["mlp_softmax_attn"]["kernel"]}
+    for name in ("flash_attn", "entropy_head", "mlp_softmax_attn"):
+        k = fkern[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"{CSRC}/{name}.cu",
+            "replaces": {"flash_attn": FLASH_ATTN_TPU,
+                         "entropy_head": ENTROPY_HEAD_TPU,
+                         "mlp_softmax_attn": MLP_SOFTMAX_ATTN_TPU}[name],
+            "launches": launches[name], "max_abs_err": k["max_abs_err"],
+            "ms": k["ms"], "plain_ms": k["plain_ms"],
+            "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+            "library_ms": k.get("library_ms"),
+            "library_note": "torch.nn.functional.scaled_dot_product_attention"
+                            if name == "flash_attn" else
+                            "no single torch call computes this function",
+            "shape": k["shape"],
+            **{x: k[x] for x in ("bf16_max_abs_err", "vocab") if x in k}})
     log(f"[5] clear-vs-MPC max abs error: {json.dumps(errs)}")
     log(f"total {time.time() - t_all:.1f} s")
     print(smi)

@@ -3,9 +3,16 @@
 Module paths mirror `src/repro/` so every counterpart is easy to find;
 the package imports torch, never jax, and nothing of `repro`. Entry
 points run on the card (`device="cuda"`) unless the caller passes
-`device="cpu"`. Ported so far: the private sieve's serving path —
-`core/executor.WaveExecutor.score_phase` over `engine/forward.proxy_entropy`
-interpreted by `engine/mpc.MPCEngine` on the additive 2PC backend (RING32
-and RING64), then `mpc/quickselect.top_k_indices` — with its integer
-products on the hand-written CUDA kernels of `kernels/`.
+`device="cpu"`. Ported so far:
+
+  * the private sieve's serving path — `core/executor.WaveExecutor.
+    score_phase` over `engine/forward.proxy_entropy` interpreted by
+    `engine/mpc.MPCEngine` on the additive 2PC backend (RING32 and
+    RING64), then `mpc/quickselect.top_k_indices` — with its integer
+    products on the hand-written ring kernels of `kernels/`;
+  * the clear scoring paths — the target classifier's forward
+    (`core/target`: Oracle entropy and accuracy, attention on the
+    `flash_attn` kernel, entropy on `entropy_head`) and the clear sieve
+    phase (`core/selection.clear_phase` over `engine/clear.ClearEngine`,
+    MLP_sm attention on `mlp_softmax_attn`).
 """

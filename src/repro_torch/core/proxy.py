@@ -8,7 +8,7 @@ on top). The forward exists once, engine-generic, in
 
 This slice ports what scoring a pool with an already-built proxy needs:
 the spec, a random-weight proxy, the parameters of a JAX-built proxy
-carried across (`from_jax_params`), and the model owner's secret
+carried across (`core.tree.to_device`), and the model owner's secret
 sharing of them. Proxy construction (extraction, pruning, ex-vivo and
 in-vivo training) is a later slice.
 """
@@ -16,11 +16,11 @@ from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import approx
+from repro_torch.core.tree import tree_leaves, tree_rebuild
 from repro_torch.mpc import prng
 from repro_torch.mpc.ring import RingSpec, RING64
 from repro_torch.mpc.sharing import share
@@ -106,40 +106,6 @@ def random_proxy(gen: torch.Generator, cfg: ArchConfig, spec: ProxySpec,
         "mlp_ln": [mlp_ln() for _ in range(L)],
         "mlp_se": approx.init_mlp(gen, n_classes, hid, 1, device),
     }
-
-
-def from_jax_params(tree, device="cuda"):
-    """A JAX-built proxy's parameters, handed over as numpy arrays
-    (nested dicts and lists), as the port's tree of tensors."""
-    if isinstance(tree, dict):
-        return {k: from_jax_params(v, device) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [from_jax_params(v, device) for v in tree]
-    return torch.from_numpy(np.array(tree)).to(device)
-
-
-def tree_leaves(tree) -> list:
-    """Leaves in JAX's pytree order (dict keys sorted, lists in order) —
-    the order the share keys are split in, so shares match bitwise."""
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [x for v in tree for x in tree_leaves(v)]
-    return [tree]
-
-
-def tree_rebuild(tree, leaves):
-    """`tree` with its leaves replaced, in `tree_leaves` order."""
-    it = iter(leaves)
-
-    def go(t):
-        if isinstance(t, dict):
-            return {k: go(t[k]) for k in sorted(t)}
-        if isinstance(t, (list, tuple)):
-            return [go(v) for v in t]
-        return next(it)
-
-    return go(tree)
 
 
 def share_proxy(key: torch.Tensor, pp, ring: RingSpec = RING64,

@@ -58,6 +58,8 @@ class TensorEngine(Protocol):
     def mlp(self, p, x: Tensor) -> Tensor: ...
     def ln_inv(self, pp, li: int, var: Tensor, variant) -> Tensor: ...
     def attn_probs(self, pp, li: int, scores: Tensor, variant) -> Tensor: ...
+    def attend(self, pp, li: int, qT: Tensor, kT: Tensor, v: Tensor,
+               variant) -> Tensor: ...
     def entropy_head(self, pp, logits: Tensor, variant) -> Tensor: ...
 
 

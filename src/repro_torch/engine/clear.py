@@ -4,6 +4,16 @@ The numerical reference the MPC forward is held against. Nonlinearity
 strategies implement the Table-2 ablations (exact softmax / rsqrt /
 entropy when the MLP emulator is ablated) and the Table-3 baseline
 softmaxes (MPCFormer 2Quad, Bolt-style polynomial exp).
+
+On the card two of them run on hand-written kernels that compute the
+same functions without materializing what the CPU path does:
+`attend` with the MLP_sm emulator ("sm") launches `mlp_softmax_attn`
+(no S x S probabilities; probs @ V reassociated, so allclose to the
+CPU path, not bitwise), and the exact entropy (variants without "se")
+launches `entropy_head`, whose m + log z - s/z differs from
+`softmax_entropy`'s -sum p log(p + 1e-9) by at most V * 1e-9 plus
+rounding. On the CPU both stay the materialized sequence the JAX
+package's ClearEngine runs.
 """
 import contextlib
 import dataclasses
@@ -11,7 +21,8 @@ from typing import ClassVar
 
 import torch
 
-from repro_torch.engine.forward import _mlp_at
+from repro_torch.engine.forward import _mlp_at, attend_materialized
+from repro_torch.kernels import ops as kops
 
 
 def mlp_apply(p, x):
@@ -24,6 +35,18 @@ def softmax_entropy(logits):
     """Exact fused softmax+entropy (the op MLP_se emulates)."""
     p = torch.softmax(logits, dim=-1)
     return -torch.sum(p * torch.log(p + 1e-9), dim=-1, keepdim=True)
+
+
+def mlp_attend(p, qT, kT, v):
+    """MLP_sm attention through `kernels.ops.mlp_softmax_attn`: the heads
+    fold into the kernel's batch, and k / v stay one row per kv head
+    (read per group, not broadcast). Same shapes as `ClearEngine.attend`."""
+    b, wk, g, s, dh = qT.shape
+    q = qT.reshape(b * wk * g, s, dh)
+    k = kT[:, :, 0].transpose(-1, -2).reshape(b * wk, s, dh)
+    vv = v.reshape(b, s, wk, dh).movedim(2, 1).reshape(b * wk, s, dh)
+    o = kops.mlp_softmax_attn(q, k, vv, p["w1"], p["b1"], p["w2"], p["b2"])
+    return o.reshape(b, wk, g, s, dh)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,7 +132,16 @@ class ClearEngine:
             return e / torch.clamp(e.sum(-1, keepdim=True), min=1e-6)
         return torch.softmax(scores, dim=-1)
 
+    def attend(self, pp, li, qT, kT, v, variant):
+        """qT (b, wk, g, s, dh), kT (b, wk, g, dh, s), v (b * s, wk * dh)
+        -> attention output (b, wk, g, s, dh)."""
+        if "sm" in variant and qT.is_cuda:
+            return mlp_attend(_mlp_at(pp["mlp_sm"], li), qT, kT, v)
+        return attend_materialized(self, pp, li, qT, kT, v, variant)
+
     def entropy_head(self, pp, logits, variant):
         if "se" in variant:
             return self.mlp(pp["mlp_se"], logits)[:, 0]
+        if logits.is_cuda:
+            return kops.entropy_head(logits)
         return softmax_entropy(logits)[:, 0]

@@ -71,16 +71,30 @@ def _proxy_layer(eng, x, pp, li, cfg, spec, variant):
     kT = eng.swapaxes(eng.moveaxis(eng.reshape(k, (b, s, wk, dh)), 2, 1),
                       -1, -2)                                    # b wk dh s
     kT = eng.broadcast(eng.reshape(kT, (b, wk, 1, dh, s)), (b, wk, g, dh, s))
+    o = eng.attend(pp, li, qT, kT, v, variant)                   # b wk g s dh
+    o2 = eng.reshape(eng.moveaxis(o, 3, 1), (b * s, w * dh))
+    out = eng.matmul(o2, eng.index(ap["wo"], li))
+    return eng.add(x, eng.reshape(out, (b, s, d)))
+
+
+def attend_materialized(eng, pp, li, qT, kT, v, variant):
+    """The attention block, op for op: scores -> `attn_probs` -> probs @ V.
+
+    qT (b, wk, g, s, dh) and kT (b, wk, g, dh, s) are the head-folded
+    query and key; v is the value projection (b * s, wk * dh). The S x S
+    scores and probabilities are materialized. This is every engine's
+    `attend` except where a kernel computes the same function on the
+    card (ClearEngine, "sm" variant), so the MPC op stream — and with it
+    the ledger — is the JAX forward's, record for record.
+    """
+    b, wk, g, s, dh = eng.shape(qT)
     scores = eng.mul_public(eng.matmul(qT, kT), dh ** -0.5)      # b wk g s s
     probs = eng.attn_probs(pp, li, eng.reshape(scores, (b * wk * g * s, s)),
                            variant)
     probs = eng.reshape(probs, (b, wk, g, s, s))
     vT = eng.moveaxis(eng.reshape(v, (b, s, wk, dh)), 2, 1)      # b wk s dh
     vT = eng.broadcast(eng.reshape(vT, (b, wk, 1, s, dh)), (b, wk, g, s, dh))
-    o = eng.matmul(probs, vT)                                    # b wk g s dh
-    o2 = eng.reshape(eng.moveaxis(o, 3, 1), (b * s, w * dh))
-    out = eng.matmul(o2, eng.index(ap["wo"], li))
-    return eng.add(x, eng.reshape(out, (b, s, d)))
+    return eng.matmul(probs, vT)                                 # b wk g s dh
 
 
 def proxy_logits(eng, pp, cfg, x_in, spec, variant=None):

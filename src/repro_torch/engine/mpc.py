@@ -21,7 +21,7 @@ Only the full MLP-emulator variant ("sm", "ln", "se": the MLPs plus
 NR rsqrt, secure entropy, the 2Quad and polynomial baseline softmaxes —
 need `mpc/nonlinear.py`, which a later slice ports; they raise here.
 """
-from repro_torch.engine.forward import _mlp_at
+from repro_torch.engine.forward import _mlp_at, attend_materialized
 from repro_torch.mpc import compare, fusion, prng, protocols, ops as mops
 from repro_torch.mpc.ring import RING64, RingSpec
 from repro_torch.mpc.sharing import Share
@@ -175,6 +175,9 @@ class MPCEngine:
         if "quad_sm" in variant or "poly_sm" in variant:
             _not_ported("the baseline softmax")
         _not_ported("the exact softmax")
+
+    def attend(self, pp, li, qT, kT, v, variant):
+        return attend_materialized(self, pp, li, qT, kT, v, variant)
 
     def entropy_head(self, pp, logits, variant):
         """Entropy scores, forced to CANONICAL scale: the forward's

@@ -5,6 +5,11 @@
                     products the TPU build left to XLA
   secure_matmul.py  both parties' Beaver combine in one launch — the
                     port of the Pallas secure_matmul kernel
-  ref.py            plain torch versions (the bitwise oracles)
+  flash_attn.py     exact online-softmax attention (the target encoder)
+  entropy_head.py   one-pass row softmax entropy (target scoring,
+                    the clear proxy's exact-entropy variants)
+  mlp_softmax_attn.py  MLP-emulated attention without the S x S probs
+                    (the clear proxy's "sm" variant)
+  ref.py            plain torch versions (the oracles)
   ops.py            dispatch + launch counters
 """

@@ -22,8 +22,11 @@ HERE = Path(__file__).resolve().parent
 CSRC = HERE / "csrc"
 BUILD = HERE / "build"
 SOURCES = {"ring_matmul": "ring_matmul.cu",
-           "secure_matmul": "secure_matmul.cu"}
-HEADERS = ("ring_tile.cuh",)
+           "secure_matmul": "secure_matmul.cu",
+           "flash_attn": "flash_attn.cu",
+           "entropy_head": "entropy_head.cu",
+           "mlp_softmax_attn": "mlp_softmax_attn.cu"}
+HEADERS = ("ring_tile.cuh", "float_tile.cuh")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

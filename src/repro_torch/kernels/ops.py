@@ -1,21 +1,30 @@
-"""Dispatch front of the ring kernels, the port of repro/kernels/ops.py.
+"""Dispatch front of the kernels, the port of repro/kernels/ops.py.
 
 The device decides, not an `impl` switch: a CUDA tensor launches the
 hand-written kernel (or raises — there is no fallback), a CPU tensor
-takes the plain torch version, a meta tensor the shape-only fake.
+takes the plain torch version, a meta tensor (ring kernels only) the
+shape-only fake.
 
 The launch counters (`smm_stats` for secure_matmul, `rmm_stats` for
-ring_matmul) count kernel launches under "kernel" and plain-version
-calls under "ref". The executor snapshots them around a phase
-(`DeviceReport.combine_*` / `matmul_*`), which is how a run on the card
-shows that its products went through the kernels.
+ring_matmul, `fa_stats` for flash_attn, `eh_stats` for entropy_head,
+`msa_stats` for mlp_softmax_attn) count kernel launches under "kernel"
+and plain-version calls under "ref". The executor snapshots the ring
+counters around a phase (`DeviceReport.combine_*` / `matmul_*`); a run
+on the card reads them all to show that its work went through the
+kernels.
 """
 from __future__ import annotations
 
+from repro_torch.kernels import entropy_head as _eh
+from repro_torch.kernels import flash_attn as _fa
+from repro_torch.kernels import mlp_softmax_attn as _msa
 from repro_torch.kernels import ring_matmul as _rmm
 from repro_torch.kernels import secure_matmul as _smm
 
 ring_matmul = _rmm.ring_matmul
+flash_attn = _fa.flash_attn
+entropy_head = _eh.entropy_head
+mlp_softmax_attn = _msa.mlp_softmax_attn
 
 
 def secure_matmul(eps, dlt, a_sh, b_sh, c_sh):
@@ -40,3 +49,30 @@ def rmm_stats() -> dict:
 
 def reset_rmm_stats() -> None:
     _rmm.reset_stats()
+
+
+def fa_stats() -> dict:
+    """Snapshot of the flash_attn counters (kernel / ref)."""
+    return _fa.stats()
+
+
+def reset_fa_stats() -> None:
+    _fa.reset_stats()
+
+
+def eh_stats() -> dict:
+    """Snapshot of the entropy_head counters (kernel / ref)."""
+    return _eh.stats()
+
+
+def reset_eh_stats() -> None:
+    _eh.reset_stats()
+
+
+def msa_stats() -> dict:
+    """Snapshot of the mlp_softmax_attn counters (kernel / ref)."""
+    return _msa.stats()
+
+
+def reset_msa_stats() -> None:
+    _msa.reset_stats()

@@ -1,5 +1,10 @@
-"""The CUDA ring kernels against their plain torch versions, bitwise, on
-the card (`gpu` marker; every test skips without a CUDA device).
+"""The CUDA kernels against their plain torch versions on the card (`gpu`
+marker; every test skips without a CUDA device): the ring kernels
+bitwise; the float kernels (flash_attn, mlp_softmax_attn, entropy_head)
+with the largest error bounded by tol * max(1, max |plain|), tol 1e-4
+for the attention kernels and 1e-5 for entropy_head in float32, 1e-2 for
+the attention kernels' bfloat16 outputs (one bf16 rounding of the same
+float32 result); and the clear scoring paths, card against CPU.
 
 This file imports no JAX, so it runs where only torch is installed:
 
@@ -18,7 +23,18 @@ from repro_torch.kernels import secure_matmul as smm
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the card)")
+    torch.backends.cuda.matmul.allow_tf32 = False    # exact float32 plain
     return torch.device("cuda")
+
+
+def assert_close(got, want, tol):
+    err = float((got.double() - want.double()).abs().max())
+    assert err <= tol * max(1.0, float(want.double().abs().max())), err
+
+
+def randn(g, shape, dtype=torch.float32, scale=1.0):
+    return (torch.randn(shape, generator=g, device=g.device) * scale) \
+        .to(dtype)
 
 
 @pytest.mark.gpu
@@ -86,3 +102,123 @@ def test_phase_on_the_card_runs_the_kernels(cuda, ring_name):
             assert d.combine_ref == 0
             assert (d.combine_kernel > 0) == (ring.bits == 32)
     assert torch.equal(scores["cuda"].cpu(), scores["cpu"])
+
+
+FLOAT_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", [(3, 67, 67, 16, 1), (2, 128, 128, 64, 1),
+                                   (1, 64, 64, 128, 1), (6, 96, 96, 32, 3),
+                                   (2, 40, 100, 64, 2)])
+def test_flash_attn_kernel_matches_plain(cuda, dtype, causal, shape):
+    """(BH, Sq, Skv, Dh, group): ragged, every head dim, grouped kv, and
+    Sq != Skv (non-causal only)."""
+    from repro_torch.kernels import flash_attn as fa
+    bh, sq, skv, dh, group = shape
+    if causal and sq != skv:
+        skv = sq
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q = randn(g, (bh, sq, dh), dtype)
+    k, v = (randn(g, (bh // group, skv, dh), dtype) for _ in range(2))
+    got = fa.launch(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    assert_close(got, ref.flash_attn(q, k, v, causal=causal), FLOAT_TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("rv", [(16, 2), (64, 2), (256, 30522), (7, 1000)])
+def test_entropy_head_kernel_matches_plain(cuda, dtype, rv):
+    from repro_torch.kernels import entropy_head as eh
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = randn(g, rv, dtype, 3.0)
+    got = eh.launch(x)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (rv[0],)
+    assert_close(got, ref.entropy_head(x), 1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(3, 67, 16, 4, 1), (2, 128, 64, 16, 1),
+                                   (1, 64, 128, 64, 1), (4, 32, 32, 2, 2),
+                                   (6, 100, 64, 16, 3)])
+def test_mlp_softmax_attn_kernel_matches_plain(cuda, dtype, shape):
+    """(BH, S, Dh, hid, group)."""
+    from repro_torch.kernels import mlp_softmax_attn as msa
+    bh, s, dh, hid, group = shape
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q = randn(g, (bh, s, dh), dtype)
+    k, v = (randn(g, (bh // group, s, dh), dtype) for _ in range(2))
+    w = (randn(g, (s, hid), scale=0.2), randn(g, (hid,), scale=0.1),
+         randn(g, (hid, s), scale=0.2), randn(g, (s,), scale=0.01))
+    got = msa.launch(q, k, v, *w)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    assert_close(got, ref.mlp_softmax_attn(q, k, v, *w), FLOAT_TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["full", "no-se"])
+def test_clear_proxy_on_the_card_runs_the_kernels(cuda, variant):
+    """A clear proxy forward on CUDA launches mlp_softmax_attn (and, for
+    the exact entropy, entropy_head), never a plain version, and scores
+    within 1e-4 of the same forward on the CPU."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs.paper_targets import TINY_TARGET
+    from repro_torch.core.proxy import ProxySpec, random_proxy
+    from repro_torch.engine import VARIANTS, ClearEngine, proxy_entropy
+    from repro_torch.kernels import ops as kops
+    cfg = dataclasses.replace(TINY_TARGET, vocab_size=64, d_model=64,
+                              n_heads=4, n_kv_heads=2, d_head=16)
+    spec = ProxySpec(2, 4, 8)
+    tok = torch.as_tensor(np.random.default_rng(0).integers(0, 64, (4, 40)))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        pp = random_proxy(torch.Generator().manual_seed(0), cfg, spec, 40, 3,
+                          device=dev)
+        kops.reset_msa_stats()
+        kops.reset_eh_stats()
+        out[dev] = proxy_entropy(ClearEngine(), pp, cfg, tok.to(dev), spec,
+                                 VARIANTS[variant]).cpu()
+        if dev == "cuda":
+            assert kops.msa_stats() == {"kernel": 2, "ref": 0}
+            assert kops.eh_stats() == {
+                "kernel": int(variant == "no-se"), "ref": 0}
+    assert_close(out["cuda"], out["cpu"], 1e-4)
+
+
+@pytest.mark.gpu
+def test_target_on_the_card_runs_the_kernels(cuda):
+    """The target's entropy on CUDA goes through flash_attn (once a layer)
+    and entropy_head, and agrees with the CPU within 1e-4."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs.paper_targets import TINY_TARGET
+    from repro_torch.core import target, tree
+    from repro_torch.kernels import ops as kops
+    cfg = dataclasses.replace(TINY_TARGET, n_layers=2, vocab_size=256,
+                              d_model=64, n_heads=4, n_kv_heads=2, d_head=16,
+                              d_ff=128)
+    params = target.init_classifier(torch.Generator(device=cuda)
+                                    .manual_seed(0), cfg, 3, device=cuda)
+    tok = np.random.default_rng(0).integers(0, 256, (5, 70))
+    kops.reset_fa_stats()
+    kops.reset_eh_stats()
+    ent = target.prediction_entropy(params, cfg, tok)
+    logits = target.classifier_logits(params, cfg, tok)
+    assert kops.fa_stats() == {"kernel": 2 * cfg.n_layers, "ref": 0}
+    assert kops.eh_stats() == {"kernel": 1, "ref": 0}
+    cpu = tree.to_device(params, "cpu")
+    assert_close(logits.cpu(), target.classifier_logits(cpu, cfg, tok), 1e-4)
+    assert_close(ent.cpu(), target.prediction_entropy(cpu, cfg, tok), 1e-4)

@@ -4,7 +4,7 @@
 Fusion-smoke geometry (benchmarks/bench_fusion.py:563-566: d_model 32,
 2 heads of 16, proxy <1, 2, 4>, batch 8, seq 8, 2 classes; a pool of 24
 and waves of 2). The proxy is built by the JAX package from a seed and
-carried across with `from_jax_params`; the pool comes from numpy.
+carried across with `core.tree.to_device`; the pool comes from numpy.
 
   * `proxy_entropy` over MPCEngine, eager and fused: bitwise shares,
     the same carried exponent, record-for-record ledgers;
@@ -42,7 +42,7 @@ from repro.mpc import quickselect as j_quickselect
 from repro.mpc.ring import RING32 as J_RING32, RING64 as J_RING64
 from repro.mpc.sharing import reconstruct as j_reconstruct, share as j_share
 from repro_torch.configs.paper_targets import TINY_TARGET
-from repro_torch.core import proxy
+from repro_torch.core import proxy, tree
 from repro_torch.core.executor import ExecConfig, WaveExecutor
 from repro_torch.engine import (ClearEngine, MPCEngine, cached_probe,
                                 proxy_entropy)
@@ -124,7 +124,7 @@ class SieveParity:
 
     @pytest.fixture(scope="class")
     def pp(self, jax_side):
-        return proxy.from_jax_params(jax_side["pp"], device="cpu")
+        return tree.to_device(jax_side["pp"], device="cpu")
 
     @property
     def ring(self):
@@ -213,7 +213,7 @@ def test_clear_engine_matches_jax_clear():
                                             (BATCH, SEQ))
     want = np.asarray(j_proxy_entropy(JClearEngine(), jpp, J_CFG,
                                       jnp.asarray(tok), J_SPEC))
-    pp = proxy.from_jax_params(jax.tree.map(np.asarray, jpp), device="cpu")
+    pp = tree.to_device(jax.tree.map(np.asarray, jpp), device="cpu")
     got = proxy_entropy(ClearEngine(), pp, CFG, torch.as_tensor(tok), SPEC)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
 

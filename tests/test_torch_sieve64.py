@@ -6,7 +6,7 @@ import jax
 import torch
 
 from repro.core import proxy as j_proxy
-from repro_torch.core import proxy
+from repro_torch.core import proxy, tree
 from repro_torch.engine import ClearEngine, MPCEngine, proxy_entropy
 from repro_torch.mpc import prng
 from repro_torch.mpc.ring import RING64
@@ -24,7 +24,7 @@ class TestRing64(SieveParity):
 def test_clear_vs_mpc_ring64():
     jpp = j_proxy.random_proxy(jax.random.key(0), J_CFG, J_SPEC,
                                seq_len=SEQ, n_classes=CLASSES)
-    pp = proxy.from_jax_params(jax.tree.map(np.asarray, jpp), device="cpu")
+    pp = tree.to_device(jax.tree.map(np.asarray, jpp), device="cpu")
     tok = torch.as_tensor(np.random.default_rng(1).integers(
         0, GEOM["vocab_size"], (BATCH, SEQ)))
     clear = proxy_entropy(ClearEngine(), pp, CFG, tok, SPEC)
