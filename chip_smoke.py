@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port of the private sieve on one NVIDIA GPU.
+"""Run the PyTorch/CUDA port on one NVIDIA GPU: the private sieve, the
+clear scoring paths and token serving.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -44,7 +45,20 @@ result line):
      batch 4) — mlp_softmax_attn once a layer a batch; one phase-2 batch
      agrees with the CPU; its survivors' overlap with the MPC sieve's is
      printed. Each is profiled (torch.profiler, CUDA activity): wall and
-     device kernel time.
+     device kernel time;
+  7. token serving at full width: mamba2_2_7b (64 SSD layers, d_model
+     2560) and then recurrentgemma_2b (26 layers: 18 RG-LRU, 8 local
+     attention with d_head 256 over one kv head), random weights from
+     --seed on the card, through the port's `launch.serve.Server`: 8
+     requests of 512-token prompts on 4 slots, 16 new tokens each (two
+     prefill batches, 15 decode steps each). Prefill launches ssd, or
+     rg_lru and flash_attn (Dh 256), once a layer a batch and no plain
+     version; tok/s, prefill and decode wall, peak memory; one prefill
+     batch and one decode step profiled; the card against the CPU on one
+     request (prefill and 4 decode steps' logits, depth cut to one layer
+     or one block pattern, float32) within 1e-4 of max |CPU|. Phase 2
+     also checks and times ssd (with its final state), rg_lru and
+     flash_attn at Dh 256.
 
 The last lines are the card's `nvidia-smi` name and power limit, one
 `{"kernels": [...]}` JSON line, and the result line
@@ -70,6 +84,9 @@ PEAK_OPS_S = 67e12
 # float kernels against their plain versions, of max(1, max |plain|):
 # float32 attention (sums reassociated), float32 entropy, bfloat16 outputs
 TOL, EH_TOL, BF16_TOL = 1e-4, 1e-5, 1e-2
+# scan kernels against their plain versions, float32, of max(1, max
+# |plain|): the JAX package's tolerance for the same kernels
+SCAN_TOL = 1e-5
 
 DEVICE = "cuda"
 RING_MATMUL_TPU = "src/repro/mpc/protocols/additive2pc.py:71"
@@ -77,6 +94,8 @@ SECURE_MATMUL_TPU = "src/repro/kernels/secure_matmul.py:60"
 FLASH_ATTN_TPU = "src/repro/kernels/flash_attn.py:69"
 ENTROPY_HEAD_TPU = "src/repro/kernels/entropy_head.py:53"
 MLP_SOFTMAX_ATTN_TPU = "src/repro/kernels/mlp_softmax_attn.py:74"
+SSD_TPU = "src/repro/kernels/ssd.py:63"
+RG_LRU_TPU = "src/repro/kernels/rg_lru.py:42"
 CSRC = "src/repro_torch/kernels/csrc"
 
 
@@ -311,39 +330,66 @@ def phase_float_kernels(seed: int) -> dict:
             f"|plain|, limit {tol})")
 
     out = {}
-    # flash_attn: (label, BH, S, Dh, dtype, causal, timed); BH 192 is the
-    # Oracle's batch of 16 x 12 heads at BERT width
+    # flash_attn: (label, BH, S, Dh, group, dtype, causal, window, timed);
+    # BH 192 is the Oracle's batch of 16 x 12 heads at BERT width;
+    # (40, 512, 256), group 10, causal is a RecurrentGemma prefill batch
+    # (4 x 10 heads over one kv head), phase 7's shape, where the local
+    # window of 2048 covers the prompt; the windowed cases are prompts
+    # longer than their window
     res = out["flash_attn"] = {}
-    for label, bh, sq, dh, dt, causal, timed in (
-            ("path (Oracle batch)", 192, 512, 64, f32, False, True),
-            ("48 heads", 48, 512, 64, f32, False, False),
-            ("causal", 48, 512, 64, f32, True, False),
-            ("ragged", 48, 100, 64, f32, False, False),
-            ("ragged causal", 48, 100, 64, f32, True, False),
-            ("bf16", 48, 512, 64, bf16, False, False)):
-        q, k, v = (randn((bh, sq, dh), dt) for _ in range(3))
-        check("flash_attn", f"{label} ({bh},{sq},{dh})",
-              fa.launch(q, k, v, causal),
-              ref.flash_attn(q, k, v, causal=causal),
+    for label, bh, sq, dh, group, dt, causal, window, timed in (
+            ("path (Oracle batch)", 192, 512, 64, 1, f32, False, 0, True),
+            ("48 heads", 48, 512, 64, 1, f32, False, 0, False),
+            ("causal", 48, 512, 64, 1, f32, True, 0, False),
+            ("ragged", 48, 100, 64, 1, f32, False, 0, False),
+            ("ragged causal", 48, 100, 64, 1, f32, True, 0, False),
+            ("bf16", 48, 512, 64, 1, bf16, False, 0, False),
+            ("path (RecurrentGemma prefill)", 40, 512, 256, 10, f32, True,
+             2048, True),
+            ("Dh 256 bf16", 40, 512, 256, 10, bf16, True, 2048, False),
+            ("Dh 256 ragged", 20, 130, 256, 10, f32, True, 0, False),
+            ("Dh 256 window 256", 40, 1024, 256, 10, f32, True, 256, False),
+            ("ragged window 100", 20, 300, 256, 10, bf16, True, 100, False),
+            ("window 50", 48, 512, 64, 1, f32, True, 50, False)):
+        q = randn((bh, sq, dh), dt)
+        k, v = (randn((bh // group, sq, dh), dt) for _ in range(2))
+        check("flash_attn", f"{label} ({bh},{sq},{dh}) group {group}"
+              f"{f' window {window}' if window else ''}",
+              fa.launch(q, k, v, causal, window),
+              ref.flash_attn(q, k, v, causal=causal, window=window),
               TOL if dt == f32 else BF16_TOL, res)
         if not timed:
             continue
-        res["ms"] = cuda_ms(fa.launch, q, k, v, causal)
-        res["plain_ms"] = cuda_ms(lambda *a: ref.flash_attn(*a, causal=causal),
-                                  q, k, v)
-        res["library_ms"] = cuda_ms(
-            lambda *a: F.scaled_dot_product_attention(*a, is_causal=causal),
-            q[None], k[None], v[None])
+        t = {"ms": cuda_ms(fa.launch, q, k, v, causal, window),
+             "plain_ms": cuda_ms(lambda *a: ref.flash_attn(
+                 *a, causal=causal, window=window), q, k, v)}
+        # SDPA on the same (B, heads, S, Dh) problem, kv heads shared (the
+        # timed windows cover S, so its causal mask is the same function)
+        qs, ks, vs = (x.reshape(-1, g, sq, dh)
+                      for x, g in ((q, group), (k, 1), (v, 1)))
+        t["library_ms"] = cuda_ms(
+            lambda *a: F.scaled_dot_product_attention(
+                *a, is_causal=causal, enable_gqa=group > 1), qs, ks, vs)
         lib_err = _max_err(F.scaled_dot_product_attention(
-            q[None], k[None], v[None])[0], ref.flash_attn(q, k, v,
-                                                          causal=False))
-        res["bound_ms"], res["bound_by"] = _bound_ms(
-            4 * bh * sq * dh * 4, 4.0 * bh * sq * sq * dh)
-        res["shape"] = f"({bh},{sq},{dh}) f32 non-causal"
-        log(f"[2] flash_attn {res['shape']}: {res['ms']:.4f} ms, plain "
-            f"{res['plain_ms']:.4f} ms, sdpa {res['library_ms']:.4f} ms "
+            qs, ks, vs, is_causal=causal, enable_gqa=group > 1)
+            .reshape(bh, sq, dh),
+            ref.flash_attn(q, k, v, causal=causal, window=window))
+        # (query, key) pairs the mask keeps, two matmuls of Dh each
+        pairs = sum(min(i + 1, window or sq) for i in range(sq)) \
+            if causal else sq * sq
+        flops = 4.0 * bh * pairs * dh
+        t["bound_ms"], t["bound_by"] = _bound_ms(
+            (2 * bh + 2 * bh // group) * sq * dh * 4, flops)
+        t["shape"] = (f"({bh},{sq},{dh}) group {group} f32 "
+                      f"{'causal' if causal else 'non-causal'}")
+        if dh == 256:
+            res["dh256"] = t
+        else:
+            res.update(t)
+        log(f"[2] flash_attn {t['shape']}: {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, sdpa {t['library_ms']:.4f} ms "
             f"(max err vs plain {lib_err:.3g}), bound "
-            f"{res['bound_ms']:.4f} ms ({res['bound_by']})")
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
 
     # entropy_head: (label, R, V, dtype, timed); (16, 2) is the Oracle's
     # batch of 16 over 2 classes; (256, 30522) a vocabulary-wide head
@@ -400,6 +446,104 @@ def phase_float_kernels(seed: int) -> dict:
         log(f"[2] mlp_softmax_attn {res['shape']}: {res['ms']:.4f} ms, "
             f"plain {res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} "
             f"ms ({res['bound_by']})")
+    return out
+
+
+def phase_scan_kernels(seed: int) -> dict:
+    """The scan kernels against their plain versions: ssd (y and the
+    final state against the sequential oracle `ref.ssd`, the state also
+    against the plain chunked scan `ref.ssd_chunked`) and rg_lru against
+    `ref.rg_lru`, at phase 7's shapes plus ragged ones, within SCAN_TOL of
+    max(1, max |plain|) in float32 (BF16_TOL for ssd's bfloat16 y). The
+    timed cases are the path's: one Mamba-2 prefill batch (x (4, 512, 80,
+    64) bfloat16) and one RecurrentGemma recurrence (4, 512, 2560)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rg_lru as lru_k
+    from repro_torch.kernels import ssd as ssd_k
+    f32, bf16 = torch.float32, torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(seed + 200)
+
+    def randn(shape, dtype=f32, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale) \
+            .to(dtype)
+
+    def check(name, label, got, want, tol, res):
+        torch.cuda.synchronize()
+        err, rel = _rel_err(got, want)
+        if not rel <= tol:
+            fail(f"{name} {label}: kernel vs plain error {err:.3g} "
+                 f"({rel:.3g} of max(1, max |plain|), limit {tol})")
+        key = "max_abs_err" if got.dtype != bf16 else "bf16_max_abs_err"
+        res[key] = max(res.get(key, 0.0), err)
+        log(f"[2] {name} {label}: max err {err:.3g} ({rel:.3g} of "
+            f"max(1, max |plain|), limit {tol})")
+
+    out = {}
+    # ssd: (label, B, T, H, P, N, dtype, initial state, timed)
+    res = out["ssd"] = {}
+    for label, bsz, t, h, p, n, dt, with_s0, timed in (
+            ("path (Mamba-2 prefill batch)", 4, 512, 80, 64, 128, bf16,
+             False, True),
+            ("path f32", 4, 512, 80, 64, 128, f32, False, False),
+            ("ragged T (300)", 2, 300, 5, 64, 128, f32, False, False),
+            ("one chunk (T 100)", 3, 100, 4, 64, 128, f32, False, False),
+            ("B*H 8 < 132, initial state", 1, 512, 8, 64, 128, f32, True,
+             False),
+            ("smoke widths", 2, 64, 8, 16, 16, f32, False, False)):
+        x = randn((bsz, t, h, p), dt)
+        a = -randn((bsz, t, h), scale=0.5).abs()
+        b, c = (randn((bsz, t, n), dt, 0.3) for _ in range(2))
+        s0 = randn((bsz, h, p, n), scale=0.5) if with_s0 else None
+        y, state = ssd_k.launch(x, a, b, c, ssd_k.MAX_CHUNK, s0)
+        want_y, want_s = ref.ssd(x, a, b, c, s0)
+        tag = f"{label} x ({bsz},{t},{h},{p}) N {n}"
+        check("ssd", f"{tag} y", y, want_y,
+              SCAN_TOL if dt == f32 else BF16_TOL, res)
+        check("ssd", f"{tag} final state", state, want_s, SCAN_TOL, res)
+        if t % ssd_k.MAX_CHUNK == 0:
+            check("ssd", f"{tag} final state vs chunked", state,
+                  ref.ssd_chunked(x, a, b, c, ssd_k.MAX_CHUNK, s0)[1],
+                  SCAN_TOL, res)
+        if not timed:
+            continue
+        q = ssd_k.MAX_CHUNK
+        res["ms"] = cuda_ms(ssd_k.launch, x, a, b, c)
+        res["plain_ms"] = cuda_ms(ref.ssd_chunked, x, a, b, c, q, reps=3)
+        # per chunk: C B^T and its product with X over the causal lower
+        # triangle (diagonal included), the state read and the update
+        macs = bsz * h * (t // q) * (q * (q + 1) // 2 * (n + p)
+                                     + 2 * q * p * n)
+        nbytes = (2 * x.numel() * x.element_size() + a.numel() * 4
+                  + 2 * b.numel() * b.element_size()
+                  + bsz * h * p * n * 4)
+        res["bound_ms"], res["bound_by"] = _bound_ms(nbytes, 2.0 * macs)
+        res["shape"] = f"x ({bsz},{t},{h},{p}) bf16, b/c ({bsz},{t},{n})"
+        log(f"[2] ssd {res['shape']}: {res['ms']:.4f} ms, plain "
+            f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
+            f"({res['bound_by']})")
+
+    # rg_lru: (label, B, T, D, timed)
+    res = out["rg_lru"] = {}
+    for label, bsz, t, d, timed in (
+            ("path (RecurrentGemma prefill batch)", 4, 512, 2560, True),
+            ("ragged", 3, 100, 2560, False),
+            ("smoke widths", 2, 64, 16, False),
+            ("odd width", 1, 37, 300, False)):
+        a = torch.sigmoid(randn((bsz, t, d)))
+        b = randn((bsz, t, d))
+        check("rg_lru", f"{label} ({bsz},{t},{d})", lru_k.launch(a, b),
+              ref.rg_lru(a, b), SCAN_TOL, res)
+        if not timed:
+            continue
+        res["ms"] = cuda_ms(lru_k.launch, a, b)
+        res["plain_ms"] = cuda_ms(ref.rg_lru, a, b, reps=3)
+        res["bound_ms"], res["bound_by"] = _bound_ms(3 * a.numel() * 4,
+                                                     2.0 * a.numel())
+        res["shape"] = f"({bsz},{t},{d}) f32"
+        log(f"[2] rg_lru {res['shape']}: {res['ms']:.4f} ms, plain "
+            f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
+            f"({res['bound_by']})")
     return out
 
 
@@ -519,7 +663,7 @@ def _event_ms(e) -> float:
 def profiled(fn):
     """fn() under torch.profiler (CUDA activity only), ending in a
     synchronize: (its result, wall s, summed kernel ms, {kernel name:
-    (ms, count)} of the five hand-written kernels and of the four
+    (ms, count)} of the seven hand-written kernels and of the four
     costliest kernels under "top: <name>")."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -533,7 +677,7 @@ def profiled(fn):
     ours = {}
     for e in events:
         for name in ("flash_attn", "entropy_head", "mlp_softmax_attn",
-                     "ring_matmul", "secure_matmul"):
+                     "ring_matmul", "secure_matmul", "ssd", "rg_lru"):
             if f"{name}_kernel" in e.key:
                 ms, n = ours.get(name, (0.0, 0))
                 ours[name] = (ms + _event_ms(e), n + e.count)
@@ -830,6 +974,166 @@ def phase_clear_sieve(seed: int, proxies, sieve, smi: str) -> dict:
     return info
 
 
+# ---------------------------------------------------------------------------
+# phase 7: token serving at full width
+# ---------------------------------------------------------------------------
+
+SERVE_REQUESTS, SERVE_SLOTS, SERVE_PROMPT, SERVE_NEW = 8, 4, 512, 16
+SERVE_MAX_LEN = SERVE_PROMPT + SERVE_NEW
+CPU_DECODE_STEPS = 4           # decode steps of the card-vs-CPU check
+
+
+def _cut_depth(params, cfg):
+    """The first layer (ssm) or the first block pattern (hybrid) of a
+    full-width model, in float32: the depth the CPU side can afford."""
+    import dataclasses
+    from repro_torch.models.transformer import layer_slice
+    out = {k: v for k, v in params.items()
+           if k not in ("layers", "rec_layers", "attn_layers")}
+    if cfg.family == "ssm":
+        out["layers"] = layer_slice(params["layers"], slice(0, 1))
+        return out, dataclasses.replace(cfg, n_layers=1, dtype="float32")
+    pat = cfg.block_pattern
+    out["rec_layers"] = layer_slice(params["rec_layers"],
+                                    slice(0, pat.count("rec")))
+    out["attn_layers"] = layer_slice(params["attn_layers"],
+                                     slice(0, pat.count("attn")))
+    return out, dataclasses.replace(cfg, n_layers=len(pat), dtype="float32")
+
+
+def phase_serve(seed: int, smi: str) -> dict:
+    """Token serving at full width: for mamba2_2_7b, then
+    recurrentgemma_2b, random weights from --seed on the card and the
+    port's Server; 8 requests of 512-token prompts on 4 slots, max_new 16,
+    max_len 528 (two prefill batches of 4 x 512, 15 decode steps each).
+    Prefill must launch ssd once an ssm layer, or rg_lru once a recurrent
+    layer and flash_attn once an attention layer (a local window of 2048
+    covers the 512-token prompt), a batch, and take no plain version. One
+    prefill batch and one decode step are then profiled, and the card is
+    held against the CPU
+    on one request (prefill logits and the first decode steps, depth cut,
+    float32) within TOL of max |CPU|."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import load_arch
+    from repro_torch.core import tree
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch.serve import Request, ServeConfig, Server
+    from repro_torch.models import transformer as T
+    counters = {"ssd": (kops.ssd_stats, kops.reset_ssd_stats),
+                "rg_lru": (kops.lru_stats, kops.reset_lru_stats),
+                "flash_attn": (kops.fa_stats, kops.reset_fa_stats)}
+    results = {}
+    for arch in ("mamba2_2_7b", "recurrentgemma_2b"):
+        t_arch = time.time()
+        cfg = load_arch(arch)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        params = T.init_params(
+            torch.Generator(device=DEVICE).manual_seed(seed), cfg, DEVICE)
+        torch.cuda.synchronize()
+        n_params = sum(x.numel() for x in tree.tree_leaves(params))
+        init_s = time.time() - t0
+        log(f"[7] {arch}: {n_params / 1e9:.3f} B parameters "
+            f"({n_params * 4 / 1e9:.1f} GB float32) drawn on the card in "
+            f"{init_s:.2f} s")
+        sc = ServeConfig(arch=arch, smoke=False, slots=SERVE_SLOTS,
+                         max_len=SERVE_MAX_LEN, max_new=SERVE_NEW, seed=seed)
+        srv = Server(sc, device=DEVICE, params=params)
+        rng = np.random.default_rng(seed)
+        prompts = rng.integers(0, cfg.vocab_size,
+                               (SERVE_REQUESTS, SERVE_PROMPT))
+        for _, reset in counters.values():
+            reset()
+        out = srv.run([Request(i, p) for i, p in enumerate(prompts)])
+        launches = {k: stats() for k, (stats, _) in counters.items()}
+        kinds = cfg._layer_kinds()
+        batches = -(-SERVE_REQUESTS // SERVE_SLOTS)
+        want = {"ssd": kinds.count("ssd") * batches,
+                "rg_lru": kinds.count("rec") * batches,
+                "flash_attn": kinds.count("attn") * batches}
+        info = {k: out[k] for k in ("requests", "tokens", "tok_per_s",
+                                    "wall_s", "prefill_s", "decode_s")}
+        info.update(params_b=n_params / 1e9, init_s=init_s,
+                    peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                    launches=launches)
+        log(f"[7] {arch} serve ({smi}): " + json.dumps(info))
+        for k, n in want.items():
+            if launches[k] != {"kernel": n, "ref": 0}:
+                fail(f"{arch}: {k} {launches[k]}, want {n} kernel launches "
+                     "and no plain call")
+        outs = out["outputs"]
+        if (out["requests"] != SERVE_REQUESTS or sorted(outs) !=
+                list(range(SERVE_REQUESTS))
+                or any(len(o) != SERVE_NEW or min(o) < 0
+                       or max(o) >= cfg.vocab_size for o in outs.values())):
+            fail(f"{arch}: outputs {outs}")
+        log(f"[7] {arch} first request's tokens: {outs[0]}")
+
+        batch = {"tokens": torch.as_tensor(prompts[:SERVE_SLOTS],
+                                           device=DEVICE)}
+
+        def prefill_once():
+            with torch.no_grad():
+                return T.prefill(params, cfg, batch, max_len=SERVE_MAX_LEN)
+        (lg, cache), wall, kernel_ms, ours = profiled(prefill_once)
+        if not torch.isfinite(lg.float()).all():
+            fail(f"{arch}: non-finite prefill logits")
+        info["profile"] = _report("7p", f"{arch} one prefill batch "
+                                  f"({SERVE_SLOTS} x {SERVE_PROMPT})", wall,
+                                  kernel_ms, ours, smi)
+        step = {"tokens": lg.argmax(-1)[:, None]}
+
+        def decode_once():
+            with torch.no_grad():
+                return T.decode_step(params, cfg, cache, step, SERVE_PROMPT)
+        (lg, _), wall, kernel_ms, ours = profiled(decode_once)
+        if not torch.isfinite(lg.float()).all():
+            fail(f"{arch}: non-finite decode logits")
+        info["decode_profile"] = _report(
+            "7p", f"{arch} one decode step ({SERVE_SLOTS} slots)", wall,
+            kernel_ms, ours, smi)
+
+        # the card against the CPU on one request, depth cut, float32
+        cut, cut_cfg = _cut_depth(params, cfg)
+        tok = np.concatenate([prompts[:1], rng.integers(
+            0, cfg.vocab_size, (1, CPU_DECODE_STEPS))], axis=1)
+        got = {}
+        for dev, p in ((DEVICE, cut), ("cpu", tree.to_device(cut, "cpu"))):
+            t0 = time.time()
+            with torch.no_grad():
+                lg, cache = T.prefill(p, cut_cfg,
+                                      {"tokens": tok[:, :SERVE_PROMPT]},
+                                      max_len=SERVE_MAX_LEN)
+                logits = [lg]
+                for j in range(CPU_DECODE_STEPS):
+                    pos = SERVE_PROMPT + j
+                    lg, cache = T.decode_step(
+                        p, cut_cfg, cache, {"tokens": tok[:, pos:pos + 1]},
+                        pos)
+                    logits.append(lg)
+            got[dev] = torch.stack(logits).cpu()
+            log(f"[7] {arch} depth {cut_cfg.n_layers} float32 prefill + "
+                f"{CPU_DECODE_STEPS} decode steps on {dev}: "
+                f"{time.time() - t0:.1f} s")
+        err, _ = _rel_err(got[DEVICE], got["cpu"])
+        rel = err / float(got["cpu"].abs().max())
+        log(f"[7] {arch} card vs CPU: max err {err:.3g} ({rel:.3g} of max "
+            f"|CPU|, limit {TOL})")
+        if not rel <= TOL:
+            fail(f"{arch}: card and CPU logits differ by {err} ({rel} of "
+                 f"max |CPU|, limit {TOL})")
+        info["card_vs_cpu_max_err"] = err
+        results[arch] = info
+        del params, srv, cut, got, lg, cache
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[7] {arch} phase: {time.time() - t_arch:.1f} s")
+    return results
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -851,6 +1155,7 @@ def main(argv=None) -> int:
     smi = phase_build()
     kern = phase_kernels(args.seed)
     fkern = phase_float_kernels(args.seed)
+    skern = phase_scan_kernels(args.seed)
     proxies = build_proxies(args.seed)
     t0 = time.time()
     sieve = phase_sieve(args.seed, proxies)
@@ -866,6 +1171,9 @@ def main(argv=None) -> int:
     t0 = time.time()
     csieve = phase_clear_sieve(args.seed, proxies, sieve, smi)
     log(f"[6b] clear sieve phase: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    serving = phase_serve(args.seed, smi)
+    log(f"[7] token serving phase: {time.time() - t0:.1f} s")
 
     kernels = []
     for name, tpu in (("ring_matmul", RING_MATMUL_TPU),
@@ -882,26 +1190,42 @@ def main(argv=None) -> int:
             "library_note": f"torch has no CUDA int32/int64 matmul "
                             f"({kern['library_error']})",
             "shape": k32["shape"], "dtype": "int32", "int64": k64})
+    rg = serving["recurrentgemma_2b"]["launches"]
     launches = {
-        "flash_attn": tgt["launches"]["flash_attn"]["kernel"],
+        "flash_attn": tgt["launches"]["flash_attn"]["kernel"]
+        + rg["flash_attn"]["kernel"],
         "entropy_head": tgt["launches"]["entropy_head"]["kernel"],
-        "mlp_softmax_attn": csieve["launches"]["mlp_softmax_attn"]["kernel"]}
-    for name in ("flash_attn", "entropy_head", "mlp_softmax_attn"):
-        k = fkern[name]
+        "mlp_softmax_attn": csieve["launches"]["mlp_softmax_attn"]["kernel"],
+        "ssd": serving["mamba2_2_7b"]["launches"]["ssd"]["kernel"],
+        "rg_lru": rg["rg_lru"]["kernel"]}
+    tpu = {"flash_attn": FLASH_ATTN_TPU, "entropy_head": ENTROPY_HEAD_TPU,
+           "mlp_softmax_attn": MLP_SOFTMAX_ATTN_TPU, "ssd": SSD_TPU,
+           "rg_lru": RG_LRU_TPU}
+    notes = {"flash_attn": "torch.nn.functional.scaled_dot_product_attention",
+             "ssd": "none: no single torch call computes the chunked SSD "
+                    "scan",
+             "rg_lru": "none: no single torch call computes a linear "
+                       "recurrence"}
+    measured = {**fkern, **skern}
+    for name in ("flash_attn", "entropy_head", "mlp_softmax_attn", "ssd",
+                 "rg_lru"):
+        k = measured[name]
         kernels.append({
             "name": name, "route": "cuda", "source": f"{CSRC}/{name}.cu",
-            "replaces": {"flash_attn": FLASH_ATTN_TPU,
-                         "entropy_head": ENTROPY_HEAD_TPU,
-                         "mlp_softmax_attn": MLP_SOFTMAX_ATTN_TPU}[name],
-            "launches": launches[name], "max_abs_err": k["max_abs_err"],
+            "replaces": tpu[name], "launches": launches[name],
+            "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k.get("library_ms"),
-            "library_note": "torch.nn.functional.scaled_dot_product_attention"
-                            if name == "flash_attn" else
-                            "no single torch call computes this function",
+            "library_note": notes.get(
+                name, "no single torch call computes this function"),
             "shape": k["shape"],
-            **{x: k[x] for x in ("bf16_max_abs_err", "vocab") if x in k}})
+            **{x: k[x] for x in ("bf16_max_abs_err", "vocab", "dh256")
+               if x in k}})
+        if name == "flash_attn":
+            kernels[-1]["launches_by_path"] = {
+                "6a": tgt["launches"]["flash_attn"]["kernel"],
+                "7 recurrentgemma_2b": rg["flash_attn"]["kernel"]}
     log(f"[5] clear-vs-MPC max abs error: {json.dumps(errs)}")
     log(f"total {time.time() - t_all:.1f} s")
     print(smi)

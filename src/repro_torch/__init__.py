@@ -14,5 +14,10 @@ points run on the card (`device="cuda"`) unless the caller passes
     (`core/target`: Oracle entropy and accuracy, attention on the
     `flash_attn` kernel, entropy on `entropy_head`) and the clear sieve
     phase (`core/selection.clear_phase` over `engine/clear.ClearEngine`,
-    MLP_sm attention on `mlp_softmax_attn`).
+    MLP_sm attention on `mlp_softmax_attn`);
+  * token serving of the ssm (Mamba-2) and hybrid (RecurrentGemma)
+    families — `launch/serve.Server` over `models/transformer`'s
+    `prefill` and `decode_step` — with the SSD scan on the `ssd` kernel,
+    the RG-LRU recurrence on `rg_lru` and the local attention on
+    `flash_attn` in prefill.
 """

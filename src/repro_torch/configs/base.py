@@ -1,9 +1,15 @@
 """Architecture config schema — the port of repro/configs/base.py's
-`ArchConfig` (framework-free, copied as it is). The port carries only
-the paper's own targets so far (configs/paper_targets.py)."""
+`ArchConfig` (framework-free, copied as it is) and its registry
+(`ARCH_IDS`, `load_arch`). The port carries the paper's own targets
+(configs/paper_targets.py) and, of the model zoo, the two families the
+token server runs so far: mamba2_2_7b (ssm) and recurrentgemma_2b
+(hybrid): `ARCH_IDS` lists only those. The zoo's other ids raise until
+their configs are ported (ROADMAP Queue 1, item 13).
+"""
 from __future__ import annotations
 
 import dataclasses
+import importlib
 from typing import Literal
 
 
@@ -124,3 +130,20 @@ class ArchConfig:
         if self.family == "ssm":
             return ["ssd"] * self.n_layers
         return ["attn"] * self.n_layers
+
+
+# ---------------------------------------------------------------------------
+# registry
+# ---------------------------------------------------------------------------
+
+# the ids of the JAX package's zoo whose configs are ported, in its order;
+# the others wait for ROADMAP Queue 1, item 13
+ARCH_IDS = ["recurrentgemma_2b", "mamba2_2_7b"]
+
+
+def load_arch(arch_id: str, smoke: bool = False) -> ArchConfig:
+    if arch_id not in ARCH_IDS:
+        raise ValueError(f"arch {arch_id!r} is unknown or not ported yet "
+                         f"(ROADMAP Queue 1, item 13); ported: {ARCH_IDS}")
+    mod = importlib.import_module(f"repro_torch.configs.{arch_id}")
+    return mod.SMOKE if smoke else mod.CONFIG

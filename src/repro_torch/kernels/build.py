@@ -25,7 +25,9 @@ SOURCES = {"ring_matmul": "ring_matmul.cu",
            "secure_matmul": "secure_matmul.cu",
            "flash_attn": "flash_attn.cu",
            "entropy_head": "entropy_head.cu",
-           "mlp_softmax_attn": "mlp_softmax_attn.cu"}
+           "mlp_softmax_attn": "mlp_softmax_attn.cu",
+           "ssd": "ssd.cu",
+           "rg_lru": "rg_lru.cu"}
 HEADERS = ("ring_tile.cuh", "float_tile.cuh")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -10,6 +10,13 @@
 // max m and sum l in shared memory and acc in registers; the S x S score
 // matrix never leaves the block. The causal form skips key tiles wholly
 // above the diagonal (k0 > q0 + 63), as the TPU kernel's pl.when does.
+// A causal `window` w > 0 (the "local" mask of repro/models/common.py:
+// key k attends query q when q - w < k <= q) also masks k <= q - w and
+// skips the key tiles wholly below the tile's first window (the window
+// is the port's addition: the Pallas kernel has none). A row may find
+// every key of its first tile masked; NEG_INF is finite, so that tile
+// adds exp(0) terms that the next tile's rescale exp(NEG_INF - m)
+// multiplies by 0, and the diagonal key keeps every row non-empty.
 // Rows and columns past the sequence are zero-filled and masked, so a
 // ragged S needs no padding. Accumulation is float32 whatever the input
 // type; the output takes the input's type.
@@ -22,6 +29,12 @@
 // 4 x 4 score micro-tile and a 4 x DH/16 slice of acc, and every shared
 // load feeds four multiply-adds. A wgmma (bf16) / TMA pipeline is the
 // later redesign.
+//
+// Head dims 16, 32, 64, 128 and 256 are instantiated (RecurrentGemma's
+// attention layers have Dh 256). At Dh 256 the same 64 x 64 tiling needs
+// 53,632 floats = 214.5 KB of shared memory (smem_floats), under the
+// 227 KB a block may have, one block an SM; each thread's acc slice is
+// 4 x 16 floats.
 #include "float_tile.cuh"
 
 namespace {
@@ -38,7 +51,8 @@ template <typename T, int DH>
 __global__ void __launch_bounds__(THREADS)
 flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, T* __restrict__ o, int nq,
-                  int group, int sq, int skv, int causal, float scale) {
+                  int group, int sq, int skv, int causal, int window,
+                  float scale) {
   extern __shared__ float smem[];
   float* Qs = smem;                      // BQ x (DH + 1)
   float* Ks = Qs + BQ * (DH + 1);        // BK x (DH + 1)
@@ -68,7 +82,8 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < CJ; ++j) acc[i][j] = 0.f;
 
   const int kend = causal ? min(skv, q0 + BQ) : skv;
-  for (int k0 = 0; k0 < kend; k0 += BK) {
+  const int kbeg = window > 0 ? max(0, q0 - window + 1) / BK * BK : 0;
+  for (int k0 = kbeg; k0 < kend; k0 += BK) {
     __syncthreads();                     // last tile's readers are done
     load_rows<T, BK, DH>(Ks, DH + 1, kb, k0, skv);
     load_rows<T, BK, DH>(Vs, DH, vb, k0, skv);
@@ -80,7 +95,9 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int r = ty + 16 * i, c = tx + 16 * j;
-        const bool masked = k0 + c >= skv || (causal && k0 + c > q0 + r);
+        const int key = k0 + c, query = q0 + r;
+        const bool masked = key >= skv || (causal && key > query) ||
+                            (window > 0 && key <= query - window);
         Ss[r * (BK + 1) + c] = masked ? NEG_INF : s[i][j] * scale;
       }
     __syncthreads();
@@ -145,7 +162,8 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int DH>
 int run(const void* q, const void* k, const void* v, void* o, int bh,
-        int group, int sq, int skv, int causal, float scale, void* stream) {
+        int group, int sq, int skv, int causal, int window, float scale,
+        void* stream) {
   const size_t bytes = smem_floats<DH>() * sizeof(float);
   auto kernel = flash_attn_kernel<T, DH>;
   static int smem_err = allow_smem(kernel, bytes);   // once per instance
@@ -154,19 +172,32 @@ int run(const void* q, const void* k, const void* v, void* o, int bh,
   kernel<<<nq * bh, THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), nq, group, sq, skv,
-      causal, scale);
+      causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* o, int bh,
-           int group, int sq, int skv, int dh, int causal, float scale,
-           void* stream) {
+           int group, int sq, int skv, int dh, int causal, int window,
+           float scale, void* stream) {
+  if (window > 0 && !causal)
+    return static_cast<int>(cudaErrorInvalidValue);
   switch (dh) {
-    case 16: return run<T, 16>(q, k, v, o, bh, group, sq, skv, causal, scale, stream);
-    case 32: return run<T, 32>(q, k, v, o, bh, group, sq, skv, causal, scale, stream);
-    case 64: return run<T, 64>(q, k, v, o, bh, group, sq, skv, causal, scale, stream);
-    case 128: return run<T, 128>(q, k, v, o, bh, group, sq, skv, causal, scale, stream);
+    case 16:
+      return run<T, 16>(q, k, v, o, bh, group, sq, skv, causal, window,
+                        scale, stream);
+    case 32:
+      return run<T, 32>(q, k, v, o, bh, group, sq, skv, causal, window,
+                        scale, stream);
+    case 64:
+      return run<T, 64>(q, k, v, o, bh, group, sq, skv, causal, window,
+                        scale, stream);
+    case 128:
+      return run<T, 128>(q, k, v, o, bh, group, sq, skv, causal, window,
+                        scale, stream);
+    case 256:
+      return run<T, 256>(q, k, v, o, bh, group, sq, skv, causal, window,
+                        scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -175,15 +206,16 @@ int launch(const void* q, const void* k, const void* v, void* o, int bh,
 
 extern "C" int flash_attn_f32(const void* q, const void* k, const void* v,
                               void* o, int bh, int group, int sq, int skv,
-                              int dh, int causal, float scale, void* stream) {
-  return launch<float>(q, k, v, o, bh, group, sq, skv, dh, causal, scale,
-                       stream);
+                              int dh, int causal, int window, float scale,
+                              void* stream) {
+  return launch<float>(q, k, v, o, bh, group, sq, skv, dh, causal, window,
+                       scale, stream);
 }
 
 extern "C" int flash_attn_bf16(const void* q, const void* k, const void* v,
                                void* o, int bh, int group, int sq, int skv,
-                               int dh, int causal, float scale,
+                               int dh, int causal, int window, float scale,
                                void* stream) {
   return launch<__nv_bfloat16>(q, k, v, o, bh, group, sq, skv, dh, causal,
-                               scale, stream);
+                               window, scale, stream);
 }

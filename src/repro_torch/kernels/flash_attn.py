@@ -3,7 +3,9 @@ of the Pallas kernel repro/kernels/flash_attn.py:flash_attn, as the CUDA
 kernel in csrc/flash_attn.cu. Grouped-query attention passes k and v
 with BH / group rows; the kernel reads kv head bh // group and never
 repeats them. Float32 or bfloat16 in, float32 accumulation, q's dtype
-out. Bound on the card: operations, on the CUDA cores (see the source).
+out. A causal `window` w > 0 also masks keys k <= q - w (the "local"
+mask), an addition of the port. Bound on the card: operations, on the
+CUDA cores (see the source).
 
 Dispatch: a CUDA tensor launches the kernel (or raises); a CPU tensor
 takes the plain version `kernels.ref.flash_attn`.
@@ -22,12 +24,12 @@ from repro_torch.kernels import ref
 _stats = {"kernel": 0, "ref": 0}
 
 _FN = {torch.float32: "flash_attn_f32", torch.bfloat16: "flash_attn_bf16"}
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 
 
 def _fn(dtype: torch.dtype):
     f = getattr(build.lib("flash_attn"), _FN[dtype])
-    f.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 \
+    f.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 \
         + [ctypes.c_float, ctypes.c_void_p]
     f.restype = ctypes.c_int
     return f
@@ -51,11 +53,18 @@ def check_attention_operands(name: str, q, k, v) -> int:
     return q.shape[0] // k.shape[0]
 
 
+def check_window(causal: bool, window: int) -> None:
+    if window < 0 or (window and not causal):
+        raise ValueError(f"flash_attn: a window ({window}) must be >= 0 "
+                         "and needs causal attention")
+
+
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           causal: bool) -> torch.Tensor:
+           causal: bool, window: int = 0) -> torch.Tensor:
     """Run the kernel on CUDA tensors q (BH, Sq, Dh), k/v (BH / group,
     Skv, Dh)."""
     group = check_attention_operands("flash_attn", q, k, v)
+    check_window(causal, window)
     if causal and q.shape[1] != k.shape[1]:
         raise ValueError("flash_attn kernel: causal attention needs "
                          f"Sq == Skv, got {q.shape[1]} and {k.shape[1]}")
@@ -66,7 +75,7 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return o
     err = _fn(q.dtype)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                        o.data_ptr(), bh, group, sq, k.shape[1], dh,
-                       int(causal), dh ** -0.5,
+                       int(causal), window, dh ** -0.5,
                        torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attn kernel launch failed: CUDA error "
@@ -76,13 +85,14 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-               causal: bool = True) -> torch.Tensor:
+               causal: bool = True, window: int = 0) -> torch.Tensor:
     """softmax(q k^T / sqrt(Dh)) v per head; `causal` masks key j > query
-    i and needs Sq == Skv."""
+    i and needs Sq == Skv; a `window` w > 0 also masks j <= i - w."""
     if q.device.type == "cpu":
+        check_window(causal, window)
         _stats["ref"] += 1
-        return ref.flash_attn(q, k, v, causal=causal)
-    return launch(q, k, v, causal)
+        return ref.flash_attn(q, k, v, causal=causal, window=window)
+    return launch(q, k, v, causal, window)
 
 
 def stats() -> dict:

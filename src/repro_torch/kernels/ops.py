@@ -7,7 +7,8 @@ shape-only fake.
 
 The launch counters (`smm_stats` for secure_matmul, `rmm_stats` for
 ring_matmul, `fa_stats` for flash_attn, `eh_stats` for entropy_head,
-`msa_stats` for mlp_softmax_attn) count kernel launches under "kernel"
+`msa_stats` for mlp_softmax_attn, `ssd_stats` for ssd, `lru_stats` for
+rg_lru) count kernel launches under "kernel"
 and plain-version calls under "ref". The executor snapshots the ring
 counters around a phase (`DeviceReport.combine_*` / `matmul_*`); a run
 on the card reads them all to show that its work went through the
@@ -18,13 +19,17 @@ from __future__ import annotations
 from repro_torch.kernels import entropy_head as _eh
 from repro_torch.kernels import flash_attn as _fa
 from repro_torch.kernels import mlp_softmax_attn as _msa
+from repro_torch.kernels import rg_lru as _lru
 from repro_torch.kernels import ring_matmul as _rmm
 from repro_torch.kernels import secure_matmul as _smm
+from repro_torch.kernels import ssd as _ssd
 
 ring_matmul = _rmm.ring_matmul
 flash_attn = _fa.flash_attn
 entropy_head = _eh.entropy_head
 mlp_softmax_attn = _msa.mlp_softmax_attn
+ssd_chunked = _ssd.ssd_chunked
+rg_lru_scan = _lru.rg_lru_scan
 
 
 def secure_matmul(eps, dlt, a_sh, b_sh, c_sh):
@@ -76,3 +81,21 @@ def msa_stats() -> dict:
 
 def reset_msa_stats() -> None:
     _msa.reset_stats()
+
+
+def ssd_stats() -> dict:
+    """Snapshot of the ssd counters (kernel / ref)."""
+    return _ssd.stats()
+
+
+def reset_ssd_stats() -> None:
+    _ssd.reset_stats()
+
+
+def lru_stats() -> dict:
+    """Snapshot of the rg_lru counters (kernel / ref)."""
+    return _lru.stats()
+
+
+def reset_lru_stats() -> None:
+    _lru.reset_stats()

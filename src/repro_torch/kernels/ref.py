@@ -12,6 +12,12 @@ Float kernels (allclose): `flash_attn`, `entropy_head` and
 materialized (S x S) scores. They take the kernels' grouped layout —
 q (BH, Sq, Dh) against k/v (BH / group, Skv, Dh) — and return q's dtype
 (`entropy_head`: float32), as the kernels do.
+
+Scans (allclose): `ssd` and `rg_lru` mirror repro/kernels/ref.py:46-84,
+step by step in float32. `ssd` also returns the final state, which the
+port's kernel writes. `ssd_chunked` is the chunked SSD of
+repro/models/ssd.py:48-92 (`ssd_scan`), op for op: the plain version of
+the `ssd` kernel, which the CPU takes.
 """
 from __future__ import annotations
 
@@ -57,8 +63,11 @@ def _kv_for(q: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return t.float().repeat_interleave(q.shape[0] // t.shape[0], dim=0)
 
 
-def flash_attn(q, k, v, *, causal: bool = True) -> torch.Tensor:
-    """Exact softmax attention; `causal` needs Sq == Skv (key j <= query i)."""
+def flash_attn(q, k, v, *, causal: bool = True,
+               window: int = 0) -> torch.Tensor:
+    """Exact softmax attention; `causal` needs Sq == Skv (key j <= query
+    i), and a causal `window` w > 0 also needs j > i - w (the "local"
+    mask)."""
     if causal and q.shape[1] != k.shape[1]:
         raise ValueError(f"causal attention needs Sq == Skv, got "
                          f"{q.shape[1]} and {k.shape[1]}")
@@ -66,6 +75,8 @@ def flash_attn(q, k, v, *, causal: bool = True) -> torch.Tensor:
     if causal:
         sq, sk = s.shape[-2:]
         mask = torch.ones((sq, sk), dtype=torch.bool, device=s.device).tril()
+        if window:
+            mask = mask.triu(1 - window)
         s = s.masked_fill(~mask, float("-inf"))
     return (torch.softmax(s, dim=-1) @ _kv_for(q, v)).to(q.dtype)
 
@@ -85,3 +96,80 @@ def mlp_softmax_attn(q, k, v, w1, b1, w2, b2) -> torch.Tensor:
     s = q.float() @ _kv_for(q, k).transpose(-1, -2) * q.shape[-1] ** -0.5
     probs = torch.relu(s @ w1.float() + b1.float()) @ w2.float() + b2.float()
     return (probs @ _kv_for(q, v)).to(q.dtype)
+
+
+def ssd(x, a, b, c, state0=None):
+    """Sequential state-space scan. x: (B, T, H, P) (dt-scaled inputs),
+    a: (B, T, H) log decays, b, c: (B, T, N). Returns y (B, T, H, P)
+    float32 and the final state (B, H, P, N) float32."""
+    bs, t, h, p = x.shape
+    n = b.shape[-1]
+    state = (torch.zeros((bs, h, p, n), dtype=torch.float32, device=x.device)
+             if state0 is None else state0.float())
+    xf, af, bf, cf = x.float(), a.float(), b.float(), c.float()
+    ys = []
+    for i in range(t):
+        state = state * torch.exp(af[:, i])[..., None, None] \
+            + torch.einsum("bn,bhp->bhpn", bf[:, i], xf[:, i])
+        ys.append(torch.einsum("bn,bhpn->bhp", cf[:, i], state))
+    return torch.stack(ys, dim=1), state
+
+
+def segsum(a):
+    """a: (..., Q) log decays -> (..., Q, Q) lower-triangular pairwise sums
+    L[i, j] = sum_{j+1..i} a, -inf above the diagonal."""
+    q = a.shape[-1]
+    cum = torch.cumsum(a, dim=-1)
+    seg = cum[..., :, None] - cum[..., None, :]
+    tri = torch.ones((q, q), dtype=torch.bool, device=a.device).tril()
+    return seg.masked_fill(~tri, float("-inf"))
+
+
+def ssd_chunked(x, a, b, c, chunk: int = 128, state0=None):
+    """Chunked SSD, as the JAX package's models/ssd.py:ssd_scan computes
+    it: per chunk the intra-chunk term ((C B^T) * L) X, the state read
+    C S^T exp(cum) and the state update. x: (B, T, H, P), a: (B, T, H),
+    b, c: (B, T, N), T a multiple of min(chunk, T). Returns y in x's dtype
+    and the final state (B, H, P, N) float32."""
+    bsz, t, h, p = x.shape
+    n = b.shape[-1]
+    chunk = min(chunk, t)
+    assert t % chunk == 0
+    nc = t // chunk
+    xc = x.reshape(bsz, nc, chunk, h, p)
+    ac = a.reshape(bsz, nc, chunk, h)
+    bc = b.reshape(bsz, nc, chunk, n)
+    cc = c.reshape(bsz, nc, chunk, n)
+    state = (state0 if state0 is not None else
+             torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device))
+    ys = []
+    for i in range(nc):
+        x_, b_, c_ = xc[:, i].float(), bc[:, i].float(), cc[:, i].float()
+        a_ = ac[:, i].float()
+        cum = torch.cumsum(a_, dim=1)                     # (B,Q,H)
+        L = torch.exp(segsum(a_.movedim(-1, 1)))          # (B,H,Q,Q)
+        scores = torch.einsum("bqn,bsn->bqs", c_, b_)
+        m = scores[:, None] * L
+        y_diag = torch.einsum("bhqs,bshp->bqhp", m, x_)
+        decay_in = torch.exp(cum)
+        y_off = torch.einsum("bqn,bhpn->bqhp", c_, state) * decay_in[..., None]
+        chunk_sum = cum[:, -1]                            # (B,H)
+        decay_out = torch.exp(chunk_sum[:, None] - cum)   # (B,Q,H)
+        new_contrib = torch.einsum("bqn,bqh,bqhp->bhpn", b_, decay_out, x_)
+        state = state * torch.exp(chunk_sum)[..., None, None] + new_contrib
+        ys.append((y_diag + y_off).to(x.dtype))
+    return torch.stack(ys, dim=1).reshape(bsz, t, h, p), state
+
+
+def rg_lru(a, bterm, h0=None):
+    """h_t = a_t * h_{t-1} + b_t. a, b: (B, T, D). Returns the h trace
+    (B, T, D) float32."""
+    bsz, t, d = a.shape
+    h = (torch.zeros((bsz, d), dtype=torch.float32, device=a.device)
+         if h0 is None else h0.float())
+    af, bf = a.float(), bterm.float()
+    hs = []
+    for i in range(t):
+        h = af[:, i] * h + bf[:, i]
+        hs.append(h)
+    return torch.stack(hs, dim=1)

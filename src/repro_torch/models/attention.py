@@ -1,14 +1,16 @@
-"""GQA attention: full / chunked online-softmax (plain torch), and the
-flash_attn kernel front — the port of repro/models/attention.py, less
-`attend_decode` (no cache is ported yet).
+"""GQA attention: full / chunked online-softmax / decode-with-cache
+(plain torch), and the flash_attn kernel front — the port of
+repro/models/attention.py.
 
-`attend_full` and `attend_chunked` are the plain versions, op for op the
-JAX functions. `attend_flash` is what a CUDA tensor takes: the exact
-attention of `attend_full` for the unwindowed masks (bidir, causal),
-computed by the hand-written `flash_attn` kernel without the S x S
-scores. The JAX package's comment that its Pallas kernels "take over"
-on the TPU was never wired; here the card always goes through the
-kernel (`transformer._attn_mix`).
+`attend_full`, `attend_chunked` and `attend_decode` are the plain
+versions, op for op the JAX functions. `attend_flash` is what a CUDA
+tensor takes in a forward or a prefill (`transformer._attn_mix`): the
+exact attention of `attend_full` for the bidir, causal and local
+masks, computed by the hand-written `flash_attn` kernel without the
+S x S scores. The JAX package's comment that its Pallas kernels "take
+over" on the TPU was never wired; here the card goes through the
+kernel. One-token decode against a cache is `attend_decode` in plain
+torch on either device, as in JAX.
 
 Layout convention: q (B, S, H, Dh), k/v (B, S, K, Dh) with H = K * G.
 """
@@ -112,19 +114,39 @@ def attend_chunked(q, k, v, *, mask_kind: str = "causal", window: int = 0,
     return torch.cat(outs, dim=1)
 
 
-def attend_flash(q, k, v, *, mask_kind: str = "causal"):
-    """The kernel front: exact attention for mask_kind "bidir" or
-    "causal" (which ignore any window) through `kernels.ops.flash_attn`
-    — q's heads folded into its batch, k/v read per group, not copied.
-    Other masks raise: no kernel computes them yet."""
-    if mask_kind not in ("bidir", "causal"):
+def attend_decode(q, k_cache, v_cache, cache_len, *, window: int = 0,
+                  prefix_len: int = 0, scale: float | None = None):
+    """One-token decode vs a (B, Smax, K, Dh) cache. cache_len masks tail."""
+    b, sq, h, dh = q.shape
+    n_kv = k_cache.shape[2]
+    scale = scale if scale is not None else dh ** -0.5
+    qg = _split_groups(q, n_kv)
+    s = torch.einsum("bqkgd,bjkd->bkgqj", qg.float(), k_cache.float()) * scale
+    kpos = torch.arange(k_cache.shape[1], device=q.device)
+    cache_len = torch.as_tensor(cache_len, device=q.device).expand(b)
+    valid = kpos[None, :] < cache_len[:, None]
+    if window:
+        valid = valid & (kpos[None, :] >= cache_len[:, None] - window)
+    s = torch.where(valid[:, None, None, None, :], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqj,bjkd->bqkgd", p.to(v_cache.dtype), v_cache)
+    return o.reshape(b, sq, h, dh)
+
+
+def attend_flash(q, k, v, *, mask_kind: str = "causal", window: int = 0):
+    """The kernel front: exact attention for mask_kind "bidir", "causal"
+    (both ignore `window`) or "local" (causal within `window`) through
+    `kernels.ops.flash_attn` — q's heads folded into its batch, k/v read
+    per group, not copied. "prefix" raises: no kernel computes it yet."""
+    if mask_kind not in ("bidir", "causal", "local"):
         raise NotImplementedError(
             f"mask_kind {mask_kind!r} has no flash_attn path yet: only "
-            "unwindowed bidir/causal attention is ported to the kernel")
+            "bidir, causal and local attention are ported to the kernel")
     b, sq, h, dh = q.shape
     skv, n_kv = k.shape[1], k.shape[2]
     qf = q.movedim(2, 1).reshape(b * h, sq, dh)
     kf = k.movedim(2, 1).reshape(b * n_kv, skv, dh)
     vf = v.movedim(2, 1).reshape(b * n_kv, skv, dh)
-    o = kops.flash_attn(qf, kf, vf, causal=mask_kind == "causal")
+    o = kops.flash_attn(qf, kf, vf, causal=mask_kind != "bidir",
+                        window=window if mask_kind == "local" else 0)
     return o.reshape(b, h, sq, dh).movedim(1, 2)

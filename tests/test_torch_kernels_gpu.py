@@ -4,7 +4,11 @@ bitwise; the float kernels (flash_attn, mlp_softmax_attn, entropy_head)
 with the largest error bounded by tol * max(1, max |plain|), tol 1e-4
 for the attention kernels and 1e-5 for entropy_head in float32, 1e-2 for
 the attention kernels' bfloat16 outputs (one bf16 rounding of the same
-float32 result); and the clear scoring paths, card against CPU.
+float32 result), flash_attn with and without its causal window; the
+scans (ssd, with its final state, and rg_lru) within 1e-5 in float32
+(the JAX package's tolerance for the same kernels), ssd's bfloat16 y
+within 1e-2; the clear scoring paths and the token server, card against
+CPU.
 
 This file imports no JAX, so it runs where only torch is installed:
 
@@ -112,10 +116,12 @@ FLOAT_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("shape", [(3, 67, 67, 16, 1), (2, 128, 128, 64, 1),
                                    (1, 64, 64, 128, 1), (6, 96, 96, 32, 3),
-                                   (2, 40, 100, 64, 2)])
+                                   (2, 40, 100, 64, 2),
+                                   (20, 130, 130, 256, 10)])
 def test_flash_attn_kernel_matches_plain(cuda, dtype, causal, shape):
-    """(BH, Sq, Skv, Dh, group): ragged, every head dim, grouped kv, and
-    Sq != Skv (non-causal only)."""
+    """(BH, Sq, Skv, Dh, group): ragged, every head dim (256 as in
+    RecurrentGemma, group 10), grouped kv, and Sq != Skv (non-causal
+    only)."""
     from repro_torch.kernels import flash_attn as fa
     bh, sq, skv, dh, group = shape
     if causal and sq != skv:
@@ -127,6 +133,28 @@ def test_flash_attn_kernel_matches_plain(cuda, dtype, causal, shape):
     torch.cuda.synchronize()
     assert got.dtype == dtype
     assert_close(got, ref.flash_attn(q, k, v, causal=causal), FLOAT_TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(3, 200, 64, 1, 50), (2, 67, 16, 1, 1),
+                                   (4, 300, 32, 2, 100),
+                                   (2, 256, 128, 1, 64),
+                                   (20, 130, 256, 10, 64),
+                                   (6, 96, 32, 3, 500)])
+def test_flash_attn_window_matches_plain(cuda, dtype, shape):
+    """(BH, S, Dh, group, window): the causal window (the "local" mask),
+    ragged, narrower than a key tile, tile-aligned, Dh 256 with group
+    10, and wider than the sequence."""
+    from repro_torch.kernels import flash_attn as fa
+    bh, s, dh, group, window = shape
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q = randn(g, (bh, s, dh), dtype)
+    k, v = (randn(g, (bh // group, s, dh), dtype) for _ in range(2))
+    got = fa.launch(q, k, v, True, window)
+    torch.cuda.synchronize()
+    assert_close(got, ref.flash_attn(q, k, v, causal=True, window=window),
+                 FLOAT_TOL[dtype])
 
 
 @pytest.mark.gpu
@@ -222,3 +250,119 @@ def test_target_on_the_card_runs_the_kernels(cuda):
     cpu = tree.to_device(params, "cpu")
     assert_close(logits.cpu(), target.classifier_logits(cpu, cfg, tok), 1e-4)
     assert_close(ent.cpu(), target.prediction_entropy(cpu, cfg, tok), 1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 64, 3, 8, 16, 16),
+                                   (1, 128, 2, 16, 32, 32),
+                                   (2, 100, 3, 64, 128, 128),
+                                   (1, 300, 2, 64, 128, 128),
+                                   (2, 256, 5, 64, 128, 128)])
+@pytest.mark.parametrize("with_state0", [False, True])
+def test_ssd_kernel_matches_plain(cuda, dtype, shape, with_state0):
+    """(B, T, H, P, N, chunk): small chunks, one ragged chunk only, T not
+    a multiple of the chunk, several whole chunks; y and the final state
+    against the sequential oracle, and against the plain chunked scan
+    where T is a multiple of the chunk."""
+    from repro_torch.kernels import ssd as ssd_k
+    bsz, t, h, p, n, chunk = shape
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x = randn(g, (bsz, t, h, p), dtype)
+    a = -randn(g, (bsz, t, h), scale=0.5).abs()
+    b, c = (randn(g, (bsz, t, n), dtype, 0.3) for _ in range(2))
+    s0 = randn(g, (bsz, h, p, n), scale=0.5) if with_state0 else None
+    y, state = ssd_k.launch(x, a, b, c, chunk, s0)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and state.dtype == torch.float32
+    want_y, want_s = ref.ssd(x, a, b, c, s0)
+    assert_close(y, want_y, 1e-5 if dtype == torch.float32 else 1e-2)
+    assert_close(state, want_s, 1e-5)
+    if t % chunk == 0:
+        assert_close(state, ref.ssd_chunked(x, a, b, c, chunk, s0)[1], 1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 64, 16), (1, 128, 32), (3, 100, 2560),
+                                   (4, 512, 2560)])
+def test_rg_lru_kernel_matches_plain(cuda, shape):
+    from repro_torch.kernels import rg_lru as lru_k
+    g = torch.Generator(device=cuda).manual_seed(7)
+    a = torch.sigmoid(randn(g, shape))
+    b = randn(g, shape)
+    got = lru_k.launch(a, b)
+    torch.cuda.synchronize()
+    assert_close(got, ref.rg_lru(a, b), 1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mamba2_2_7b", "recurrentgemma_2b"])
+def test_serving_on_the_card_runs_the_kernels(cuda, arch):
+    """Prefill and two decode steps of a smoke config on CUDA (float32)
+    launch ssd, or rg_lru and flash_attn, once a layer, never a plain
+    version, and agree with the CPU within 1e-4 of max |CPU|."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs.base import load_arch
+    from repro_torch.core import tree
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(load_arch(arch, smoke=True), dtype="float32")
+    params = T.init_params(torch.Generator(device=cuda).manual_seed(0), cfg,
+                           cuda)
+    tok = np.random.default_rng(0).integers(0, cfg.vocab_size, (3, 18))
+    out = {}
+    for dev, p in (("cuda", params), ("cpu", tree.to_device(params, "cpu"))):
+        for reset in (kops.reset_ssd_stats, kops.reset_lru_stats,
+                      kops.reset_fa_stats):
+            reset()
+        lg, cache = T.prefill(p, cfg, {"tokens": tok[:, :16]}, max_len=24)
+        logits = [lg]
+        for j in range(2):
+            lg, cache = T.decode_step(p, cfg, cache,
+                                      {"tokens": tok[:, 16 + j:17 + j]},
+                                      16 + j)
+            logits.append(lg)
+        out[dev] = torch.stack(logits).cpu()
+        if dev == "cuda":
+            kinds = cfg._layer_kinds()
+            assert kops.ssd_stats() == {"kernel": kinds.count("ssd"),
+                                        "ref": 0}
+            assert kops.lru_stats() == {"kernel": kinds.count("rec"),
+                                        "ref": 0}
+            assert kops.fa_stats() == {"kernel": kinds.count("attn"),
+                                       "ref": 0}
+    err = float((out["cuda"] - out["cpu"]).abs().max())
+    assert err <= 1e-4 * float(out["cpu"].abs().max()), err
+
+
+@pytest.mark.gpu
+def test_local_window_on_the_card_runs_the_kernel(cuda):
+    """RecurrentGemma's smoke forward at a sequence past its window (40 >
+    16): every local-attention layer launches the windowed flash_attn,
+    never a plain version, and the logits agree with the CPU within 1e-4
+    of max |CPU|."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs.base import load_arch
+    from repro_torch.core import tree
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(load_arch("recurrentgemma_2b", smoke=True),
+                              dtype="float32")
+    assert cfg.window_size < 40
+    params = T.init_params(torch.Generator(device=cuda).manual_seed(1), cfg,
+                           cuda)
+    batch = {"tokens": np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 40))}
+    kops.reset_fa_stats()
+    got, _ = T.forward_logits(params, cfg, batch)
+    assert kops.fa_stats() == {"kernel": cfg._layer_kinds().count("attn"),
+                               "ref": 0}
+    want, _ = T.forward_logits(tree.to_device(params, "cpu"), cfg, batch)
+    err = float((got.cpu() - want).abs().max())
+    assert err <= 1e-4 * float(want.abs().max()), err

@@ -179,9 +179,10 @@ def test_attend_flash_front_matches_attend_full(kind, n_kv):
 
 
 def test_attend_flash_refuses_other_masks():
+    """"prefix" has no kernel form ("local" has: the causal window)."""
     q = t(rand(0, (1, 8, 2, 16)))
     with pytest.raises(NotImplementedError):
-        attention.attend_flash(q, q, q, mask_kind="local")
+        attention.attend_flash(q, q, q, mask_kind="prefix")
 
 
 @pytest.mark.parametrize("act", ["gelu", "swiglu"])
