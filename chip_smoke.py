@@ -10,7 +10,11 @@ result line):
   1. device and build: the card's name and power limit, the CUDA device
      count, and an nvcc build of every kernel from src/repro_torch/kernels/
      csrc/ (one nvcc per source, all started together) with its
-     `-Xptxas -v` register / shared-memory / spill lines;
+     `-Xptxas -v` register / shared-memory / spill lines; then the
+     witness that flash_attn runs on the tensor cores: `cuobjdump -sass`
+     of its library must show HGMMA in every instantiation (bf16 and
+     float32, Dh 16-256), and the path's two (bf16 Dh 256, float32 Dh
+     64) must not spill;
   2. every kernel against its plain torch version on the card: the ring
      kernels on int32 and int64, at the main path's shapes plus ragged and
      broadcast-batch shapes, bitwise; the float kernels (flash_attn,
@@ -18,7 +22,12 @@ result line):
      ragged, causal and bfloat16 ones, within 1e-4 (attention) and 1e-5
      (entropy) of max |plain| in float32. Each is timed with CUDA events
      beside its plain version, its roofline bound and, for flash_attn,
-     torch's scaled_dot_product_attention (a yardstick, not on the path);
+     torch's scaled_dot_product_attention (a yardstick, not on the path).
+     flash_attn is timed at both path cases in the path's dtype: the
+     Oracle's (192, 512, 64) float32, bound against 3xTF32's 165 TFLOP/s
+     (the CUDA cores' 67 beside it), and RecurrentGemma's prefill (40,
+     512, 256) bfloat16, against 989 TFLOP/s, bytes counted at the
+     element size (`flash_attn.work`);
   3. the main path: the two-phase private sieve at BERT-base width
      (d_model 768, 12 heads, d_head 64; proxies <1,1,2> then <3,12,16>;
      batch 4, seq 512, 2 classes; a pool of 64 candidates from --seed,
@@ -81,6 +90,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # adds run on the same cores (int64 emulated), so 67 T/s bounds them
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
+# the tensor cores' dense bf16 rate, and 3xTF32's: three tf32 products
+# (495 T/s) for each float32 one
+PEAK_BF16_S = 989e12
+PEAK_3XTF32_S = 495e12 / 3
 # float kernels against their plain versions, of max(1, max |plain|):
 # float32 attention (sums reassociated), float32 entropy, bfloat16 outputs
 TOL, EH_TOL, BF16_TOL = 1e-4, 1e-5, 1e-2
@@ -116,13 +129,19 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, *args, reps: int = 10) -> float:
-    """Mean device time of fn(*args) over `reps` launches (after warm-up)."""
+def cuda_ms(fn, *args, reps: int = 10, queued: bool = False) -> float:
+    """Mean time of fn(*args) over `reps` launches (after warm-up), from
+    CUDA events around the loop. Where the host issues a call more slowly
+    than the card runs it, that is the host's rate; `queued` first holds
+    the stream in a device-side sleep (~0.1 s) while the host queues
+    every launch, so that the events read the device's time alone."""
     import torch
     fn(*args)
     torch.cuda.synchronize()
     t0, t1 = torch.cuda.Event(enable_timing=True), \
         torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(200_000_000)
     t0.record()
     for _ in range(reps):
         fn(*args)
@@ -152,16 +171,56 @@ def phase_build() -> str:
         f"devices {torch.cuda.device_count()} "
         f"({torch.cuda.get_device_name(0)})")
     t0 = time.time()
-    logs = build.build()
+    build.build()
     log(f"[1] built {sorted(build.SOURCES)} in {time.time() - t0:.1f} s")
-    for name, text in sorted(logs.items()):
-        for line in text.splitlines():
+    for name in sorted(build.SOURCES):
+        for line in build.ptxas_log(name).splitlines():
             if any(w in line for w in ("registers", "spill", "smem",
                                        "Compiling entry")):
                 log(f"[1] ptxas {name}: {line.strip()}")
     for name in build.SOURCES:
         build.lib(name)
     return smi
+
+
+# flash_attn's instantiations: (dtype, Dh) -> its mangled kernel name's
+# template part; the path's two must not spill
+FA_ENTRIES = {(t, dh): f"flash_attn_kernelI{m}Li{dh}E"
+              for t, m in (("bf16", "13__nv_bfloat16"), ("f32", "f"))
+              for dh in (16, 32, 64, 128, 256)}
+FA_PATH_ENTRIES = (("bf16", 256), ("f32", 64))
+
+
+def phase_sass() -> dict:
+    """The witness that flash_attn runs on the tensor cores: every
+    instantiation's SASS (cuobjdump) holds HGMMA, the warpgroup product of
+    bf16 and tf32, and its -Xptxas -v registers and spills; the path's
+    instantiations (bf16 Dh 256, float32 Dh 64) must not spill."""
+    from repro_torch.kernels import build
+    hgmma = build.sass_counts(build.sass("flash_attn"), "HGMMA")
+    ptxas = build.ptxas_entries(build.ptxas_log("flash_attn"))
+    out = {}
+    for (t, dh), tag in FA_ENTRIES.items():
+        fns = [f for f in hgmma if tag in f]
+        if len(fns) != 1:
+            fail(f"flash_attn {t} Dh {dh}: {len(fns)} SASS entries")
+        n = hgmma[fns[0]]
+        p = ptxas.get(fns[0], {})
+        spill = p.get("spill_stores", -1) + p.get("spill_loads", -1)
+        out[f"{t} Dh {dh}"] = {"HGMMA": n, "registers": p.get("registers"),
+                               "spill_bytes": spill}
+        log(f"[1] flash_attn {t} Dh {dh}: {n} HGMMA, "
+            f"{p.get('registers')} registers, {spill} bytes spilled")
+        if n == 0:
+            fail(f"flash_attn {t} Dh {dh}: no HGMMA in its SASS")
+        if spill != 0 and (t, dh) in FA_PATH_ENTRIES:
+            fail(f"flash_attn {t} Dh {dh} (a path instantiation) spills "
+                 f"{spill} bytes")
+    others = [f for f in hgmma if "flash_attn_kernel" in f
+              and not any(tag in f for tag in FA_ENTRIES.values())]
+    if others:
+        fail(f"flash_attn: unexpected kernel entries {others}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -196,8 +255,9 @@ def _smm_cases():
     ]
 
 
-def _bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
-    tb, to = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_OPS_S * 1e3
+def _bound_ms(nbytes: float, ops: float,
+              peak_ops: float = PEAK_OPS_S) -> tuple[float, str]:
+    tb, to = nbytes / PEAK_BYTES_S * 1e3, ops / peak_ops * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -330,66 +390,98 @@ def phase_float_kernels(seed: int) -> dict:
             f"|plain|, limit {tol})")
 
     out = {}
-    # flash_attn: (label, BH, S, Dh, group, dtype, causal, window, timed);
-    # BH 192 is the Oracle's batch of 16 x 12 heads at BERT width;
-    # (40, 512, 256), group 10, causal is a RecurrentGemma prefill batch
-    # (4 x 10 heads over one kv head), phase 7's shape, where the local
-    # window of 2048 covers the prompt; the windowed cases are prompts
-    # longer than their window
+    # flash_attn: (label, BH, Sq, Skv, Dh, group, dtype, causal, window,
+    # input scale, timed); BH 192 is the Oracle's batch of 16 x 12 heads
+    # at BERT width, float32 (phase 6a); (40, 512, 256), group 10, causal
+    # is a RecurrentGemma prefill batch (4 x 10 heads over one kv head) in
+    # bfloat16, phase 7's dtype and shape, where the local window of 2048
+    # covers the prompt; its float32 twin is checked, not timed. The
+    # windowed cases are prompts longer than their window; scale 3 gives
+    # scores of ~30, where one tf32 pass would miss the float32 limit
     res = out["flash_attn"] = {}
-    for label, bh, sq, dh, group, dt, causal, window, timed in (
-            ("path (Oracle batch)", 192, 512, 64, 1, f32, False, 0, True),
-            ("48 heads", 48, 512, 64, 1, f32, False, 0, False),
-            ("causal", 48, 512, 64, 1, f32, True, 0, False),
-            ("ragged", 48, 100, 64, 1, f32, False, 0, False),
-            ("ragged causal", 48, 100, 64, 1, f32, True, 0, False),
-            ("bf16", 48, 512, 64, 1, bf16, False, 0, False),
-            ("path (RecurrentGemma prefill)", 40, 512, 256, 10, f32, True,
-             2048, True),
-            ("Dh 256 bf16", 40, 512, 256, 10, bf16, True, 2048, False),
-            ("Dh 256 ragged", 20, 130, 256, 10, f32, True, 0, False),
-            ("Dh 256 window 256", 40, 1024, 256, 10, f32, True, 256, False),
-            ("ragged window 100", 20, 300, 256, 10, bf16, True, 100, False),
-            ("window 50", 48, 512, 64, 1, f32, True, 50, False)):
-        q = randn((bh, sq, dh), dt)
-        k, v = (randn((bh // group, sq, dh), dt) for _ in range(2))
-        check("flash_attn", f"{label} ({bh},{sq},{dh}) group {group}"
-              f"{f' window {window}' if window else ''}",
+    for (label, bh, sq, skv, dh, group, dt, causal, window, scale,
+         timed) in (
+            ("path (Oracle batch)", 192, 512, 512, 64, 1, f32, False, 0, 1,
+             True),
+            ("48 heads", 48, 512, 512, 64, 1, f32, False, 0, 1, False),
+            ("causal", 48, 512, 512, 64, 1, f32, True, 0, 1, False),
+            ("ragged", 48, 100, 100, 64, 1, f32, False, 0, 1, False),
+            ("ragged causal", 48, 100, 100, 64, 1, f32, True, 0, 1, False),
+            ("bf16", 48, 512, 512, 64, 1, bf16, False, 0, 1, False),
+            ("large scores", 48, 512, 512, 64, 1, f32, False, 0, 3, False),
+            ("Sq 1, ragged Skv", 48, 1, 100, 64, 1, f32, False, 0, 1,
+             False),
+            ("path (RecurrentGemma prefill)", 40, 512, 512, 256, 10, bf16,
+             True, 2048, 1, True),
+            ("Dh 256 f32", 40, 512, 512, 256, 10, f32, True, 2048, 1,
+             False),
+            ("Dh 256 large scores", 40, 512, 512, 256, 10, f32, True, 2048,
+             3, False),
+            ("Dh 256 bf16 large scores", 40, 512, 512, 256, 10, bf16, True,
+             2048, 3, False),
+            ("Dh 256 ragged", 20, 130, 130, 256, 10, f32, True, 0, 1,
+             False),
+            ("Dh 256 window 256", 40, 1024, 1024, 256, 10, f32, True, 256,
+             1, False),
+            ("Dh 256 window 16", 20, 300, 300, 256, 10, f32, True, 16, 1,
+             False),
+            ("ragged window 100", 20, 300, 300, 256, 10, bf16, True, 100, 1,
+             False),
+            ("window 50", 48, 512, 512, 64, 1, f32, True, 50, 1, False)):
+        q = randn((bh, sq, dh), dt, scale)
+        k = randn((bh // group, skv, dh), dt, scale)
+        v = randn((bh // group, skv, dh), dt)
+        tag = str(dt).replace("torch.", "")
+        check("flash_attn", f"{label} ({bh},{sq},{dh}) Skv {skv} group "
+              f"{group} {tag}{f' window {window}' if window else ''}",
               fa.launch(q, k, v, causal, window),
               ref.flash_attn(q, k, v, causal=causal, window=window),
               TOL if dt == f32 else BF16_TOL, res)
         if not timed:
             continue
-        t = {"ms": cuda_ms(fa.launch, q, k, v, causal, window),
+        t = {"ms": cuda_ms(fa.launch, q, k, v, causal, window, reps=50),
              "plain_ms": cuda_ms(lambda *a: ref.flash_attn(
                  *a, causal=causal, window=window), q, k, v)}
-        # SDPA on the same (B, heads, S, Dh) problem, kv heads shared (the
-        # timed windows cover S, so its causal mask is the same function)
-        qs, ks, vs = (x.reshape(-1, g, sq, dh)
+        # SDPA on the same (B, heads, S, Dh) problem in the same dtype, kv
+        # heads shared (the timed windows cover S, so its causal mask is
+        # the same function); each also timed queued, the device alone
+        qs, ks, vs = (x.reshape(-1, g, x.shape[1], dh)
                       for x, g in ((q, group), (k, 1), (v, 1)))
-        t["library_ms"] = cuda_ms(
-            lambda *a: F.scaled_dot_product_attention(
-                *a, is_causal=causal, enable_gqa=group > 1), qs, ks, vs)
-        lib_err = _max_err(F.scaled_dot_product_attention(
-            qs, ks, vs, is_causal=causal, enable_gqa=group > 1)
-            .reshape(bh, sq, dh),
+
+        def sdpa(*a):
+            return F.scaled_dot_product_attention(
+                *a, is_causal=causal, enable_gqa=group > 1)
+        t["library_ms"] = cuda_ms(sdpa, qs, ks, vs, reps=50)
+        t["device_ms"] = cuda_ms(fa.launch, q, k, v, causal, window,
+                                 reps=50, queued=True)
+        t["library_device_ms"] = cuda_ms(sdpa, qs, ks, vs, reps=50,
+                                         queued=True)
+        lib_err = _max_err(sdpa(qs, ks, vs).reshape(bh, sq, dh),
             ref.flash_attn(q, k, v, causal=causal, window=window))
-        # (query, key) pairs the mask keeps, two matmuls of Dh each
-        pairs = sum(min(i + 1, window or sq) for i in range(sq)) \
-            if causal else sq * sq
-        flops = 4.0 * bh * pairs * dh
+        ops, nbytes = fa.work(q.shape, k.shape[0], dt, causal, window, skv)
+        # one bound per dtype: bf16 products at the tensor cores' bf16
+        # rate; float32 at 3xTF32's (three tf32 products for each), with
+        # the CUDA cores' float32 bound beside it
         t["bound_ms"], t["bound_by"] = _bound_ms(
-            (2 * bh + 2 * bh // group) * sq * dh * 4, flops)
-        t["shape"] = (f"({bh},{sq},{dh}) group {group} f32 "
+            nbytes, ops, PEAK_BF16_S if dt == bf16 else PEAK_3XTF32_S)
+        if dt == f32:
+            t["cuda_core_bound_ms"] = _bound_ms(nbytes, ops)[0]
+        t["bound_share"] = t["bound_ms"] / t["ms"]
+        t["shape"] = (f"({bh},{sq},{dh}) group {group} {tag} "
                       f"{'causal' if causal else 'non-causal'}")
         if dh == 256:
             res["dh256"] = t
         else:
             res.update(t)
-        log(f"[2] flash_attn {t['shape']}: {t['ms']:.4f} ms, plain "
-            f"{t['plain_ms']:.4f} ms, sdpa {t['library_ms']:.4f} ms "
-            f"(max err vs plain {lib_err:.3g}), bound "
-            f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
+        log(f"[2] flash_attn {t['shape']}: {t['ms']:.4f} ms (device "
+            f"{t['device_ms']:.4f}), plain {t['plain_ms']:.4f} ms, sdpa "
+            f"{t['library_ms']:.4f} ms (device "
+            f"{t['library_device_ms']:.4f}; max err vs plain {lib_err:.3g}), "
+            f"bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}, "
+            f"{100 * t['bound_share']:.1f} % of it"
+            + (f"; CUDA-core bound {t['cuda_core_bound_ms']:.4f} ms)"
+               if dt == f32 else ")"))
 
     # entropy_head: (label, R, V, dtype, timed); (16, 2) is the Oracle's
     # batch of 16 over 2 classes; (256, 30522) a vocabulary-wide head
@@ -1153,6 +1245,7 @@ def main(argv=None) -> int:
 
     t_all = time.time()
     smi = phase_build()
+    fa_sass = phase_sass()
     kern = phase_kernels(args.seed)
     fkern = phase_float_kernels(args.seed)
     skern = phase_scan_kernels(args.seed)
@@ -1220,9 +1313,12 @@ def main(argv=None) -> int:
             "library_note": notes.get(
                 name, "no single torch call computes this function"),
             "shape": k["shape"],
-            **{x: k[x] for x in ("bf16_max_abs_err", "vocab", "dh256")
+            **{x: k[x] for x in ("bf16_max_abs_err", "vocab", "dh256",
+                                 "cuda_core_bound_ms", "bound_share",
+                                 "device_ms", "library_device_ms")
                if x in k}})
         if name == "flash_attn":
+            kernels[-1]["sass"] = fa_sass
             kernels[-1]["launches_by_path"] = {
                 "6a": tgt["launches"]["flash_attn"]["kernel"],
                 "7 recurrentgemma_2b": rg["flash_attn"]["kernel"]}

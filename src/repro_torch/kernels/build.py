@@ -6,13 +6,16 @@ the library it needs (`lib(name)`), and `build()` compiles several
 sources at once — one nvcc per source, all started together — which is
 what `chip_smoke.py` calls up front. Libraries land in `build/` beside
 this file (listed in .gitignore), named by a digest of their sources and
-flags, so an edited source never loads a stale library.
+flags, so an edited source never loads a stale library, each with the
+compiler's report beside it (`ptxas_log`). `sass` disassembles a built
+library, so a run can show which instructions a kernel issues.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -28,7 +31,8 @@ SOURCES = {"ring_matmul": "ring_matmul.cu",
            "mlp_softmax_attn": "mlp_softmax_attn.cu",
            "ssd": "ssd.cu",
            "rg_lru": "rg_lru.cu"}
-HEADERS = ("ring_tile.cuh", "float_tile.cuh")
+HEADERS = ("ring_tile.cuh", "float_tile.cuh", "hopper_tile.cuh",
+           "wgmma_ops.cuh")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -51,11 +55,11 @@ def target(name: str) -> Path:
     return BUILD / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(names=None) -> dict[str, str]:
+def build(names=None) -> None:
     """Compile the named kernels (all by default) that are not built yet,
-    in parallel. Returns name -> the compiler's output (`-Xptxas -v`:
-    registers, shared memory and spills per kernel); raises with that
-    output if a build fails."""
+    in parallel, keeping each one's compiler output (`-Xptxas -v`:
+    registers, shared memory and spills per kernel) beside its library;
+    raises with that output if a build fails."""
     names = list(SOURCES) if names is None else list(names)
     with _lock:
         BUILD.mkdir(parents=True, exist_ok=True)
@@ -68,13 +72,81 @@ def build(names=None) -> dict[str, str]:
             procs[name] = (out, tmp, subprocess.Popen(
                 [nvcc(), *FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-        logs = {}
         for name, (out, tmp, proc) in procs.items():
-            logs[name] = proc.communicate()[0]
+            log = proc.communicate()[0]
             if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed for {name}:\n{logs[name]}")
+                raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)
-        return logs
+
+
+def ptxas_log(name: str) -> str:
+    """The compiler's output from the build of kernel `name` (kept beside
+    its library)."""
+    return target(name).with_suffix(".log").read_text()
+
+
+def ptxas_entries(log: str) -> dict[str, dict]:
+    """Registers and spill bytes per kernel entry in a `-Xptxas -v`
+    report: mangled name -> {"registers", "spill_stores",
+    "spill_loads"}."""
+    out: dict[str, dict] = {}
+    entry = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = out.setdefault(m.group(1), {})
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            entry["spill_stores"], entry["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            entry["registers"] = int(m.group(1))
+    return out
+
+
+def cuobjdump() -> str:
+    """The CUDA toolkit's cuobjdump, or the copy in Triton's package."""
+    found = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if os.path.exists(found):
+        return found
+    try:
+        import triton
+        found = str(Path(triton.__file__).parent / "backends" / "nvidia"
+                    / "bin" / "cuobjdump")
+    except ImportError:
+        pass
+    if not os.path.exists(found):
+        raise RuntimeError("cuobjdump not found (CUDA toolkit or triton)")
+    return found
+
+
+def sass(name: str) -> str:
+    """The SASS of kernel `name`'s built library (`cuobjdump -sass`)."""
+    lib(name)
+    return subprocess.run([cuobjdump(), "-sass", str(target(name))],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+
+
+def sass_counts(text: str, opcode: str) -> dict[str, int]:
+    """Instructions of `opcode` (e.g. HGMMA, the tensor cores' bf16/tf32
+    warpgroup product) per function in a `cuobjdump -sass` listing."""
+    out: dict[str, int] = {}
+    fn = None
+    pat = re.compile(rf"\b{opcode}\b")
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            out[fn] = 0
+        elif fn is not None and pat.search(line):
+            out[fn] += 1
+    return out
 
 
 def lib(name: str) -> ctypes.CDLL:

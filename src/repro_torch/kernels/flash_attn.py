@@ -1,11 +1,12 @@
 """`flash_attn`: exact online-softmax attention over (BH, S, Dh) — the port
 of the Pallas kernel repro/kernels/flash_attn.py:flash_attn, as the CUDA
-kernel in csrc/flash_attn.cu. Grouped-query attention passes k and v
-with BH / group rows; the kernel reads kv head bh // group and never
-repeats them. Float32 or bfloat16 in, float32 accumulation, q's dtype
-out. A causal `window` w > 0 also masks keys k <= q - w (the "local"
-mask), an addition of the port. Bound on the card: operations, on the
-CUDA cores (see the source).
+kernel in csrc/flash_attn.cu, on Hopper's tensor cores (`wgmma`: bf16
+products for bfloat16, 3xTF32 for float32). Grouped-query attention
+passes k and v with BH / group rows; the kernel reads kv head bh // group
+and never repeats them. Float32 or bfloat16 in, float32 accumulation,
+q's dtype out. A causal `window` w > 0 also masks keys k <= q - w (the
+"local" mask), an addition of the port. `work` counts what a call must
+do, for its bound on the card: bytes in bfloat16, operations in float32.
 
 Dispatch: a CUDA tensor launches the kernel (or raises); a CPU tensor
 takes the plain version `kernels.ref.flash_attn`.
@@ -27,12 +28,42 @@ _FN = {torch.float32: "flash_attn_f32", torch.bfloat16: "flash_attn_bf16"}
 HEAD_DIMS = (16, 32, 64, 128, 256)
 
 
+_fns: dict = {}
+
+
 def _fn(dtype: torch.dtype):
-    f = getattr(build.lib("flash_attn"), _FN[dtype])
-    f.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 \
-        + [ctypes.c_float, ctypes.c_void_p]
-    f.restype = ctypes.c_int
+    """The kernel's C entry point for `dtype`, typed once and kept: the
+    call sits on every attention layer's path."""
+    f = _fns.get(dtype)
+    if f is None:
+        f = getattr(build.lib("flash_attn"), _FN[dtype])
+        f.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 \
+            + [ctypes.c_float, ctypes.c_void_p]
+        f.restype = ctypes.c_int
+        _fns[dtype] = f
     return f
+
+
+def kept_pairs(sq: int, skv: int, causal: bool, window: int = 0) -> int:
+    """(query, key) pairs the mask keeps: all Sq * Skv, or causal key
+    j <= query i (Sq == Skv), and with a window w > 0 also j > i - w."""
+    if not causal:
+        return sq * skv
+    w = window if 0 < window < sq else sq
+    return w * (w + 1) // 2 + (sq - w) * w
+
+
+def work(q_shape, kv_heads: int, dtype: torch.dtype, causal: bool,
+         window: int = 0, skv: int | None = None) -> tuple[float, float]:
+    """(operations, bytes) of one call on q (BH, Sq, Dh) and k/v
+    (kv_heads, Skv, Dh), Skv = Sq unless given: two products of Dh
+    multiply-adds over each kept (query, key) pair, and q, k, v read and
+    o written once each at the dtype's element size."""
+    bh, sq, dh = q_shape
+    skv = sq if skv is None else skv
+    e = torch.empty((), dtype=dtype).element_size()
+    ops = 4.0 * bh * kept_pairs(sq, skv, causal, window) * dh
+    return ops, float((2 * bh * sq + 2 * kv_heads * skv) * dh * e)
 
 
 def check_attention_operands(name: str, q, k, v) -> int:

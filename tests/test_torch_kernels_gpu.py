@@ -158,6 +158,40 @@ def test_flash_attn_window_matches_plain(cuda, dtype, shape):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", [
+    # (dtype, BH, Sq, Skv, Dh, group, causal, window, input scale)
+    # scores of ~30 (inputs x 3): one tf32 pass misses 1e-4, 3xTF32 not
+    ("f32", 6, 256, 256, 64, 1, False, 0, 3.0),
+    ("f32", 4, 200, 200, 256, 2, True, 0, 3.0),
+    ("bf16", 6, 256, 256, 64, 1, False, 0, 3.0),
+    ("bf16", 4, 200, 200, 256, 2, True, 0, 3.0),
+    # Skv not a multiple of any key tile (16, 32, 64), and Sq = 1
+    ("f32", 3, 1, 77, 64, 1, False, 0, 1.0),
+    ("bf16", 3, 1, 77, 256, 3, False, 0, 1.0),
+    ("f32", 2, 50, 77, 128, 2, False, 0, 1.0),
+    ("bf16", 2, 50, 77, 32, 1, False, 0, 1.0),
+    # a window narrower than one key tile at Dh 256
+    ("f32", 20, 130, 130, 256, 10, True, 16, 1.0),
+    ("bf16", 20, 130, 130, 256, 10, True, 16, 1.0)])
+def test_flash_attn_hard_cases_match_plain(cuda, case):
+    """Cases a cheaper kernel would fail: large scores (float32 held at
+    1e-4, so single-pass tf32 products fail), ragged key lengths, a
+    single query, and a window inside one key tile."""
+    from repro_torch.kernels import flash_attn as fa
+    name, bh, sq, skv, dh, group, causal, window, scale = case
+    dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[name]
+    g = torch.Generator(device=cuda).manual_seed(6)
+    q = randn(g, (bh, sq, dh), dtype, scale)
+    k = randn(g, (bh // group, skv, dh), dtype, scale)
+    v = randn(g, (bh // group, skv, dh), dtype)
+    got = fa.launch(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    assert_close(got, ref.flash_attn(q, k, v, causal=causal, window=window),
+                 FLOAT_TOL[dtype])
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 @pytest.mark.parametrize("rv", [(16, 2), (64, 2), (256, 30522), (7, 1000)])
