@@ -14,10 +14,14 @@ result line):
      witness that flash_attn runs on the tensor cores: `cuobjdump -sass`
      of its library must show HGMMA in every instantiation (bf16 and
      float32, Dh 16-256), and the path's two (bf16 Dh 256, float32 Dh
-     64) must not spill;
+     64) must not spill; and that ring_matmul runs on the int8 tensor
+     cores: IGMMA in every instantiation (int32 and int64, each at its
+     two tile widths), none spilling;
   2. every kernel against its plain torch version on the card: the ring
      kernels on int32 and int64, at the main path's shapes plus ragged and
-     broadcast-batch shapes, bitwise; the float kernels (flash_attn,
+     broadcast-batch shapes, bitwise (ring_matmul also with every limb
+     0xFF, a K past its K_CHUNK and INT_MIN / INT_MAX operands); the
+     float kernels (flash_attn,
      entropy_head, mlp_softmax_attn) at the clear paths' shapes plus
      ragged, causal and bfloat16 ones, within 1e-4 (attention) and 1e-5
      (entropy) of max |plain| in float32. Each is timed with CUDA events
@@ -27,7 +31,10 @@ result line):
      Oracle's (192, 512, 64) float32, bound against 3xTF32's 165 TFLOP/s
      (the CUDA cores' 67 beside it), and RecurrentGemma's prefill (40,
      512, 256) bfloat16, against 989 TFLOP/s, bytes counted at the
-     element size (`flash_attn.work`);
+     element size (`flash_attn.work`). ring_matmul is timed at its four
+     path cases on both rings, host-issued and queued, against its u8
+     limb products at the int8 tensor cores' 1,979 TOP/s or its bytes
+     (`ring_matmul.work`), the CUDA cores' 67 T/s bound beside it;
   3. the main path: the two-phase private sieve at BERT-base width
      (d_model 768, 12 heads, d_head 64; proxies <1,1,2> then <3,12,16>;
      batch 4, seq 512, 2 classes; a pool of 64 candidates from --seed,
@@ -94,6 +101,9 @@ PEAK_OPS_S = 67e12
 # (495 T/s) for each float32 one
 PEAK_BF16_S = 989e12
 PEAK_3XTF32_S = 495e12 / 3
+# the tensor cores' dense int8 rate, which ring_matmul's u8 limb products
+# run at
+PEAK_INT8_S = 1979e12
 # float kernels against their plain versions, of max(1, max |plain|):
 # float32 attention (sums reassociated), float32 entropy, bfloat16 outputs
 TOL, EH_TOL, BF16_TOL = 1e-4, 1e-5, 1e-2
@@ -223,23 +233,96 @@ def phase_sass() -> dict:
     return out
 
 
+# ring_matmul's instantiations: (ring, tile width BN) -> its mangled kernel
+# name's template part; every one serves the path (BN 16 where N <= 16)
+RMM_ENTRIES = {("int32", 64): "ring_matmul_kernelIiLi64E",
+               ("int32", 16): "ring_matmul_kernelIiLi16E",
+               ("int64", 32): "ring_matmul_kernelIlLi32E",
+               ("int64", 16): "ring_matmul_kernelIlLi16E"}
+
+
+def phase_ring_sass() -> dict:
+    """The witness that ring_matmul runs on the int8 tensor cores: every
+    instantiation's SASS holds IGMMA (the u8 warpgroup product), none
+    spills, and no other ring_matmul kernel (the CUDA-core one it
+    replaced) is left in the library. ptxas's notes that it serialized
+    wgmma are printed."""
+    from repro_torch.kernels import build
+    igmma = build.sass_counts(build.sass("ring_matmul"), "IGMMA")
+    log_text = build.ptxas_log("ring_matmul")
+    ptxas = build.ptxas_entries(log_text)
+    out = {}
+    for (ring, bn), tag in RMM_ENTRIES.items():
+        fns = [f for f in igmma if tag in f]
+        if len(fns) != 1:
+            fail(f"ring_matmul {ring} BN {bn}: {len(fns)} SASS entries")
+        n = igmma[fns[0]]
+        p = ptxas.get(fns[0], {})
+        spill = p.get("spill_stores", -1) + p.get("spill_loads", -1)
+        out[f"{ring} BN {bn}"] = {"IGMMA": n, "registers": p.get("registers"),
+                                  "spill_bytes": spill}
+        log(f"[1] ring_matmul {ring} BN {bn}: {n} IGMMA, "
+            f"{p.get('registers')} registers, {spill} bytes spilled")
+        if n == 0:
+            fail(f"ring_matmul {ring} BN {bn}: no IGMMA in its SASS")
+        if spill != 0:
+            fail(f"ring_matmul {ring} BN {bn} spills {spill} bytes")
+    others = [f for f in igmma if "ring_matmul" in f
+              and not any(tag in f for tag in RMM_ENTRIES.values())]
+    if others:
+        fail(f"ring_matmul: unexpected kernel entries {others}")
+    for line in log_text.splitlines():
+        if "serialized" in line:
+            log(f"[1] ptxas ring_matmul: {line.strip()}")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+# ring_matmul's main-path cases, each timed on both rings
+RMM_PATH = ("scores eb", "probs@v", "proj", "mlp_sm w1")
+
+
 def _rmm_cases(dt):
-    """(label, a shape, b shape, broadcast b over the batch)."""
+    """(label, a shape, b shape, fill): fill "rand" (uniform over the
+    ring), "bcast" (a weight broadcast over the batch by stride 0), "-1"
+    (every limb 0xFF) or "extremes" (INT_MIN, INT_MAX, -1, 0, 1)."""
+    from repro_torch.kernels.ring_matmul import K_CHUNK
     L = 4                                   # wave lanes
+    kc = K_CHUNK[dt]
     return [
-        ("scores eb", (2 * L * 48, 512, 64), (2 * L * 48, 64, 512), False),
-        ("probs@v", (L * 48, 512, 512), (L * 48, 512, 64), False),
-        ("proj", (L, 2048, 768), (L, 768, 768), False),
-        ("mlp_sm w1", (L, 24576, 512), (L, 512, 16), False),
-        ("mlp_ln w1 (K=1)", (L, 2048, 1), (L, 1, 16), False),
-        ("mlp_ln w2 (N=1)", (L, 2048, 16), (L, 16, 1), False),
-        ("ragged", (3, 67, 45), (3, 45, 131), False),
-        ("broadcast weight", (5, 130, 70), (5, 70, 33), True),
+        ("scores eb", (2 * L * 48, 512, 64), (2 * L * 48, 64, 512), "rand"),
+        ("probs@v", (L * 48, 512, 512), (L * 48, 512, 64), "rand"),
+        ("proj", (L, 2048, 768), (L, 768, 768), "rand"),
+        ("mlp_sm w1", (L, 24576, 512), (L, 512, 16), "rand"),
+        ("mlp_ln w1 (K=1)", (L, 2048, 1), (L, 1, 16), "rand"),
+        ("mlp_ln w2 (N=1)", (L, 2048, 16), (L, 16, 1), "rand"),
+        ("ragged", (3, 67, 45), (3, 45, 131), "rand"),
+        ("broadcast weight", (5, 130, 70), (5, 70, 33), "bcast"),
+        ("all -1", (2, 130, 96), (2, 96, 70), "-1"),
+        ("all -1, K = K_CHUNK", (2, 67, kc), (2, kc, 33), "-1"),
+        ("K > K_CHUNK", (2, 67, kc + 70), (2, kc + 70, 34), "rand"),
+        ("extremes", (2, 128, 128), (2, 128, 64), "extremes"),
     ]
+
+
+def _ring_operands(gen, sa, sb, fill, dt, dev):
+    import torch
+    if fill == "-1":
+        return (torch.full(sa, -1, dtype=dt, device=dev),
+                torch.full(sb, -1, dtype=dt, device=dev))
+    if fill == "extremes":
+        info = torch.iinfo(dt)
+        pick = torch.tensor([info.min, info.max, -1, 0, 1], dtype=dt,
+                            device=dev)
+        return tuple(pick[torch.randint(0, 5, s, generator=gen, device=dev)]
+                     for s in (sa, sb))
+    a = rand_ring(gen, sa, dt, dev)
+    if fill == "bcast":
+        return a, rand_ring(gen, (1,) + sb[1:], dt, dev).expand(sb)
+    return a, rand_ring(gen, sb, dt, dev)
 
 
 def _smm_cases():
@@ -281,16 +364,15 @@ def phase_kernels(seed: int) -> dict:
         lib_msg = str(e).splitlines()[0]
     log(f"[2] torch.matmul on CUDA int32: "
         f"{'raises: ' + lib_msg if lib_msg else 'works'}")
-    out = {"library_error": lib_msg, "ring_matmul": {}, "secure_matmul": {}}
+    out = {"library_error": lib_msg, "ring_matmul": {}, "secure_matmul": {},
+           "ring_matmul_cases": {}}
     n0 = {"ring_matmul": rmm.stats()["kernel"],
           "secure_matmul": smm.stats()["kernel"]}
     for dt in (torch.int32, torch.int64):
         tag = str(dt).replace("torch.", "")
-        for label, sa, sb, bcast in _rmm_cases(dt):
-            a = rand_ring(gen, sa, dt, dev)
-            b = rand_ring(gen, (1,) + sb[1:] if bcast else sb, dt, dev)
-            if bcast:
-                b = b.expand(sb)
+        cases = {}
+        for label, sa, sb, fill in _rmm_cases(dt):
+            a, b = _ring_operands(gen, sa, sb, fill, dt, dev)
             got = rmm.launch(a, b)
             want = ref.matmul_by_chunks(a, b)
             torch.cuda.synchronize()
@@ -298,19 +380,30 @@ def phase_kernels(seed: int) -> dict:
                 fail(f"ring_matmul {tag} {label}: kernel != plain "
                      f"(max err {_max_err(got, want)})")
             log(f"[2] ring_matmul {tag} {label} {sa}@{sb}: bitwise equal")
-            if label == "scores eb":
-                bt, m, k = sa
-                n = sb[-1]
-                ms = cuda_ms(rmm.launch, a, b)
-                plain_ms = cuda_ms(ref.matmul_by_chunks, a, b, reps=2)
-                e = a.element_size()
-                bound, by = _bound_ms((bt * m * k + bt * k * n + bt * m * n)
-                                      * e, 2.0 * bt * m * n * k)
-                out["ring_matmul"][tag] = {
-                    "shape": f"{sa}@{sb}", "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": bound, "bound_by": by, "max_abs_err": 0.0}
-                log(f"[2] ring_matmul {tag} {label}: {ms:.4f} ms, plain "
-                    f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by})")
+            if label not in RMM_PATH:
+                continue
+            # the u8 limb products at the int8 tensor cores' rate, against
+            # A + B + C at the element size; the CUDA cores' bound beside
+            limb_ops, ring_ops, nbytes = rmm.work(*sa, sb[-1], dt)
+            t = {"shape": f"{sa}@{sb}",
+                 "ms": cuda_ms(rmm.launch, a, b, reps=20),
+                 "device_ms": cuda_ms(rmm.launch, a, b, reps=20,
+                                      queued=True),
+                 "plain_ms": cuda_ms(ref.matmul_by_chunks, a, b, reps=2),
+                 "max_abs_err": 0.0}
+            t["bound_ms"], t["bound_by"] = _bound_ms(nbytes, limb_ops,
+                                                     PEAK_INT8_S)
+            t["cuda_core_bound_ms"] = _bound_ms(nbytes, ring_ops)[0]
+            t["bound_share"] = t["bound_ms"] / t["ms"]
+            cases[label] = t
+            log(f"[2] ring_matmul {tag} {label}: {t['ms']:.4f} ms (device "
+                f"{t['device_ms']:.4f}), plain {t['plain_ms']:.4f} ms, "
+                f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}, "
+                f"{100 * t['bound_share']:.1f} % of it; CUDA-core bound "
+                f"{t['cuda_core_bound_ms']:.4f} ms)")
+            del a, b, got, want
+        out["ring_matmul"][tag] = cases["scores eb"]
+        out["ring_matmul_cases"][tag] = cases
         for label, bt, m, k, n, bcast in _smm_cases():
             eps = rand_ring(gen, (bt, m, k), dt, dev)
             a_sh = rand_ring(gen, (2, bt, m, k), dt, dev)
@@ -1246,6 +1339,7 @@ def main(argv=None) -> int:
     t_all = time.time()
     smi = phase_build()
     fa_sass = phase_sass()
+    rmm_sass = phase_ring_sass()
     kern = phase_kernels(args.seed)
     fkern = phase_float_kernels(args.seed)
     skern = phase_scan_kernels(args.seed)
@@ -1283,6 +1377,11 @@ def main(argv=None) -> int:
             "library_note": f"torch has no CUDA int32/int64 matmul "
                             f"({kern['library_error']})",
             "shape": k32["shape"], "dtype": "int32", "int64": k64})
+        if name == "ring_matmul":
+            for x in ("device_ms", "cuda_core_bound_ms", "bound_share"):
+                kernels[-1][x] = k32[x]
+            kernels[-1]["cases"] = kern["ring_matmul_cases"]
+            kernels[-1]["sass"] = rmm_sass
     rg = serving["recurrentgemma_2b"]["launches"]
     launches = {
         "flash_attn": tgt["launches"]["flash_attn"]["kernel"]

@@ -1,5 +1,5 @@
 // ring_matmul: batched wrapping integer GEMM C[b] = A[b] @ B[b] over
-// Z_{2**32} (int32) or Z_{2**64} (int64).
+// Z_{2**32} (int32) or Z_{2**64} (int64), on Hopper's int8 tensor cores.
 //
 // Replaces the integer products the TPU build left to XLA
 // (jnp.matmul(..., preferred_element_type=int32/int64)): the dealer's
@@ -8,76 +8,501 @@
 // PyTorch has no CUDA matmul for int32/int64, so without this kernel the
 // MPC path cannot run on the card at all.
 //
-// Bound on H100: operations. There is no tensor-core path for int32 or
-// int64, so every multiply-add runs on the CUDA cores, and a 64-bit
-// multiply is emulated from 32-bit IMADs. The design keeps the CUDA cores
-// fed from registers: shared-memory tiles of A and B, a 4 x 4 register
-// micro-tile per thread (16 multiply-adds per 8 shared loads). The int8
-// limb decomposition onto tensor cores (wgmma) is the later redesign.
+// The arithmetic, exact. An element is its two's-complement bits read
+// unsigned, in L little-endian bytes (limbs): a = sum_i a_i 2^(8 i), L = 4
+// for int32 and 8 for int64. With A_i the u8 matrix of A's limb i,
+//   C mod 2^(8 L) = sum_{s < L} 2^(8 s) D_s,   D_s = sum_{i + j = s} A_i B_j,
+// so only the limb pairs with i + j < L count: 10 u8 products for int32,
+// 36 for int64 (the reference names the same split: "an MXU path would
+// decompose into 4x int8 partial products", repro/kernels/
+// secure_matmul.py:10-12). Each diagonal D_s is one s32 accumulator tile
+// into which its pairs are issued. D_s <= (s + 1) 255^2 K stays below
+// 2^31, with no wrap or saturation, while K <= K_CHUNK: 8,192 elements
+// for int32 (the limit is 8,256) and 4,096 for int64 (4,128). Every
+// K_CHUNK the diagonals are folded into C, sum_s D_s << 8 s in wrapping
+// u32 / u64 (straight into the output tile, which the block alone owns),
+// and start again; the path's largest K is 768, one chunk.
 //
-// Batch: gridDim.z walks the flattened batch; each operand has its own
-// batch stride in elements, and stride 0 broadcasts one matrix (a weight)
-// over the batch. Inner matrices are row-major and contiguous; C is
-// contiguous.
-#include "ring_tile.cuh"
+// Bound on the H100: the u8 products at the int8 tensor cores' 1,979
+// TOP/s (10 or 36 x 2 M N K) against A, B and C at the element size at
+// 3.35 TB/s. At the path's shapes (phase 3's wave of 4, BERT width):
+// scores (384, 512, 64, 512) and probs @ v (192, 512, 512, 64) are
+// bytes-bound (int32 0.150 and 0.075 ms, int64 0.300 and 0.150), the
+// projection (4, 2048, 768, 768) operations-bound (0.049 / 0.176 ms), the
+// MLP's (4, 24576, 512, 16) bytes-bound (0.062 / 0.124 ms). The CUDA
+// cores' 67 T/s, where the parent kernel ran, take 0.192, 0.096, 0.144 and
+// 0.024 ms for the same products' multiply-adds alone.
+// What the design does about it:
+// - Operands reach shared memory by `cp.async` into two stages, each
+//   completing on one mbarrier (cp.async.mbarrier.arrive.noinc). Chosen
+//   over TMA because a K or N whose rows are not 16-byte aligned (the
+//   path's K = 1 and N = 1 products, any odd K) needs 4- or 8-byte element
+//   copies, which a tensor map cannot describe (its global strides are
+//   multiples of 16 bytes), and one zero-filling source size covers every
+//   edge with no tensor map built on the host. Rows are copied in 16-byte
+//   chunks where K (for A) or N (for B) allows, each thread always the
+//   same chunk column, so a stage costs it a few adds. Zero-filled limbs
+//   add 0 to every D_s, so the edges need no mask before the store.
+// - A's limbs never reach shared memory: each thread loads the raw
+//   elements of its own wgmma A fragment (rows r and r + 8, 4 + 4
+//   elements a k-step of 32) with 16-byte loads and splits them with
+//   `transpose4` (ring_limbs.cuh, prmt) into the fragments of all L limbs,
+//   which `wgmma` reads from registers. The raw A rows are 256 bytes, their
+//   16-byte chunks XORed with 5 on odd rows, so those loads and the
+//   copies are free of bank conflicts.
+// - 8-bit `wgmma` takes K-major B only, and B is N-major in memory: its
+//   raw tile (BK rows of BN elements) is split by the same transpose into
+//   L K-major limb tiles (BN rows of BK bytes, the swizzled layout of
+//   hopper_tile.cuh's Tile), double-buffered, so the split of one item
+//   never writes under the products of the one before.
+// - Per k-step, L (L + 1) / 2 `wgmma` m64nBNk32 .s32.u8.u8 (IGMMA) into
+//   the L diagonal tiles. BN = 64 for int32 and 32 for int64 (16 where N
+//   <= 16), so that the L accumulator tiles are 128 registers a thread
+//   either way and nothing spills.
+// - The epilogue folds the diagonals and stores each thread's pairs of
+//   adjacent columns (8 or 16 bytes) with the ragged edge masked.
+// - Persistent blocks, as many as the card holds at once: a block walks
+//   its output tiles as one stream of (tile, k-tile) items and copies item
+//   g + 1 while item g splits, multiplies and stores, across tiles too.
+//   The scores' (384, 512, 64, 512) has one k-tile a tile, so without the
+//   walk every block would wait for its copies with nothing to overlap.
+// Tiles: one warpgroup of 64 rows a block; BK = 256 bytes of A's row (64
+// int32 or 32 int64 elements); two blocks an SM (registers and shared
+// memory). What holds it back is that a block's own steps run in turn:
+// copies wait, the split runs on the CUDA cores with the tensor cores
+// idle, and the products wait (wgmma.wait_group 0) before the next split;
+// only the SM's other block fills the gaps.
+// Later work: a warp-specialised producer (TMA for aligned shapes) with
+// the splits in their own warps, so that two consumer warpgroups sharing
+// B's limb tiles only issue products; C staged through shared memory for
+// 16-byte stores.
+//
+// Batch: tiles are numbered over (batch, row tile, column tile); each
+// operand has its own batch stride in elements, and stride 0 broadcasts
+// one matrix (a weight) over the batch. Inner matrices are row-major and
+// contiguous; C is contiguous.
+#include <climits>
+#include <type_traits>
+
+#include "hopper_tile.cuh"
+#include "ring_limbs.cuh"
+#include "wgmma_ops.cuh"
 
 namespace {
 
-constexpr int BK = 16;
+using namespace hopper;
 
-template <typename T>
-__global__ void __launch_bounds__(ring::THREADS)
-ring_matmul_kernel(const T* __restrict__ A, const T* __restrict__ B,
-                   T* __restrict__ C, int M, int N, int K, long long sA,
-                   long long sB) {
-  using U = typename ring::Unsigned<T>::type;
-  using namespace ring;
-  __shared__ U sa[BK][BM + 1];
-  __shared__ U sb[BK][BN];
-  const long long b = blockIdx.z;
-  const U* a = reinterpret_cast<const U*>(A) + b * sA;
-  const U* bb = reinterpret_cast<const U*>(B) + b * sB;
-  U* c = reinterpret_cast<U*>(C) + b * (long long)M * N;
-  const int r0 = blockIdx.y * BM, c0 = blockIdx.x * BN;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+constexpr int BM = 64;          // rows of a block: one wgmma M
+constexpr int THREADS = 128;    // one warpgroup
+constexpr int ROW_A = 256;      // bytes of a raw A row in shared memory
 
-  U acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0;
+// K_CHUNK: elements of K summed in a diagonal before it is folded
+constexpr int K_CHUNK_I32 = 8192;
+constexpr int K_CHUNK_I64 = 4096;
 
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    load_a<U, BK>(sa, a, M, K, r0, k0);
-    load_b<U, BK>(sb, bb, K, N, k0, c0);
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      U av[TM], bv[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) av[i] = sa[k][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) bv[j] = sb[k][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] += av[i] * bv[j];
-    }
-    __syncthreads();
+template <typename T, int BN>
+struct Cfg {
+  using U = typename std::conditional<sizeof(T) == 4, uint32_t,
+                                      unsigned long long>::type;
+  static constexpr int L = sizeof(T);          // limbs an element
+  static constexpr int E = sizeof(T);          // bytes an element
+  static constexpr int BK = ROW_A / E;         // elements of K a tile
+  static constexpr int KSTEPS = BK / 32;       // u8 k-steps a tile
+  static constexpr int KCH = L == 4 ? K_CHUNK_I32 : K_CHUNK_I64;
+  static_assert((long long)L * 255 * 255 * KCH < (1LL << 31),
+                "the top diagonal would leave s32 within K_CHUNK");
+  static_assert(KCH % BK == 0, "a chunk ends on a tile");
+  using LT = Tile<BN, BK>;                     // a K-major limb tile of B
+  static constexpr int A_B = BM * ROW_A;       // a raw A stage
+  static constexpr int B_B = align1024(BK * BN * E);
+  static constexpr int L_B = align1024(LT::BYTES);
+  // layout: raw A x 2 | raw B x 2 | L limb tiles of B x 2 | mbarriers
+  static constexpr int B0 = 2 * A_B;
+  static constexpr int LIMB0 = B0 + 2 * B_B;
+  static constexpr int BARS = LIMB0 + 2 * L * L_B;
+  static constexpr int BYTES = BARS + 16 + 1024;      // + alignment
+  static_assert(BYTES <= 232448, "tile does not fit in shared memory");
+};
+
+// byte offset of 16-byte chunk `c` of raw A row `r`: odd rows XOR the
+// chunk with 5, so that a quarter-warp's fragment loads (rows r, r + 1, 4
+// chunks each) and its copies (8 chunks of a row) meet 8 distinct banks
+__device__ __forceinline__ int a_off(int r, int c) {
+  return r * ROW_A + ((c ^ ((r & 1) * 5)) << 4);
+}
+
+template <int E>
+__device__ __forceinline__ void cp_async_elem(uint32_t dst, const void* src,
+                                              bool ok) {
+  if constexpr (E == 4)
+    cp_async4(dst, src, ok);
+  else
+    limbs::cp_async8(dst, src, ok);
+}
+
+// The copies of a stage: A rows [m0, m0 + 64) x K [k0, k0 + BK) and B rows
+// [k0, k0 + BK) x N [n0, n0 + BN), whatever lies past an edge zero-filled.
+// In the 16-byte path a thread copies the same chunk column of A (rows r,
+// r + 8, ...) and of B (rows r', r' + RB, ...) in every stage, so its
+// addresses are fixed at the block's start and a stage adds k0.
+template <typename T, int BN>
+struct Copies {
+  using C = Cfg<T, BN>;
+  static constexpr int E = C::E, V = 16 / E;     // elements a chunk
+  static constexpr int CB = BN * E / 16;         // chunks a raw B row
+  static constexpr int RB = THREADS / CB;        // raw B rows a pass
+  static_assert(THREADS % CB == 0 && C::BK % RB == 0, "B's passes");
+  const T *a, *b, *pa, *pb;    // operands; this thread's first chunks
+  int M, N, K, m0, n0;
+  int rows_a, ka, kb;          // A passes in range; K of its chunks
+  bool col_b, vec_a, vec_b;
+  uint32_t da, db;             // its first chunks' offsets in a stage
+
+  __device__ __forceinline__ Copies(const T* a_, const T* b_, int M_, int N_,
+                                    int K_, int m0_, int n0_, bool vec_a_,
+                                    bool vec_b_)
+      : a(a_), b(b_), M(M_), N(N_), K(K_), m0(m0_), n0(n0_), vec_a(vec_a_),
+        vec_b(vec_b_) {
+    const int t = threadIdx.x, ra = t / 16, rb = t / CB;
+    pa = a + (long long)(m0 + ra) * K + t % 16 * V;
+    pb = b + (long long)rb * N + n0 + t % CB * V;
+    rows_a = (M - m0 - ra + 7) / 8;
+    ka = t % 16 * V;
+    kb = rb;
+    col_b = n0 + t % CB * V < N;
+    da = a_off(ra, t % 16);
+    db = rb * BN * E + t % CB * 16;
   }
-  store<U>(c, nullptr, acc, M, N, r0, c0);
+
+  __device__ __forceinline__ void operator()(uint32_t sm, int st,
+                                             int k0) const {
+    const uint32_t sa = sm + st * C::A_B, sb = sm + C::B0 + st * C::B_B;
+    if (vec_a) {
+      const bool okk = k0 + ka < K;
+      const T* p = pa + k0;
+#pragma unroll
+      for (int j = 0; j < BM / 8; ++j) {
+        const bool ok = okk && j < rows_a;
+        cp_async16(sa + da + j * 8 * ROW_A, ok ? p + (long long)j * 8 * K : a,
+                   ok);
+      }
+    } else {
+      for (int i = threadIdx.x; i < BM * C::BK; i += THREADS) {
+        const int r = i / C::BK, e = i % C::BK, k = k0 + e;
+        const bool ok = m0 + r < M && k < K;
+        cp_async_elem<E>(sa + a_off(r, e / V) + e % V * E,
+                         ok ? a + (long long)(m0 + r) * K + k : a, ok);
+      }
+    }
+    if (vec_b) {
+      const T* p = pb + (long long)k0 * N;
+#pragma unroll
+      for (int j = 0; j < C::BK / RB; ++j) {
+        const bool ok = col_b && k0 + kb + j * RB < K;
+        cp_async16(sb + db + j * RB * BN * E,
+                   ok ? p + (long long)j * RB * N : b, ok);
+      }
+    } else {
+      for (int i = threadIdx.x; i < C::BK * BN; i += THREADS) {
+        const int r = i / BN, e = i % BN, n = n0 + e;
+        const bool ok = k0 + r < K && n < N;
+        cp_async_elem<E>(sb + (r * BN + e) * E,
+                         ok ? b + (long long)(k0 + r) * N + n : b, ok);
+      }
+    }
+    cp_async_arrive(sm + C::BARS + 8 * st);
+  }
+};
+
+// raw B of stage `st` (BK rows of BN elements) -> its L K-major limb tiles
+// (BN rows of BK bytes): a thread takes 16 elements of K in one column n
+// (conflict-free loads along the row), transposes their bytes four
+// elements at a time, and stores 16 bytes of each limb's row n
+template <typename T, int BN>
+__device__ __forceinline__ void split_b(char* gsm, int st) {
+  using C = Cfg<T, BN>;
+  const char* raw = gsm + C::B0 + st * C::B_B;
+  char* lt = gsm + C::LIMB0 + st * C::L * C::L_B;
+  for (int i = threadIdx.x; i < BN * (C::BK / 16); i += THREADS) {
+    const int n = i % BN, k = i / BN * 16;
+    uint32_t x[C::E / 4][16];        // [32-bit word of an element][element]
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const char* p = raw + ((k + j) * BN + n) * C::E;
+      if constexpr (C::E == 4) {
+        x[0][j] = *reinterpret_cast<const uint32_t*>(p);
+      } else {
+        const uint2 v = *reinterpret_cast<const uint2*>(p);
+        x[0][j] = v.x;
+        x[1][j] = v.y;
+      }
+    }
+    // word h of the elements holds limbs 4 h .. 4 h + 3
+#pragma unroll
+    for (int h = 0; h < C::E / 4; ++h) {
+      uint32_t w[4][4];              // [limb][4 elements of K]
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        uint32_t t[4];
+        limbs::transpose4(x[h][4 * m], x[h][4 * m + 1], x[h][4 * m + 2],
+                          x[h][4 * m + 3], t);
+#pragma unroll
+        for (int l = 0; l < 4; ++l) w[l][m] = t[l];
+      }
+#pragma unroll
+      for (int l = 0; l < 4; ++l)
+        *reinterpret_cast<uint4*>(lt + (4 * h + l) * C::L_B +
+                                  C::LT::offset(n, k)) =
+            make_uint4(w[l][0], w[l][1], w[l][2], w[l][3]);
+    }
+  }
+}
+
+// the wgmma A fragments of k-step `ks` for every limb, from raw A: this
+// thread's register h holds row r0 (+ 8 if h is odd), elements 32 ks +
+// 16 (h / 2) + 4 q + [0, 4), the lowest in the lowest byte
+template <typename T>
+__device__ __forceinline__ void split_a(const char* raw, int ks,
+                                        uint32_t (&f)[sizeof(T)][4]) {
+  const int lane = threadIdx.x % 32;
+  const int r0 = 16 * (threadIdx.x / 32) + lane / 4, q = lane % 4;
+#pragma unroll
+  for (int h = 0; h < 4; ++h) {
+    const int r = r0 + 8 * (h & 1), e = 32 * ks + 16 * (h >> 1) + 4 * q;
+    uint32_t t[4];
+    if constexpr (sizeof(T) == 4) {
+      const uint4 x = *reinterpret_cast<const uint4*>(raw + a_off(r, e / 4));
+      limbs::transpose4(x.x, x.y, x.z, x.w, t);
+#pragma unroll
+      for (int l = 0; l < 4; ++l) f[l][h] = t[l];
+    } else {
+      const uint4 x = *reinterpret_cast<const uint4*>(raw + a_off(r, e / 2));
+      const uint4 y =
+          *reinterpret_cast<const uint4*>(raw + a_off(r, e / 2 + 1));
+      limbs::transpose4(x.x, x.z, y.x, y.z, t);         // low words
+#pragma unroll
+      for (int l = 0; l < 4; ++l) f[l][h] = t[l];
+      limbs::transpose4(x.y, x.w, y.y, y.w, t);         // high words
+#pragma unroll
+      for (int l = 0; l < 4; ++l) f[4 + l][h] = t[l];
+    }
+  }
+}
+
+// D_s += A_i B_{s - i} for every pair of k-step `ks`, limb tiles at `lt`
+template <typename T, int BN>
+__device__ __forceinline__ void issue(uint32_t (&acc)[sizeof(T)][BN / 2],
+                                      const uint32_t (&f)[sizeof(T)][4],
+                                      uint32_t lt, int ks) {
+  using C = Cfg<T, BN>;
+  constexpr int W = C::LT::W;
+#pragma unroll
+  for (int s = 0; s < C::L; ++s)
+#pragma unroll
+    for (int i = 0; i <= s; ++i)
+      Wgmma<BN>::rs_u8(acc[s], f[i],
+                       desc(lt + (s - i) * C::L_B + C::LT::start(0, 32 * ks),
+                            16, 8 * W, W),
+                       1);
+}
+
+// C (+)= sum_s D_s << 8 s for this thread's fragment: rows r0, r0 + 8 of
+// the tile, columns 8 j + c2 + [0, 2); `first` stores, else adds to C
+template <typename T, int BN>
+__device__ __forceinline__ void fold(const uint32_t (&acc)[sizeof(T)][BN / 2],
+                                     typename Cfg<T, BN>::U* c, int M, int N,
+                                     int m0, int n0, bool first) {
+  using C = Cfg<T, BN>;
+  using U = typename C::U;
+  using U2 = typename std::conditional<C::E == 4, uint2, ulonglong2>::type;
+  const int lane = threadIdx.x % 32;
+  const int r0 = m0 + 16 * (threadIdx.x / 32) + lane / 4;
+  const int c2 = 2 * (lane % 4);
+  const bool pairs = N % 2 == 0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 8 * h;
+    if (r >= M) continue;
+    U* row = c + (long long)r * N;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = n0 + 8 * j + c2;
+      U v0 = 0, v1 = 0;
+#pragma unroll
+      for (int s = 0; s < C::L; ++s) {
+        v0 += (U)acc[s][4 * j + 2 * h] << (8 * s);
+        v1 += (U)acc[s][4 * j + 2 * h + 1] << (8 * s);
+      }
+      if (pairs && col + 1 < N) {
+        U2* p = reinterpret_cast<U2*>(row + col);
+        if (!first) {
+          const U2 o = *p;
+          v0 += o.x;
+          v1 += o.y;
+        }
+        U2 out;
+        out.x = v0;
+        out.y = v1;
+        *p = out;
+      } else {
+        if (col < N) row[col] = first ? v0 : row[col] + v0;
+        if (col + 1 < N) row[col + 1] = first ? v1 : row[col + 1] + v1;
+      }
+    }
+  }
+}
+
+// where a block is in its walk: output tile (z, row tile my, column tile
+// nx) and k-tile kt
+struct Walk {
+  int kt, nx, my, z;
+};
+
+// A persistent block walks the output tiles blockIdx.x, + gridDim.x, ...
+// (column tiles fastest, so that the blocks in flight share A's rows) as
+// one stream of (tile, k-tile) items: the copies of item g + 1 run under
+// the products and the stores of item g, across tiles too
+template <typename T, int BN>
+__global__ void __launch_bounds__(THREADS)
+ring_matmul_kernel(const T* __restrict__ A, const T* __restrict__ B,
+                   T* __restrict__ Cm, int batch, int M, int N, int K,
+                   long long sA, long long sB, int vec_a, int vec_b) {
+  using C = Cfg<T, BN>;
+  constexpr int L = C::L, BK = C::BK;
+  extern __shared__ char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sm = (raw + 1023) & ~1023u;
+  char* const gsm = smem_raw + (sm - raw);     // generic view of `sm`
+
+  const int tm = (M + BM - 1) / BM, tn = (N + BN - 1) / BN;
+  // K = 0 is one zero-filled k-tile, so that C is written as zeros
+  const int nt = K > 0 ? (K + BK - 1) / BK : 1;
+  // the stride gridDim.x in (z, row tile, column tile) digits
+  const int G = gridDim.x, gn = G % tn, gm = G / tn % tm, gz = G / tn / tm;
+  auto advance = [&](Walk& w) {
+    if (++w.kt < nt) return;
+    w.kt = 0;
+    w.nx += gn;
+    const int cn = w.nx >= tn;
+    w.nx -= cn * tn;
+    w.my += gm + cn;
+    const int cm = w.my >= tm;
+    w.my -= cm * tm;
+    w.z += gz + cm;
+  };
+  auto copies = [&](const Walk& w) {
+    return Copies<T, BN>(A + w.z * sA, B + w.z * sB, M, N, K, w.my * BM,
+                         w.nx * BN, vec_a, vec_b);
+  };
+  const int b0 = blockIdx.x;
+  Walk ld{0, b0 % tn, b0 / tn % tm, b0 / tn / tm};    // next item to copy
+  Walk cu = ld;                                        // item computed
+
+  if (threadIdx.x == 0) {
+    mbar_init(sm + C::BARS, THREADS);
+    mbar_init(sm + C::BARS + 8, THREADS);
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  uint32_t acc[L][BN / 2];
+#pragma unroll
+  for (int s = 0; s < L; ++s)
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[s][i] = 0;
+  uint32_t f[L][4];
+
+  Copies<T, BN> copy = copies(ld);
+  if (ld.z < batch) {
+    copy(sm, 0, 0);
+    advance(ld);
+    if (ld.kt == 0) copy = copies(ld);
+  }
+  for (int g = 0; cu.z < batch; ++g) {
+    const int st = g & 1;
+    mbar_wait(sm + C::BARS + 8 * st, (g >> 1) & 1);
+    split_b<T, BN>(gsm, st);
+    fence_proxy_async();
+    // past here every thread is done with item g - 1: its raw stage takes
+    // item g + 1 while this one's products run
+    __syncthreads();
+    if (ld.z < batch) {
+      copy(sm, st ^ 1, ld.kt * BK);
+      advance(ld);
+      if (ld.kt == 0) copy = copies(ld);
+    }
+    const char* ra = gsm + st * C::A_B;
+    const uint32_t lt = sm + C::LIMB0 + st * L * C::L_B;
+#pragma unroll
+    for (int ks = 0; ks < C::KSTEPS; ++ks) {
+      split_a<T>(ra, ks, f);
+      wgmma_fence();
+      issue<T, BN>(acc, f, lt, ks);
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int s = 0; s < L; ++s) fence_regs(acc[s]);
+#pragma unroll
+      for (int i = 0; i < L; ++i) fence_regs(f[i]);
+    }
+    // the tile's last k-tile, or a chunk of K ends: fold the diagonals
+    // into C (stored by the tile's first fold, added to by the others)
+    // and start again
+    if (cu.kt == nt - 1 || (cu.kt + 1) * BK % C::KCH == 0) {
+      fold<T, BN>(acc, reinterpret_cast<typename C::U*>(Cm) +
+                           (long long)cu.z * M * N,
+                  M, N, cu.my * BM, cu.nx * BN, (cu.kt + 1) * BK <= C::KCH);
+#pragma unroll
+      for (int s = 0; s < L; ++s)
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) acc[s][i] = 0;
+    }
+    advance(cu);
+  }
+}
+
+template <typename T, int BN>
+int run(const void* A, const void* B, void* C, int batch, int M, int N, int K,
+        long long sA, long long sB, void* stream) {
+  constexpr int bytes = Cfg<T, BN>::BYTES, V = 16 / sizeof(T);
+  auto kernel = ring_matmul_kernel<T, BN>;
+  static const int smem_err = static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
+  if (smem_err) return smem_err;
+  // as many blocks as the card holds at once (the first device's count)
+  static const int slots = [&] {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS,
+                                                  bytes);
+    return sms * per_sm;
+  }();
+  const long long tiles = (long long)batch * ((M + BM - 1) / BM) *
+                          ((N + BN - 1) / BN);
+  if (slots <= 0 || tiles > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // 16-byte copies where every row starts on a 16-byte boundary
+  const int vec_a = K % V == 0 && sA % V == 0 &&
+                    reinterpret_cast<uintptr_t>(A) % 16 == 0;
+  const int vec_b = N % V == 0 && sB % V == 0 &&
+                    reinterpret_cast<uintptr_t>(B) % 16 == 0;
+  kernel<<<(int)(tiles < slots ? tiles : slots), THREADS, bytes,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(A), static_cast<const T*>(B), static_cast<T*>(C),
+      batch, M, N, K, sA, sB, vec_a, vec_b);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch(const void* A, const void* B, void* C, int batch, int M, int N,
            int K, long long sA, long long sB, void* stream) {
-  dim3 grid((N + ring::BN - 1) / ring::BN, (M + ring::BM - 1) / ring::BM,
-            batch);
-  ring_matmul_kernel<T><<<grid, ring::THREADS, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(A), static_cast<const T*>(B), static_cast<T*>(C),
-      M, N, K, sA, sB);
-  return static_cast<int>(cudaGetLastError());
+  if (batch <= 0 || M <= 0 || N <= 0 || K < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (N <= 16)
+    return run<T, 16>(A, B, C, batch, M, N, K, sA, sB, stream);
+  return run<T, sizeof(T) == 4 ? 64 : 32>(A, B, C, batch, M, N, K, sA, sB,
+                                           stream);
 }
 
 }  // namespace

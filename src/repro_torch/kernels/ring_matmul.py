@@ -5,8 +5,12 @@ csrc/ring_matmul.cu behind a torch custom op.
 It is not a port of a Pallas kernel: it does the integer products the
 TPU build left to XLA (`jnp.matmul(..., preferred_element_type=int32 |
 int64)` — the dealer's triple, the batched attention products, every
-RING64 combine), which torch cannot do on CUDA. Bound on the card:
-operations, on the CUDA cores (see the source's note).
+RING64 combine), which torch cannot do on CUDA. The kernel runs them on
+the int8 tensor cores: each element splits into its L bytes (limbs, L =
+4 or 8), and C mod 2**(8 L) = sum_s 2**(8 s) D_s over the diagonals D_s
+= sum_{i + j = s} A_i @ B_j of u8 products, `limb_pairs` of them, each
+summed exactly in s32 for at most `K_CHUNK` elements of K before it is
+folded into C. Bound on the card: `work` (see the source's note).
 
 Dispatch: a CUDA tensor launches the kernel (or raises); a CPU tensor
 takes the plain version `kernels.ref.ring_matmul`; a meta tensor (the
@@ -28,7 +32,29 @@ from repro_torch.kernels.ref import ring_matmul as ring_matmul_plain
 _stats = {"kernel": 0, "ref": 0}
 
 _FN = {torch.int32: "ring_matmul_i32", torch.int64: "ring_matmul_i64"}
-_MAX_BATCH = 65535                       # gridDim.z
+_MAX_BATCH = 65535                       # secure_matmul's gridDim.z
+# elements of K a diagonal sums in s32 before the kernel folds it into C
+# (K_CHUNK_I32 / K_CHUNK_I64 in the source): (s + 1) * 255**2 * K_CHUNK
+# < 2**31 for every diagonal s < L
+K_CHUNK = {torch.int32: 8192, torch.int64: 4096}
+
+
+def limb_pairs(dtype: torch.dtype) -> int:
+    """The u8 limb products the ring needs: pairs (i, j), i + j < L."""
+    return dtype.itemsize * (dtype.itemsize + 1) // 2
+
+
+def work(batch: int, m: int, k: int, n: int, dtype: torch.dtype,
+         broadcast_b: bool = False) -> tuple[float, float, float]:
+    """(u8 limb operations, ring operations, bytes) of one call: the limb
+    products at 2 m n k each, the ring product's 2 m n k multiply-adds
+    (what the CUDA cores would do), and A, B (once if broadcast) and C at
+    the element size, each read or written once."""
+    e = dtype.itemsize
+    ring = 2.0 * batch * m * n * k
+    nbytes = float(batch * m * k + (1 if broadcast_b else batch) * k * n
+                   + batch * m * n) * e
+    return limb_pairs(dtype) * ring, ring, nbytes
 
 
 def _fn(dtype: torch.dtype):

@@ -61,6 +61,55 @@ def test_ring_matmul_kernel_matches_plain(cuda, dtype, shapes):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("case", ["all -1", "K above K_CHUNK",
+                                  "M and N off the tile", "K = 1", "N = 1",
+                                  "K not a multiple of 32",
+                                  "stride-0 weight", "batched B",
+                                  "extremes", "K = 0", "unaligned"])
+def test_ring_matmul_hard_cases_match_plain(cuda, dtype, case):
+    """The limb kernel's edges, bitwise: every limb 0xFF, a fold across
+    K_CHUNK, ragged tiles, the path's K = 1 and N = 1, a broadcast weight,
+    INT_MIN / INT_MAX / -1 / 0 / 1 operands, an empty K (C = 0), and
+    operands whose rows are not 16-byte aligned (element copies)."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    info = torch.iinfo(dtype)
+    kc = rmm.K_CHUNK[dtype]
+    bmkn = {"all -1": (2, 130, 96, 70),
+            "K above K_CHUNK": (2, 67, kc + 70, 34),
+            "M and N off the tile": (3, 67, 64, 131),
+            "K = 1": (4, 200, 1, 16),
+            "N = 1": (4, 200, 16, 1),
+            "K not a multiple of 32": (3, 70, 45, 40),
+            "stride-0 weight": (5, 130, 70, 33),
+            "batched B": (6, 100, 96, 72),
+            "extremes": (2, 128, 128, 64),
+            "K = 0": (2, 70, 0, 40),
+            "unaligned": (3, 70, 64, 40)}[case]
+    batch, m, k, n = bmkn
+    if case == "all -1":
+        a = torch.full((batch, m, k), -1, dtype=dtype, device=cuda)
+        b = torch.full((batch, k, n), -1, dtype=dtype, device=cuda)
+    elif case == "extremes":
+        pick = torch.tensor([info.min, info.max, -1, 0, 1], dtype=dtype,
+                            device=cuda)
+        a, b = (pick[torch.randint(0, 5, s, generator=g, device=cuda)]
+                for s in ((batch, m, k), (batch, k, n)))
+    else:
+        a = torch.randint(info.min, info.max, (batch, m, k), generator=g,
+                          dtype=dtype, device=cuda)
+        b = torch.randint(info.min, info.max, (batch, k, n), generator=g,
+                          dtype=dtype, device=cuda)
+        if case == "stride-0 weight":
+            b = b[:1].expand_as(b)
+        if case == "unaligned":      # one element past a 16-byte boundary
+            a = torch.cat([a.new_zeros(1), a.flatten()])[1:].view_as(a)
+            b = torch.cat([b.new_zeros(1), b.flatten()])[1:].view_as(b)
+    want = ref.matmul_by_chunks(a, b) if k else a.new_zeros((batch, m, n))
+    assert torch.equal(rmm.launch(a, b), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
 @pytest.mark.parametrize("bmkn", [(3, 67, 45, 131), (2, 64, 64, 64),
                                   (1, 200, 1, 16)])
 def test_secure_matmul_kernel_matches_plain(cuda, dtype, bmkn):
