@@ -16,7 +16,9 @@ result line):
      float32, Dh 16-256), and the path's two (bf16 Dh 256, float32 Dh
      64) must not spill; and that ring_matmul runs on the int8 tensor
      cores: IGMMA in every instantiation (int32 and int64, each at its
-     two tile widths), none spilling;
+     two tile widths), none spilling; and that ssd runs on the tensor
+     cores: HGMMA in both instantiations (bf16 and float32), the path's
+     (bf16) not spilling;
   2. every kernel against its plain torch version on the card: the ring
      kernels on int32 and int64, at the main path's shapes plus ragged and
      broadcast-batch shapes, bitwise (ring_matmul also with every limb
@@ -34,7 +36,12 @@ result line):
      element size (`flash_attn.work`). ring_matmul is timed at its four
      path cases on both rings, host-issued and queued, against its u8
      limb products at the int8 tensor cores' 1,979 TOP/s or its bytes
-     (`ring_matmul.work`), the CUDA cores' 67 T/s bound beside it;
+     (`ring_matmul.work`), the CUDA cores' 67 T/s bound beside it. ssd
+     adds hard cases (no decay, decays that underflow, a large initial
+     state, chunk 1, P, N and T of 1) and is timed at Mamba-2's prefill
+     batch in bf16, host-issued and queued, against its bytes or its
+     products at 989 TFLOP/s (`ssd.work`), the CUDA cores' bound beside
+     it, and in float32 against 3xTF32's rate;
   3. the main path: the two-phase private sieve at BERT-base width
      (d_model 768, 12 heads, d_head 64; proxies <1,1,2> then <3,12,16>;
      batch 4, seq 512, 2 classes; a pool of 64 candidates from --seed,
@@ -193,88 +200,60 @@ def phase_build() -> str:
     return smi
 
 
-# flash_attn's instantiations: (dtype, Dh) -> its mangled kernel name's
-# template part; the path's two must not spill
-FA_ENTRIES = {(t, dh): f"flash_attn_kernelI{m}Li{dh}E"
-              for t, m in (("bf16", "13__nv_bfloat16"), ("f32", "f"))
-              for dh in (16, 32, 64, 128, 256)}
-FA_PATH_ENTRIES = (("bf16", 256), ("f32", 64))
-
-
-def phase_sass() -> dict:
-    """The witness that flash_attn runs on the tensor cores: every
-    instantiation's SASS (cuobjdump) holds HGMMA, the warpgroup product of
-    bf16 and tf32, and its -Xptxas -v registers and spills; the path's
-    instantiations (bf16 Dh 256, float32 Dh 64) must not spill."""
+def phase_tensor_core_sass(name: str, opcode: str, entries: dict,
+                           no_spill) -> dict:
+    """The witness that kernel `name` runs on the tensor cores: every
+    instantiation's SASS (cuobjdump) holds `opcode`, the warpgroup product
+    (HGMMA: bf16 and tf32; IGMMA: u8), those in `no_spill` do not spill
+    (-Xptxas -v), and the library holds no other kernel of `name` (no
+    CUDA-core kernel left beside them). `entries` maps each
+    instantiation's label to its mangled name's template part. ptxas's
+    notes that it serialized wgmma are printed."""
     from repro_torch.kernels import build
-    hgmma = build.sass_counts(build.sass("flash_attn"), "HGMMA")
-    ptxas = build.ptxas_entries(build.ptxas_log("flash_attn"))
-    out = {}
-    for (t, dh), tag in FA_ENTRIES.items():
-        fns = [f for f in hgmma if tag in f]
-        if len(fns) != 1:
-            fail(f"flash_attn {t} Dh {dh}: {len(fns)} SASS entries")
-        n = hgmma[fns[0]]
-        p = ptxas.get(fns[0], {})
-        spill = p.get("spill_stores", -1) + p.get("spill_loads", -1)
-        out[f"{t} Dh {dh}"] = {"HGMMA": n, "registers": p.get("registers"),
-                               "spill_bytes": spill}
-        log(f"[1] flash_attn {t} Dh {dh}: {n} HGMMA, "
-            f"{p.get('registers')} registers, {spill} bytes spilled")
-        if n == 0:
-            fail(f"flash_attn {t} Dh {dh}: no HGMMA in its SASS")
-        if spill != 0 and (t, dh) in FA_PATH_ENTRIES:
-            fail(f"flash_attn {t} Dh {dh} (a path instantiation) spills "
-                 f"{spill} bytes")
-    others = [f for f in hgmma if "flash_attn_kernel" in f
-              and not any(tag in f for tag in FA_ENTRIES.values())]
-    if others:
-        fail(f"flash_attn: unexpected kernel entries {others}")
-    return out
-
-
-# ring_matmul's instantiations: (ring, tile width BN) -> its mangled kernel
-# name's template part; every one serves the path (BN 16 where N <= 16)
-RMM_ENTRIES = {("int32", 64): "ring_matmul_kernelIiLi64E",
-               ("int32", 16): "ring_matmul_kernelIiLi16E",
-               ("int64", 32): "ring_matmul_kernelIlLi32E",
-               ("int64", 16): "ring_matmul_kernelIlLi16E"}
-
-
-def phase_ring_sass() -> dict:
-    """The witness that ring_matmul runs on the int8 tensor cores: every
-    instantiation's SASS holds IGMMA (the u8 warpgroup product), none
-    spills, and no other ring_matmul kernel (the CUDA-core one it
-    replaced) is left in the library. ptxas's notes that it serialized
-    wgmma are printed."""
-    from repro_torch.kernels import build
-    igmma = build.sass_counts(build.sass("ring_matmul"), "IGMMA")
-    log_text = build.ptxas_log("ring_matmul")
+    counts = build.sass_counts(build.sass(name), opcode)
+    log_text = build.ptxas_log(name)
     ptxas = build.ptxas_entries(log_text)
     out = {}
-    for (ring, bn), tag in RMM_ENTRIES.items():
-        fns = [f for f in igmma if tag in f]
+    for label, tag in entries.items():
+        fns = [f for f in counts if tag in f]
         if len(fns) != 1:
-            fail(f"ring_matmul {ring} BN {bn}: {len(fns)} SASS entries")
-        n = igmma[fns[0]]
+            fail(f"{name} {label}: {len(fns)} SASS entries")
+        n = counts[fns[0]]
         p = ptxas.get(fns[0], {})
         spill = p.get("spill_stores", -1) + p.get("spill_loads", -1)
-        out[f"{ring} BN {bn}"] = {"IGMMA": n, "registers": p.get("registers"),
-                                  "spill_bytes": spill}
-        log(f"[1] ring_matmul {ring} BN {bn}: {n} IGMMA, "
-            f"{p.get('registers')} registers, {spill} bytes spilled")
+        out[label] = {opcode: n, "registers": p.get("registers"),
+                      "spill_bytes": spill}
+        log(f"[1] {name} {label}: {n} {opcode}, {p.get('registers')} "
+            f"registers, {spill} bytes spilled")
         if n == 0:
-            fail(f"ring_matmul {ring} BN {bn}: no IGMMA in its SASS")
-        if spill != 0:
-            fail(f"ring_matmul {ring} BN {bn} spills {spill} bytes")
-    others = [f for f in igmma if "ring_matmul" in f
-              and not any(tag in f for tag in RMM_ENTRIES.values())]
+            fail(f"{name} {label}: no {opcode} in its SASS")
+        if spill != 0 and label in no_spill:
+            fail(f"{name} {label} spills {spill} bytes")
+    others = [f for f in counts if name in f
+              and not any(tag in f for tag in entries.values())]
     if others:
-        fail(f"ring_matmul: unexpected kernel entries {others}")
+        fail(f"{name}: unexpected kernel entries {others}")
     for line in log_text.splitlines():
         if "serialized" in line:
-            log(f"[1] ptxas ring_matmul: {line.strip()}")
+            log(f"[1] ptxas {name}: {line.strip()}")
     return out
+
+
+# each kernel's instantiations (label -> its mangled name's template part)
+# and those that must not spill. flash_attn: bf16 and float32 at every Dh,
+# the path's two (bf16 Dh 256, float32 Dh 64) not spilling
+FA_ENTRIES = {f"{t} Dh {dh}": f"flash_attn_kernelI{m}Li{dh}E"
+              for t, m in (("bf16", "13__nv_bfloat16"), ("f32", "f"))
+              for dh in (16, 32, 64, 128, 256)}
+FA_NO_SPILL = ("bf16 Dh 256", "f32 Dh 64")
+# ring_matmul: every one serves the path (BN 16 where N <= 16)
+RMM_ENTRIES = {"int32 BN 64": "ring_matmul_kernelIiLi64E",
+               "int32 BN 16": "ring_matmul_kernelIiLi16E",
+               "int64 BN 32": "ring_matmul_kernelIlLi32E",
+               "int64 BN 16": "ring_matmul_kernelIlLi16E"}
+# ssd: bf16 (the path's) and float32
+SSD_ENTRIES = {"bf16": "ssd_kernelI13__nv_bfloat16E", "f32": "ssd_kernelIfE"}
+SSD_NO_SPILL = ("bf16",)
 
 
 # ---------------------------------------------------------------------------
@@ -639,9 +618,10 @@ def phase_scan_kernels(seed: int) -> dict:
     final state against the sequential oracle `ref.ssd`, the state also
     against the plain chunked scan `ref.ssd_chunked`) and rg_lru against
     `ref.rg_lru`, at phase 7's shapes plus ragged ones, within SCAN_TOL of
-    max(1, max |plain|) in float32 (BF16_TOL for ssd's bfloat16 y). The
-    timed cases are the path's: one Mamba-2 prefill batch (x (4, 512, 80,
-    64) bfloat16) and one RecurrentGemma recurrence (4, 512, 2560)."""
+    max(1, max |plain|) in float32 (BF16_TOL for ssd's bfloat16 y), with
+    ssd's hard cases in both dtypes. The timed cases are the path's: one
+    Mamba-2 prefill batch (x (4, 512, 80, 64) bfloat16; its float32 twin
+    beside it) and one RecurrentGemma recurrence (4, 512, 2560)."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels import rg_lru as lru_k
@@ -665,48 +645,76 @@ def phase_scan_kernels(seed: int) -> dict:
             f"max(1, max |plain|), limit {tol})")
 
     out = {}
-    # ssd: (label, B, T, H, P, N, dtype, initial state, timed)
+    # ssd: (label, B, T, H, P, N, dtype, initial state scale, timed), at
+    # chunk 128 with log decays -|0.5 N(0, 1)|; then the hard cases, each
+    # in both dtypes: (label, B, T, H, P, N, chunk, log decays, initial
+    # state scale)
+    q = ssd_k.MAX_CHUNK
+    cases = [(label, bsz, t, h, p, n, dt, q, "rand", s0_scale, timed)
+             for label, bsz, t, h, p, n, dt, s0_scale, timed in (
+        ("path (Mamba-2 prefill batch)", 4, 512, 80, 64, 128, bf16, None,
+         True),
+        ("path f32", 4, 512, 80, 64, 128, f32, None, True),
+        ("ragged T (300)", 2, 300, 5, 64, 128, f32, None, False),
+        ("one chunk (T 100)", 3, 100, 4, 64, 128, f32, None, False),
+        ("B*H 8 < 132, initial state", 1, 512, 8, 64, 128, f32, 0.5,
+         False),
+        ("smoke widths", 2, 64, 8, 16, 16, f32, None, False))]
+    cases += [(label, bsz, t, h, p, n, dt, chunk, a_kind, s0_scale, False)
+              for dt in (bf16, f32)
+              for label, bsz, t, h, p, n, chunk, a_kind, s0_scale in (
+        ("a = 0", 1, 512, 8, 64, 128, q, "zero", 0.5),
+        ("a very negative", 1, 256, 8, 64, 128, q, "very negative", 0.5),
+        ("large initial state", 1, 256, 8, 64, 128, q, "rand", 100.0),
+        ("chunk 1", 1, 64, 8, 64, 128, 1, "rand", 0.5),
+        ("chunk 48, P 40, N 96", 2, 100, 3, 40, 96, 48, "rand", 0.5),
+        ("P 1", 2, 130, 4, 1, 128, q, "rand", 0.5),
+        ("N 1", 2, 130, 4, 64, 1, q, "rand", 0.5),
+        ("T 1", 3, 1, 8, 64, 128, q, "rand", 0.5))]
     res = out["ssd"] = {}
-    for label, bsz, t, h, p, n, dt, with_s0, timed in (
-            ("path (Mamba-2 prefill batch)", 4, 512, 80, 64, 128, bf16,
-             False, True),
-            ("path f32", 4, 512, 80, 64, 128, f32, False, False),
-            ("ragged T (300)", 2, 300, 5, 64, 128, f32, False, False),
-            ("one chunk (T 100)", 3, 100, 4, 64, 128, f32, False, False),
-            ("B*H 8 < 132, initial state", 1, 512, 8, 64, 128, f32, True,
-             False),
-            ("smoke widths", 2, 64, 8, 16, 16, f32, False, False)):
+    for label, bsz, t, h, p, n, dt, chunk, a_kind, s0_scale, timed in cases:
         x = randn((bsz, t, h, p), dt)
-        a = -randn((bsz, t, h), scale=0.5).abs()
+        a = {"rand": lambda: -randn((bsz, t, h), scale=0.5).abs(),
+             "zero": lambda: torch.zeros((bsz, t, h), device="cuda"),
+             "very negative": lambda: -50.0 - randn((bsz, t, h)).abs()
+             }[a_kind]()
         b, c = (randn((bsz, t, n), dt, 0.3) for _ in range(2))
-        s0 = randn((bsz, h, p, n), scale=0.5) if with_s0 else None
-        y, state = ssd_k.launch(x, a, b, c, ssd_k.MAX_CHUNK, s0)
+        s0 = None if s0_scale is None else \
+            randn((bsz, h, p, n), scale=s0_scale)
+        y, state = ssd_k.launch(x, a, b, c, chunk, s0)
         want_y, want_s = ref.ssd(x, a, b, c, s0)
-        tag = f"{label} x ({bsz},{t},{h},{p}) N {n}"
+        tag = (f"{label} x ({bsz},{t},{h},{p}) N {n} chunk {chunk} "
+               f"{str(dt)[6:]}")
         check("ssd", f"{tag} y", y, want_y,
               SCAN_TOL if dt == f32 else BF16_TOL, res)
         check("ssd", f"{tag} final state", state, want_s, SCAN_TOL, res)
-        if t % ssd_k.MAX_CHUNK == 0:
+        if t % chunk == 0:
             check("ssd", f"{tag} final state vs chunked", state,
-                  ref.ssd_chunked(x, a, b, c, ssd_k.MAX_CHUNK, s0)[1],
-                  SCAN_TOL, res)
+                  ref.ssd_chunked(x, a, b, c, chunk, s0)[1], SCAN_TOL, res)
         if not timed:
             continue
-        q = ssd_k.MAX_CHUNK
-        res["ms"] = cuda_ms(ssd_k.launch, x, a, b, c)
-        res["plain_ms"] = cuda_ms(ref.ssd_chunked, x, a, b, c, q, reps=3)
-        # per chunk: C B^T and its product with X over the causal lower
-        # triangle (diagonal included), the state read and the update
-        macs = bsz * h * (t // q) * (q * (q + 1) // 2 * (n + p)
-                                     + 2 * q * p * n)
-        nbytes = (2 * x.numel() * x.element_size() + a.numel() * 4
-                  + 2 * b.numel() * b.element_size()
-                  + bsz * h * p * n * 4)
-        res["bound_ms"], res["bound_by"] = _bound_ms(nbytes, 2.0 * macs)
-        res["shape"] = f"x ({bsz},{t},{h},{p}) bf16, b/c ({bsz},{t},{n})"
-        log(f"[2] ssd {res['shape']}: {res['ms']:.4f} ms, plain "
-            f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
-            f"({res['bound_by']})")
+        # bf16 products at the tensor cores' bf16 rate, float32 at
+        # 3xTF32's; the CUDA cores' float32 bound beside each
+        t_ = {"ms": cuda_ms(ssd_k.launch, x, a, b, c, reps=50),
+              "device_ms": cuda_ms(ssd_k.launch, x, a, b, c, reps=50,
+                                   queued=True),
+              "plain_ms": cuda_ms(ref.ssd_chunked, x, a, b, c, q, reps=3)}
+        ops, nbytes = ssd_k.work(bsz, t, h, p, n, q, dt)
+        t_["bound_ms"], t_["bound_by"] = _bound_ms(
+            nbytes, ops, PEAK_BF16_S if dt == bf16 else PEAK_3XTF32_S)
+        t_["cuda_core_bound_ms"] = _bound_ms(nbytes, ops)[0]
+        t_["bound_share"] = t_["bound_ms"] / t_["ms"]
+        t_["shape"] = (f"x ({bsz},{t},{h},{p}) {str(dt)[6:]}, b/c "
+                       f"({bsz},{t},{n})")
+        if dt == f32:
+            res["f32"] = t_
+        else:
+            res.update(t_)
+        log(f"[2] ssd {t_['shape']}: {t_['ms']:.4f} ms (device "
+            f"{t_['device_ms']:.4f}), plain {t_['plain_ms']:.4f} ms, bound "
+            f"{t_['bound_ms']:.4f} ms ({t_['bound_by']}, "
+            f"{100 * t_['bound_share']:.1f} % of it; CUDA-core bound "
+            f"{t_['cuda_core_bound_ms']:.4f} ms)")
 
     # rg_lru: (label, B, T, D, timed)
     res = out["rg_lru"] = {}
@@ -1338,8 +1346,12 @@ def main(argv=None) -> int:
 
     t_all = time.time()
     smi = phase_build()
-    fa_sass = phase_sass()
-    rmm_sass = phase_ring_sass()
+    fa_sass = phase_tensor_core_sass("flash_attn", "HGMMA", FA_ENTRIES,
+                                     FA_NO_SPILL)
+    rmm_sass = phase_tensor_core_sass("ring_matmul", "IGMMA", RMM_ENTRIES,
+                                      RMM_ENTRIES)
+    ssd_sass = phase_tensor_core_sass("ssd", "HGMMA", SSD_ENTRIES,
+                                      SSD_NO_SPILL)
     kern = phase_kernels(args.seed)
     fkern = phase_float_kernels(args.seed)
     skern = phase_scan_kernels(args.seed)
@@ -1413,9 +1425,12 @@ def main(argv=None) -> int:
                 name, "no single torch call computes this function"),
             "shape": k["shape"],
             **{x: k[x] for x in ("bf16_max_abs_err", "vocab", "dh256",
-                                 "cuda_core_bound_ms", "bound_share",
-                                 "device_ms", "library_device_ms")
+                                 "f32", "cuda_core_bound_ms",
+                                 "bound_share", "device_ms",
+                                 "library_device_ms")
                if x in k}})
+        if name == "ssd":
+            kernels[-1]["sass"] = ssd_sass
         if name == "flash_attn":
             kernels[-1]["sass"] = fa_sass
             kernels[-1]["launches_by_path"] = {

@@ -4,9 +4,11 @@ repro/kernels/ops.py:ssd_chunked), as the CUDA kernel in csrc/ssd.cu.
 It takes the model's layout, x (B, T, H, P), a (B, T, H) float32 log
 decays, b/c (B, T, N), so no transpose precedes it, and returns y in x's
 dtype and the final state (B, H, P, N) float32, from an optional initial
-state. x, b and c are float32 or bfloat16 (one dtype); the arithmetic is
-float32. Chunks of up to 128 steps; T need not divide by the chunk.
-Bound on the card: operations, on the CUDA cores (see the source).
+state. x, b and c are float32 or bfloat16 (one dtype). The products run on
+Hopper's tensor cores (`wgmma`: bf16, 3xTF32 for float32) with float32
+accumulation, and the state stays float32. Chunks of up to 128 steps; T
+need not divide by the chunk. `work` counts what a call must do, for its
+bound on the card: bytes in bfloat16 (see the source).
 
 Dispatch: a CUDA tensor launches the kernel (or raises); a CPU tensor
 takes the plain chunked scan `kernels.ref.ssd_chunked`.
@@ -26,6 +28,24 @@ _stats = {"kernel": 0, "ref": 0}
 
 _FN = {torch.float32: "ssd_f32", torch.bfloat16: "ssd_bf16"}
 MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE = 128, 64, 128
+
+
+def work(bsz: int, t: int, h: int, p: int, n: int, chunk: int,
+         dtype: torch.dtype, state0: bool = False) -> tuple[float, float]:
+    """(operations, bytes) of one call, for its bound on the card: per
+    chunk of q steps (the last one ragged) the causal triangle of C B^T
+    and its product with X, q (q + 1) / 2 (N + P) multiply-adds, and the
+    state read and update, 2 q P N, at two operations a multiply-add; x
+    and y at the element size, a, b and c, the final state (and the
+    initial one if given) each read or written once."""
+    e = dtype.itemsize
+    macs = 0
+    for t0 in range(0, t, chunk):
+        q = min(chunk, t - t0)
+        macs += q * (q + 1) // 2 * (n + p) + 2 * q * p * n
+    nbytes = (2 * bsz * t * h * p * e + bsz * t * h * 4 + 2 * bsz * t * n * e
+              + (2 if state0 else 1) * bsz * h * p * n * 4)
+    return 2.0 * bsz * h * macs, float(nbytes)
 
 
 def _fn(dtype: torch.dtype):

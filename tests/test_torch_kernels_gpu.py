@@ -366,6 +366,38 @@ def test_ssd_kernel_matches_plain(cuda, dtype, shape, with_state0):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    # ((B, T, H, P, N), chunk, log decays a, initial state scale)
+    ((1, 256, 3, 64, 128), 128, "zero", 0.5),
+    ((1, 192, 3, 64, 128), 128, "very negative", 0.5),
+    ((1, 192, 3, 64, 128), 128, "rand", 100.0),
+    ((1, 40, 3, 64, 128), 1, "rand", 0.5),
+    ((2, 130, 3, 1, 128), 128, "rand", 0.5),
+    ((2, 130, 3, 64, 1), 128, "rand", 0.5),
+    ((3, 1, 3, 64, 128), 128, "rand", 0.5),
+    ((2, 100, 3, 40, 96), 48, "rand", 0.5)])
+def test_ssd_kernel_hard_cases_match_plain(cuda, dtype, case):
+    """The hard cases of tests/test_torch_ssd_tiles.py: no decay, decays
+    that underflow (a <= -50), a large initial state, chunk 1, P, N and T
+    of 1, and widths whose rows are not whole 16-byte chunks."""
+    from repro_torch.kernels import ssd as ssd_k
+    (bsz, t, h, p, n), chunk, a_kind, s0_scale = case
+    g = torch.Generator(device=cuda).manual_seed(8)
+    x = randn(g, (bsz, t, h, p), dtype)
+    a = {"rand": -randn(g, (bsz, t, h), scale=0.5).abs(),
+         "zero": torch.zeros((bsz, t, h), device=cuda),
+         "very negative": -50.0 - randn(g, (bsz, t, h)).abs()}[a_kind]
+    b, c = (randn(g, (bsz, t, n), dtype, 0.3) for _ in range(2))
+    s0 = randn(g, (bsz, h, p, n), scale=s0_scale)
+    y, state = ssd_k.launch(x, a, b, c, chunk, s0)
+    torch.cuda.synchronize()
+    want_y, want_s = ref.ssd(x, a, b, c, s0)
+    assert_close(y, want_y, 1e-5 if dtype == torch.float32 else 1e-2)
+    assert_close(state, want_s, 1e-5)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(2, 64, 16), (1, 128, 32), (3, 100, 2560),
                                    (4, 512, 2560)])
 def test_rg_lru_kernel_matches_plain(cuda, shape):

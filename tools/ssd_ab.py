@@ -1,0 +1,99 @@
+#!/usr/bin/env python3
+"""Time the ssd kernel of one checkout of this repository at the serving
+path's case and its float32 counterpart, on one NVIDIA GPU:
+
+    python3 tools/ssd_ab.py --tree DIR [--reps 50]
+
+DIR is the root of a checkout (this one by default); its
+src/repro_torch/kernels/ssd.py is imported and its kernel built from its
+own sources. The cases are one Mamba-2 2.7B prefill batch, x (4, 512,
+80, 64) with b/c (4, 512, 128) and chunk 128 (chip_smoke.py phase 2), in
+bfloat16 (the path's dtype) and in float32, inputs from --seed. Each
+result is checked against the plain chunked scan `ref.ssd_chunked`: y
+within 1e-2 (bfloat16) or 1e-5 (float32) of max(1, max |plain|), the
+final state within 1e-5. To compare two trees, run it in one call on one
+card, in turns (A, B, B, A). It prints the card's name and power limit
+and one JSON line of mean CUDA-event times in ms: `ms` with the host
+issuing each call as the program would, `device_ms` with every launch
+queued first behind a device-side sleep, so that the events read the
+device alone.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+SHAPE = (4, 512, 80, 64, 128)          # B, T, H, P, N
+CHUNK = 128
+TOL = {"bfloat16": (1e-2, 1e-5), "float32": (1e-5, 1e-5)}   # y, state
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--tree", default=os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    ap.add_argument("--reps", type=int, default=50)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    import torch
+    if not torch.cuda.is_available():
+        print("ssd_ab: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.join(os.path.abspath(args.tree), "src"))
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd as ssd_k
+
+    def ms(fn, queued=False):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        if queued:
+            torch.cuda._sleep(1_000_000_000)
+        t0.record()
+        for _ in range(args.reps):
+            fn()
+        t1.record()
+        torch.cuda.synchronize()
+        return t0.elapsed_time(t1) / args.reps
+
+    def rel(got, want):
+        err = float((got.double() - want.double()).abs().max())
+        return err / max(1.0, float(want.double().abs().max()))
+
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    bsz, t, h, p, n = SHAPE
+    out = {"tree": os.path.abspath(args.tree), "file": ssd_k.__file__}
+    ok = True
+    for dt in (torch.bfloat16, torch.float32):
+        def randn(shape, scale=1.0, dtype=dt):
+            return (torch.randn(shape, generator=gen, device="cuda")
+                    * scale).to(dtype)
+        x = randn((bsz, t, h, p))
+        a = -randn((bsz, t, h), 0.5, torch.float32).abs()
+        b, c = randn((bsz, t, n), 0.3), randn((bsz, t, n), 0.3)
+        y, s = ssd_k.launch(x, a, b, c, CHUNK)
+        want_y, want_s = ref.ssd_chunked(x, a, b, c, CHUNK)
+        name = str(dt)[6:]
+        errs = (rel(y, want_y), rel(s, want_s))
+        good = all(e <= tol for e, tol in zip(errs, TOL[name]))
+        ok = ok and good
+        out[name] = {"ms": ms(lambda: ssd_k.launch(x, a, b, c, CHUNK)),
+                     "device_ms": ms(lambda: ssd_k.launch(x, a, b, c, CHUNK),
+                                     queued=True),
+                     "y_rel_err": errs[0], "state_rel_err": errs[1],
+                     "within_tolerance": good}
+        del x, a, b, c, y, s, want_y, want_s
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    print(smi.splitlines()[0] if smi else "nvidia-smi: no output")
+    print(json.dumps(out))
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
