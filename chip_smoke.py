@@ -16,13 +16,15 @@ result line):
      float32, Dh 16-256), and the path's two (bf16 Dh 256, float32 Dh
      64) must not spill; and that ring_matmul runs on the int8 tensor
      cores: IGMMA in every instantiation (int32 and int64, each at its
-     two tile widths), none spilling; and that ssd runs on the tensor
-     cores: HGMMA in both instantiations (bf16 and float32), the path's
-     (bf16) not spilling;
+     two tile widths), none spilling, and so does secure_matmul (int32
+     and int64, each at its two tile widths); and that ssd runs on the
+     tensor cores: HGMMA in both instantiations (bf16 and float32), the
+     path's (bf16) not spilling;
   2. every kernel against its plain torch version on the card: the ring
      kernels on int32 and int64, at the main path's shapes plus ragged and
-     broadcast-batch shapes, bitwise (ring_matmul also with every limb
-     0xFF, a K past its K_CHUNK and INT_MIN / INT_MAX operands); the
+     broadcast-batch shapes, bitwise (both also with every limb 0xFF at
+     K = K_CHUNK and a K past it; ring_matmul also with INT_MIN /
+     INT_MAX operands, secure_matmul with rows off a 16-byte boundary); the
      float kernels (flash_attn,
      entropy_head, mlp_softmax_attn) at the clear paths' shapes plus
      ragged, causal and bfloat16 ones, within 1e-4 (attention) and 1e-5
@@ -36,7 +38,11 @@ result line):
      element size (`flash_attn.work`). ring_matmul is timed at its four
      path cases on both rings, host-issued and queued, against its u8
      limb products at the int8 tensor cores' 1,979 TOP/s or its bytes
-     (`ring_matmul.work`), the CUDA cores' 67 T/s bound beside it. ssd
+     (`ring_matmul.work`), the CUDA cores' 67 T/s bound beside it.
+     secure_matmul is timed the same way at its path case, the projection
+     combine b4 x 2048x768 @ 768x768, on both rings (`secure_matmul.work`),
+     beside the unfused route that RING64 takes (three ring_matmul
+     launches and the adds, mpc/protocols/additive2pc.py). ssd
      adds hard cases (no decay, decays that underflow, a large initial
      state, chunk 1, P, N and T of 1) and is timed at Mamba-2's prefill
      batch in bf16, host-issued and queued, against its bytes or its
@@ -48,9 +54,10 @@ result line):
      keeping 24 then 8) through `WaveExecutor.score_phase` (wave 4,
      coalesced, overlapped, fused) and `quickselect.top_k_indices`, on
      RING32 and RING64. Every phase must satisfy `PhaseReport.agrees()`,
-     launch the kernels and never take a plain version. One RING64
-     phase-2 wave is then profiled (torch.profiler): device busy share,
-     the GEMM kernels' time and the bitwise (threefry) kernels' time;
+     launch the kernels and never take a plain version. One phase-2
+     wave of each ring is then profiled (torch.profiler): device busy
+     share, the GEMM kernels' time, secure_matmul's (RING32) and the
+     bitwise (threefry) kernels' time;
   4. the card against the CPU: one batch of the phase-2 forward with the
      same keys on both — shares must be bitwise equal on both rings
      (depth cut to CPU_LAYERS to bound the CPU's time; widths stay
@@ -251,6 +258,11 @@ RMM_ENTRIES = {"int32 BN 64": "ring_matmul_kernelIiLi64E",
                "int32 BN 16": "ring_matmul_kernelIiLi16E",
                "int64 BN 32": "ring_matmul_kernelIlLi32E",
                "int64 BN 16": "ring_matmul_kernelIlLi16E"}
+# secure_matmul: every one serves the path (BN 16 where N <= 16)
+SMM_ENTRIES = {"int32 BN 64": "secure_matmul_kernelIiLi64E",
+               "int32 BN 16": "secure_matmul_kernelIiLi16E",
+               "int64 BN 32": "secure_matmul_kernelIlLi32E",
+               "int64 BN 16": "secure_matmul_kernelIlLi16E"}
 # ssd: bf16 (the path's) and float32
 SSD_ENTRIES = {"bf16": "ssd_kernelI13__nv_bfloat16E", "f32": "ssd_kernelIfE"}
 SSD_NO_SPILL = ("bf16",)
@@ -304,17 +316,56 @@ def _ring_operands(gen, sa, sb, fill, dt, dev):
     return a, rand_ring(gen, sb, dt, dev)
 
 
-def _smm_cases():
-    """(label, batch, M, K, N, broadcast dlt/b over the batch)."""
-    L = 4
+def _smm_cases(dt):
+    """(label, batch, M, K, N, fill): fill "rand" (uniform over the
+    ring), "bcast" (dlt and b broadcast over the batch by stride 0), "-1"
+    (every limb 0xFF) or "unaligned" (every operand one element past a
+    16-byte boundary)."""
+    import torch
+    from repro_torch.kernels.secure_matmul import K_CHUNK
+    L = 4                                   # wave lanes
+    kc = K_CHUNK[dt]
+    past = {torch.int32: 4160, torch.int64: 2100}[dt]   # two folds
     return [
-        ("proj combine", L, 2048, 768, 768, False),
-        ("mlp_sm w1 combine", L, 24576, 512, 16, False),
-        ("mlp_sm w2 combine", L, 24576, 16, 512, False),
-        ("mlp_ln combine (K=1)", L, 2048, 1, 16, False),
-        ("ragged", 3, 67, 45, 131, False),
-        ("broadcast weight", 5, 130, 70, 33, True),
+        ("proj combine", L, 2048, 768, 768, "rand"),
+        ("mlp_sm w1 combine", L, 24576, 512, 16, "rand"),
+        ("mlp_sm w2 combine", L, 24576, 16, 512, "rand"),
+        ("mlp_ln combine (K=1)", L, 2048, 1, 16, "rand"),
+        ("ragged", 3, 67, 45, 131, "rand"),
+        ("broadcast weight", 5, 130, 70, 33, "bcast"),
+        ("all -1, K = K_CHUNK", 2, 67, kc, 33, "-1"),
+        ("K > K_CHUNK", 2, 67, past, 34, "rand"),
+        ("unaligned rows", 3, 70, 64, 40, "unaligned"),
     ]
+
+
+def _smm_operands(gen, bt, m, k, n, fill, dt, dev):
+    import torch
+    shapes = ((bt, m, k), (bt, k, n), (2, bt, m, k), (2, bt, k, n),
+              (2, bt, m, n))
+    if fill == "-1":
+        return tuple(torch.full(s, -1, dtype=dt, device=dev) for s in shapes)
+    eps, dlt, a_sh, b_sh, c_sh = (rand_ring(gen, s, dt, dev) for s in shapes)
+    if fill == "bcast":
+        dlt = dlt[:1].expand_as(dlt)
+        b_sh = b_sh[:, :1].expand_as(b_sh)
+    if fill == "unaligned":
+        return tuple(torch.cat([t.new_zeros(1), t.flatten()])[1:].view_as(t)
+                     for t in (eps, dlt, a_sh, b_sh, c_sh))
+    return eps, dlt, a_sh, b_sh, c_sh
+
+
+def unfused_combine(eps, dlt, a_sh, b_sh, c_sh):
+    """The combine as RING64 runs it (mpc/protocols/additive2pc.py:
+    `matmul` past the fused branch): three ring_matmul launches and the
+    adds, party 0's eps @ dlt added last."""
+    import torch
+    from repro_torch.kernels import ops as kops
+    eb = kops.ring_matmul(eps.expand((2,) + tuple(eps.shape)), b_sh)
+    ad = kops.ring_matmul(a_sh, dlt.expand((2,) + tuple(dlt.shape)))
+    z = c_sh + eb + ad
+    ed = kops.ring_matmul(eps, dlt)
+    return torch.cat([(z[0] + ed).unsqueeze(0), z[1:]])
 
 
 def _bound_ms(nbytes: float, ops: float,
@@ -383,18 +434,8 @@ def phase_kernels(seed: int) -> dict:
             del a, b, got, want
         out["ring_matmul"][tag] = cases["scores eb"]
         out["ring_matmul_cases"][tag] = cases
-        for label, bt, m, k, n, bcast in _smm_cases():
-            eps = rand_ring(gen, (bt, m, k), dt, dev)
-            a_sh = rand_ring(gen, (2, bt, m, k), dt, dev)
-            c_sh = rand_ring(gen, (2, bt, m, n), dt, dev)
-            if bcast:
-                dlt = rand_ring(gen, (1, k, n), dt, dev).expand(bt, k, n)
-                b_sh = rand_ring(gen, (2, 1, k, n), dt, dev).expand(
-                    2, bt, k, n)
-            else:
-                dlt = rand_ring(gen, (bt, k, n), dt, dev)
-                b_sh = rand_ring(gen, (2, bt, k, n), dt, dev)
-            args = (eps, dlt, a_sh, b_sh, c_sh)
+        for label, bt, m, k, n, fill in _smm_cases(dt):
+            args = _smm_operands(gen, bt, m, k, n, fill, dt, dev)
             got = smm.launch(*args)
             want = smm.secure_matmul_plain(*args)
             torch.cuda.synchronize()
@@ -404,18 +445,33 @@ def phase_kernels(seed: int) -> dict:
             log(f"[2] secure_matmul {tag} {label} b{bt} {m}x{k}x{n}: "
                 f"bitwise equal")
             if label == "proj combine":
-                ms = cuda_ms(smm.launch, *args)
-                plain_ms = cuda_ms(smm.secure_matmul_plain, *args, reps=2)
-                e = eps.element_size()
-                nbytes = (3 * bt * m * k + 3 * bt * k * n + 4 * bt * m * n) \
-                    * e
-                bound, by = _bound_ms(nbytes, 8.0 * bt * m * n * k)
-                out["secure_matmul"][tag] = {
-                    "shape": f"b{bt} {m}x{k}x{n}", "ms": ms,
-                    "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-                    "max_abs_err": 0.0}
-                log(f"[2] secure_matmul {tag} {label}: {ms:.4f} ms, plain "
-                    f"{plain_ms:.4f} ms, bound {bound:.4f} ms ({by})")
+                if not torch.equal(unfused_combine(*args), want):
+                    fail(f"secure_matmul {tag}: the unfused route != plain")
+                limb_ops, ring_ops, nbytes = smm.work(bt, m, k, n, dt)
+                t = {"shape": f"b{bt} {m}x{k}x{n}",
+                     "ms": cuda_ms(smm.launch, *args, reps=20),
+                     "device_ms": cuda_ms(smm.launch, *args, reps=20,
+                                          queued=True),
+                     "plain_ms": cuda_ms(smm.secure_matmul_plain, *args,
+                                         reps=2),
+                     "unfused_ms": cuda_ms(unfused_combine, *args, reps=20),
+                     "unfused_device_ms": cuda_ms(unfused_combine, *args,
+                                                  reps=20, queued=True),
+                     "max_abs_err": 0.0}
+                t["bound_ms"], t["bound_by"] = _bound_ms(nbytes, limb_ops,
+                                                         PEAK_INT8_S)
+                t["cuda_core_bound_ms"] = _bound_ms(nbytes, ring_ops)[0]
+                t["bound_share"] = t["bound_ms"] / t["ms"]
+                out["secure_matmul"][tag] = t
+                log(f"[2] secure_matmul {tag} {label}: {t['ms']:.4f} ms "
+                    f"(device {t['device_ms']:.4f}), plain "
+                    f"{t['plain_ms']:.4f} ms, unfused route "
+                    f"{t['unfused_ms']:.4f} ms (device "
+                    f"{t['unfused_device_ms']:.4f}), bound "
+                    f"{t['bound_ms']:.4f} ms ({t['bound_by']}, "
+                    f"{100 * t['bound_share']:.1f} % of it; CUDA-core bound "
+                    f"{t['cuda_core_bound_ms']:.4f} ms)")
+            del args, got, want
     out["check_launches"] = {
         "ring_matmul": rmm.stats()["kernel"] - n0["ring_matmul"],
         "secure_matmul": smm.stats()["kernel"] - n0["secure_matmul"]}
@@ -880,49 +936,58 @@ def profiled(fn):
 
 
 def phase_profile(seed: int, proxies) -> dict:
-    """Where one phase-2 wave's device time goes: one RING64 wave of WAVE
-    batches under torch.profiler (CUDA activity only: the CPU side adds
-    an event per aten op and multiplies the trace), after the main
-    path's launch counts were read. Busy share = summed kernel time /
-    wall time of the wave (one stream, so kernels do not overlap). The
-    bitwise kernels (xor/and/or functors and shifts) are nearly all the
-    threefry hash's; its adds, shared with the Beaver arithmetic, are
-    not split out."""
+    """Where one phase-2 wave's device time goes: one wave of WAVE batches
+    on each ring (RING64, then RING32) under torch.profiler (CUDA
+    activity only: the CPU side adds an event per aten op and multiplies
+    the trace), after the main path's launch counts were read. Busy
+    share = summed kernel time / wall time of the wave (one stream, so
+    kernels do not overlap). The bitwise kernels (xor/and/or functors and
+    shifts) are nearly all the threefry hash's; its adds, shared with the
+    Beaver arithmetic, are not split out. RING32's projections combine
+    in secure_matmul, RING64's in ring_matmul."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.executor import ExecConfig, WaveExecutor
     from repro_torch.mpc import prng
-    from repro_torch.mpc.ring import RING64
+    from repro_torch.mpc.ring import RING32, RING64
     cfg, specs, pps = proxies
     pool = np.random.default_rng(seed + 2).integers(
         0, cfg.vocab_size, (WAVE * BATCH, SEQ))
-    ex = WaveExecutor(ExecConfig(wave=WAVE, batch=BATCH, ring=RING64,
-                                 device=DEVICE))
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        ex.score_phase(prng.key(seed + 5, device=DEVICE), pps[1], cfg,
-                       pool, specs[1])
+    res = {}
+    for ring in (RING64, RING32):
+        ex = WaveExecutor(ExecConfig(wave=WAVE, batch=BATCH, ring=ring,
+                                     device=DEVICE))
         torch.cuda.synchronize()
-        wall_ms = (time.time() - t0) * 1e3
-    kernels = _device_events(prof)
-    ms = _event_ms
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.time()
+            ex.score_phase(prng.key(seed + 5, device=DEVICE), pps[1], cfg,
+                           pool, specs[1])
+            torch.cuda.synchronize()
+            wall_ms = (time.time() - t0) * 1e3
+        kernels = _device_events(prof)
+        ms = _event_ms
 
-    def share(*words):
-        return sum(ms(e) for e in kernels if any(w in e.key for w in words))
+        def share(*words):
+            return sum(ms(e) for e in kernels
+                       if any(w in e.key for w in words))
 
-    busy = sum(ms(e) for e in kernels)
-    out = {"wave_wall_ms": wall_ms, "kernel_ms": busy,
-           "busy_share": busy / wall_ms,
-           "gemm_kernels_ms": share("ring_matmul_kernel",
-                                    "secure_matmul_kernel"),
-           "bitwise_kernels_ms": share("Bitwise", "shift_kernel"),
-           "top": [(e.key[:100], ms(e), e.count) for e in
-                   sorted(kernels, key=ms, reverse=True)[:6]]}
-    log(f"[3p] ring64 one phase-2 wave ({WAVE} batches, profiled): "
-        + json.dumps(out))
-    return out
+        busy = sum(ms(e) for e in kernels)
+        out = {"wave_wall_ms": wall_ms, "kernel_ms": busy,
+               "busy_share": busy / wall_ms,
+               "gemm_kernels_ms": share("ring_matmul_kernel",
+                                        "secure_matmul_kernel"),
+               "secure_matmul_ms": share("secure_matmul_kernel"),
+               "secure_matmul_launches": sum(
+                   e.count for e in kernels
+                   if "secure_matmul_kernel" in e.key),
+               "bitwise_kernels_ms": share("Bitwise", "shift_kernel"),
+               "top": [(e.key[:100], ms(e), e.count) for e in
+                       sorted(kernels, key=ms, reverse=True)[:6]]}
+        log(f"[3p] {ring.name} one phase-2 wave ({WAVE} batches, "
+            f"profiled): " + json.dumps(out))
+        res[ring.name] = out
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -1350,6 +1415,8 @@ def main(argv=None) -> int:
                                      FA_NO_SPILL)
     rmm_sass = phase_tensor_core_sass("ring_matmul", "IGMMA", RMM_ENTRIES,
                                       RMM_ENTRIES)
+    smm_sass = phase_tensor_core_sass("secure_matmul", "IGMMA",
+                                      SMM_ENTRIES, SMM_ENTRIES)
     ssd_sass = phase_tensor_core_sass("ssd", "HGMMA", SSD_ENTRIES,
                                       SSD_NO_SPILL)
     kern = phase_kernels(args.seed)
@@ -1359,7 +1426,7 @@ def main(argv=None) -> int:
     t0 = time.time()
     sieve = phase_sieve(args.seed, proxies)
     log(f"[3] sieve on both rings: {time.time() - t0:.1f} s")
-    phase_profile(args.seed, proxies)
+    prof = phase_profile(args.seed, proxies)
     t0 = time.time()
     phase_card_vs_cpu(args.seed, proxies)
     log(f"[4] card vs CPU: {time.time() - t0:.1f} s")
@@ -1389,11 +1456,17 @@ def main(argv=None) -> int:
             "library_note": f"torch has no CUDA int32/int64 matmul "
                             f"({kern['library_error']})",
             "shape": k32["shape"], "dtype": "int32", "int64": k64})
+        for x in ("device_ms", "cuda_core_bound_ms", "bound_share"):
+            kernels[-1][x] = k32[x]
         if name == "ring_matmul":
-            for x in ("device_ms", "cuda_core_bound_ms", "bound_share"):
-                kernels[-1][x] = k32[x]
             kernels[-1]["cases"] = kern["ring_matmul_cases"]
             kernels[-1]["sass"] = rmm_sass
+        else:
+            for x in ("unfused_ms", "unfused_device_ms"):
+                kernels[-1][x] = k32[x]
+            kernels[-1]["sass"] = smm_sass
+            kernels[-1]["ring32_wave_ms"] = \
+                prof["ring32"]["secure_matmul_ms"]
     rg = serving["recurrentgemma_2b"]["launches"]
     launches = {
         "flash_attn": tgt["launches"]["flash_attn"]["kernel"]

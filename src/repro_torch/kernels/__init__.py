@@ -3,8 +3,9 @@
 
   ring_matmul.py    batched wrapping int32/int64 GEMM — the integer
                     products the TPU build left to XLA
-  secure_matmul.py  both parties' Beaver combine in one launch — the
-                    port of the Pallas secure_matmul kernel
+  secure_matmul.py  both parties' Beaver combine in one launch, on the
+                    same u8 limb core — the port of the Pallas
+                    secure_matmul kernel
   flash_attn.py     exact online-softmax attention (the target encoder,
                     the hybrid family's attention layers)
   entropy_head.py   one-pass row softmax entropy (target scoring,

@@ -31,8 +31,8 @@ SOURCES = {"ring_matmul": "ring_matmul.cu",
            "mlp_softmax_attn": "mlp_softmax_attn.cu",
            "ssd": "ssd.cu",
            "rg_lru": "rg_lru.cu"}
-HEADERS = ("ring_tile.cuh", "float_tile.cuh", "hopper_tile.cuh",
-           "wgmma_ops.cuh", "ring_limbs.cuh")
+HEADERS = ("float_tile.cuh", "hopper_tile.cuh", "wgmma_ops.cuh",
+           "ring_limbs.cuh")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -91,10 +91,13 @@
 namespace {
 
 using namespace hopper;
+using limbs::a_off;
+using limbs::cp_async_elem;
+using limbs::ROW_A;             // bytes of a raw A row in shared memory
+using limbs::Walk;
 
 constexpr int BM = 64;          // rows of a block: one wgmma M
 constexpr int THREADS = 128;    // one warpgroup
-constexpr int ROW_A = 256;      // bytes of a raw A row in shared memory
 
 // K_CHUNK: elements of K summed in a diagonal before it is folded
 constexpr int K_CHUNK_I32 = 8192;
@@ -123,22 +126,6 @@ struct Cfg {
   static constexpr int BYTES = BARS + 16 + 1024;      // + alignment
   static_assert(BYTES <= 232448, "tile does not fit in shared memory");
 };
-
-// byte offset of 16-byte chunk `c` of raw A row `r`: odd rows XOR the
-// chunk with 5, so that a quarter-warp's fragment loads (rows r, r + 1, 4
-// chunks each) and its copies (8 chunks of a row) meet 8 distinct banks
-__device__ __forceinline__ int a_off(int r, int c) {
-  return r * ROW_A + ((c ^ ((r & 1) * 5)) << 4);
-}
-
-template <int E>
-__device__ __forceinline__ void cp_async_elem(uint32_t dst, const void* src,
-                                              bool ok) {
-  if constexpr (E == 4)
-    cp_async4(dst, src, ok);
-  else
-    limbs::cp_async8(dst, src, ok);
-}
 
 // The copies of a stage: A rows [m0, m0 + 64) x K [k0, k0 + BK) and B rows
 // [k0, k0 + BK) x N [n0, n0 + BN), whatever lies past an edge zero-filled.
@@ -237,73 +224,8 @@ __device__ __forceinline__ void split_b(char* gsm, int st) {
         x[1][j] = v.y;
       }
     }
-    // word h of the elements holds limbs 4 h .. 4 h + 3
-#pragma unroll
-    for (int h = 0; h < C::E / 4; ++h) {
-      uint32_t w[4][4];              // [limb][4 elements of K]
-#pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        uint32_t t[4];
-        limbs::transpose4(x[h][4 * m], x[h][4 * m + 1], x[h][4 * m + 2],
-                          x[h][4 * m + 3], t);
-#pragma unroll
-        for (int l = 0; l < 4; ++l) w[l][m] = t[l];
-      }
-#pragma unroll
-      for (int l = 0; l < 4; ++l)
-        *reinterpret_cast<uint4*>(lt + (4 * h + l) * C::L_B +
-                                  C::LT::offset(n, k)) =
-            make_uint4(w[l][0], w[l][1], w[l][2], w[l][3]);
-    }
+    limbs::store_limbs<C::L, BN, C::BK, C::L_B>(x, lt, n, k);
   }
-}
-
-// the wgmma A fragments of k-step `ks` for every limb, from raw A: this
-// thread's register h holds row r0 (+ 8 if h is odd), elements 32 ks +
-// 16 (h / 2) + 4 q + [0, 4), the lowest in the lowest byte
-template <typename T>
-__device__ __forceinline__ void split_a(const char* raw, int ks,
-                                        uint32_t (&f)[sizeof(T)][4]) {
-  const int lane = threadIdx.x % 32;
-  const int r0 = 16 * (threadIdx.x / 32) + lane / 4, q = lane % 4;
-#pragma unroll
-  for (int h = 0; h < 4; ++h) {
-    const int r = r0 + 8 * (h & 1), e = 32 * ks + 16 * (h >> 1) + 4 * q;
-    uint32_t t[4];
-    if constexpr (sizeof(T) == 4) {
-      const uint4 x = *reinterpret_cast<const uint4*>(raw + a_off(r, e / 4));
-      limbs::transpose4(x.x, x.y, x.z, x.w, t);
-#pragma unroll
-      for (int l = 0; l < 4; ++l) f[l][h] = t[l];
-    } else {
-      const uint4 x = *reinterpret_cast<const uint4*>(raw + a_off(r, e / 2));
-      const uint4 y =
-          *reinterpret_cast<const uint4*>(raw + a_off(r, e / 2 + 1));
-      limbs::transpose4(x.x, x.z, y.x, y.z, t);         // low words
-#pragma unroll
-      for (int l = 0; l < 4; ++l) f[l][h] = t[l];
-      limbs::transpose4(x.y, x.w, y.y, y.w, t);         // high words
-#pragma unroll
-      for (int l = 0; l < 4; ++l) f[4 + l][h] = t[l];
-    }
-  }
-}
-
-// D_s += A_i B_{s - i} for every pair of k-step `ks`, limb tiles at `lt`
-template <typename T, int BN>
-__device__ __forceinline__ void issue(uint32_t (&acc)[sizeof(T)][BN / 2],
-                                      const uint32_t (&f)[sizeof(T)][4],
-                                      uint32_t lt, int ks) {
-  using C = Cfg<T, BN>;
-  constexpr int W = C::LT::W;
-#pragma unroll
-  for (int s = 0; s < C::L; ++s)
-#pragma unroll
-    for (int i = 0; i <= s; ++i)
-      Wgmma<BN>::rs_u8(acc[s], f[i],
-                       desc(lt + (s - i) * C::L_B + C::LT::start(0, 32 * ks),
-                            16, 8 * W, W),
-                       1);
 }
 
 // C (+)= sum_s D_s << 8 s for this thread's fragment: rows r0, r0 + 8 of
@@ -352,16 +274,9 @@ __device__ __forceinline__ void fold(const uint32_t (&acc)[sizeof(T)][BN / 2],
   }
 }
 
-// where a block is in its walk: output tile (z, row tile my, column tile
-// nx) and k-tile kt
-struct Walk {
-  int kt, nx, my, z;
-};
-
-// A persistent block walks the output tiles blockIdx.x, + gridDim.x, ...
-// (column tiles fastest, so that the blocks in flight share A's rows) as
-// one stream of (tile, k-tile) items: the copies of item g + 1 run under
-// the products and the stores of item g, across tiles too
+// A persistent block walks its (tile, k-tile) items (limbs::Walker): the
+// copies of item g + 1 run under the products and the stores of item g,
+// across tiles too
 template <typename T, int BN>
 __global__ void __launch_bounds__(THREADS)
 ring_matmul_kernel(const T* __restrict__ A, const T* __restrict__ B,
@@ -374,29 +289,15 @@ ring_matmul_kernel(const T* __restrict__ A, const T* __restrict__ B,
   const uint32_t sm = (raw + 1023) & ~1023u;
   char* const gsm = smem_raw + (sm - raw);     // generic view of `sm`
 
-  const int tm = (M + BM - 1) / BM, tn = (N + BN - 1) / BN;
   // K = 0 is one zero-filled k-tile, so that C is written as zeros
-  const int nt = K > 0 ? (K + BK - 1) / BK : 1;
-  // the stride gridDim.x in (z, row tile, column tile) digits
-  const int G = gridDim.x, gn = G % tn, gm = G / tn % tm, gz = G / tn / tm;
-  auto advance = [&](Walk& w) {
-    if (++w.kt < nt) return;
-    w.kt = 0;
-    w.nx += gn;
-    const int cn = w.nx >= tn;
-    w.nx -= cn * tn;
-    w.my += gm + cn;
-    const int cm = w.my >= tm;
-    w.my -= cm * tm;
-    w.z += gz + cm;
-  };
+  const limbs::Walker walk((M + BM - 1) / BM, (N + BN - 1) / BN,
+                           K > 0 ? (K + BK - 1) / BK : 1);
   auto copies = [&](const Walk& w) {
     return Copies<T, BN>(A + w.z * sA, B + w.z * sB, M, N, K, w.my * BM,
                          w.nx * BN, vec_a, vec_b);
   };
-  const int b0 = blockIdx.x;
-  Walk ld{0, b0 % tn, b0 / tn % tm, b0 / tn / tm};    // next item to copy
-  Walk cu = ld;                                        // item computed
+  Walk ld = walk.first();                      // next item to copy
+  Walk cu = ld;                                // item computed
 
   if (threadIdx.x == 0) {
     mbar_init(sm + C::BARS, THREADS);
@@ -415,7 +316,7 @@ ring_matmul_kernel(const T* __restrict__ A, const T* __restrict__ B,
   Copies<T, BN> copy = copies(ld);
   if (ld.z < batch) {
     copy(sm, 0, 0);
-    advance(ld);
+    walk.advance(ld);
     if (ld.kt == 0) copy = copies(ld);
   }
   for (int g = 0; cu.z < batch; ++g) {
@@ -428,16 +329,16 @@ ring_matmul_kernel(const T* __restrict__ A, const T* __restrict__ B,
     __syncthreads();
     if (ld.z < batch) {
       copy(sm, st ^ 1, ld.kt * BK);
-      advance(ld);
+      walk.advance(ld);
       if (ld.kt == 0) copy = copies(ld);
     }
     const char* ra = gsm + st * C::A_B;
     const uint32_t lt = sm + C::LIMB0 + st * L * C::L_B;
 #pragma unroll
     for (int ks = 0; ks < C::KSTEPS; ++ks) {
-      split_a<T>(ra, ks, f);
+      limbs::split_a<T>(ra, ks, f);
       wgmma_fence();
-      issue<T, BN>(acc, f, lt, ks);
+      limbs::issue<L, BN, BK, C::L_B>(acc, f, lt, ks);
       wgmma_commit();
       wgmma_wait<0>();
 #pragma unroll
@@ -448,7 +349,7 @@ ring_matmul_kernel(const T* __restrict__ A, const T* __restrict__ B,
     // the tile's last k-tile, or a chunk of K ends: fold the diagonals
     // into C (stored by the tile's first fold, added to by the others)
     // and start again
-    if (cu.kt == nt - 1 || (cu.kt + 1) * BK % C::KCH == 0) {
+    if (cu.kt == walk.nt - 1 || (cu.kt + 1) * BK % C::KCH == 0) {
       fold<T, BN>(acc, reinterpret_cast<typename C::U*>(Cm) +
                            (long long)cu.z * M * N,
                   M, N, cu.my * BM, cu.nx * BN, (cu.kt + 1) * BK <= C::KCH);
@@ -457,7 +358,7 @@ ring_matmul_kernel(const T* __restrict__ A, const T* __restrict__ B,
 #pragma unroll
         for (int i = 0; i < BN / 2; ++i) acc[s][i] = 0;
     }
-    advance(cu);
+    walk.advance(cu);
   }
 }
 

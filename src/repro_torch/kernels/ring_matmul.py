@@ -32,7 +32,6 @@ from repro_torch.kernels.ref import ring_matmul as ring_matmul_plain
 _stats = {"kernel": 0, "ref": 0}
 
 _FN = {torch.int32: "ring_matmul_i32", torch.int64: "ring_matmul_i64"}
-_MAX_BATCH = 65535                       # secure_matmul's gridDim.z
 # elements of K a diagonal sums in s32 before the kernel folds it into C
 # (K_CHUNK_I32 / K_CHUNK_I64 in the source): (s + 1) * 255**2 * K_CHUNK
 # < 2**31 for every diagonal s < L
@@ -87,7 +86,7 @@ def launch(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                         f"{a.dtype} and {b.dtype}")
     batch, m, k = a.shape
     n = b.shape[-1]
-    if b.shape != (batch, k, n) or batch > _MAX_BATCH:
+    if b.shape != (batch, k, n):
         raise ValueError(f"ring_matmul kernel: bad shapes {tuple(a.shape)} "
                          f"@ {tuple(b.shape)}")
     a, sa = batched_operand(a)

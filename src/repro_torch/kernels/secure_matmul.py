@@ -4,10 +4,14 @@
 
 on int32 (RING32) and int64 (RING64), with an optional batch — the port
 of the Pallas kernel repro/kernels/secure_matmul.py:secure_matmul, as
-the CUDA kernel in csrc/secure_matmul.cu behind a torch custom op. The
-opened eps/dlt tiles are loaded once for both parties, and party 0's
-two eps products fold into one (eps @ (b_0 + dlt)), exact in the ring.
-Bound on the card: operations, on the CUDA cores (see the source).
+the CUDA kernel in csrc/secure_matmul.cu behind a torch custom op. Each
+party's combine is one ring product over a K twice as long, z_p = c_p +
+[eps | a_p] @ [b'_p ; dlt] with b'_0 = b_0 + dlt (wrapping) and b'_1 =
+b_1, run on the int8 tensor cores as ring_matmul's is: both halves'
+`limb_pairs` u8 products issue into the same diagonals, so a diagonal
+folds every `K_CHUNK` elements of K, half of ring_matmul's. The opened
+eps/dlt tiles are loaded once for both parties. Bound on the card:
+`work` (see the source's note).
 
 Dispatch: a CUDA tensor launches the kernel (or raises); a CPU tensor
 takes the plain version (`secure_matmul_plain`, built on
@@ -23,7 +27,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import secure_matmul_combine
-from repro_torch.kernels.ring_matmul import batched_operand, _MAX_BATCH
+from repro_torch.kernels.ring_matmul import batched_operand, limb_pairs
 
 # launches of the kernel ("kernel"), plain-version calls on CPU tensors
 # ("ref"); "padded" stays 0 — the kernel masks ragged tiles itself, so no
@@ -31,6 +35,24 @@ from repro_torch.kernels.ring_matmul import batched_operand, _MAX_BATCH
 _stats = {"kernel": 0, "ref": 0, "padded": 0}
 
 _FN = {torch.int32: "secure_matmul_i32", torch.int64: "secure_matmul_i64"}
+# elements of K a diagonal sums in s32 before the kernel folds it (K_CHUNK_I32
+# / K_CHUNK_I64 in the source): each element of K adds two limb products
+# to a diagonal, 2 (s + 1) 255**2 K_CHUNK < 2**31 for every diagonal s < L
+K_CHUNK = {torch.int32: 4096, torch.int64: 2048}
+
+
+def work(batch: int, m: int, k: int, n: int, dtype: torch.dtype,
+         broadcast_b: bool = False) -> tuple[float, float, float]:
+    """(u8 limb operations, ring operations, bytes) of one call: four
+    ring products of 2 m n k (each party's combine over 2 k), as the
+    CUDA cores would multiply-add them, `limb_pairs` u8 products each on
+    the tensor cores; eps, a_0, a_1, dlt, b_0, b_1 (once if broadcast),
+    c_0, c_1 read and z_0, z_1 written once at the element size."""
+    ring = 4 * 2.0 * batch * m * n * k
+    nb = 1 if broadcast_b else batch
+    nbytes = float(3 * batch * m * k + 3 * nb * k * n + 4 * batch * m * n) \
+        * dtype.itemsize
+    return limb_pairs(dtype) * ring, ring, nbytes
 
 
 def secure_matmul_plain(eps, dlt, a_sh, b_sh, c_sh) -> torch.Tensor:
@@ -64,7 +86,7 @@ def launch(eps, dlt, a_sh, b_sh, c_sh) -> torch.Tensor:
     n = dlt.shape[-1]
     if (dlt.shape != (batch, k, n) or a_sh.shape != (2, batch, m, k)
             or b_sh.shape != (2, batch, k, n)
-            or c_sh.shape != (2, batch, m, n) or batch > _MAX_BATCH):
+            or c_sh.shape != (2, batch, m, n)):
         raise ValueError("secure_matmul kernel: bad shapes "
                          f"{[tuple(t.shape) for t in ts]}")
     ops = [batched_operand(t) for t in

@@ -4,7 +4,7 @@ Values x in R are encoded as round(x * 2**frac_bits) in Z_{2**bits}, stored
 in two's-complement signed integers: torch's integer +/-/* wrap modulo
 2**bits on both the CPU and the GPU, so they implement ring arithmetic
 directly (products through the kernels accumulate in unsigned types for
-the same reason; kernels/csrc/ring_tile.cuh).
+the same reason; kernels/csrc/ring_limbs.cuh).
 
 Two presets:
   RING64  int64, 16 fractional bits — CrypTen's ring.

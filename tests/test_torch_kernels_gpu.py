@@ -124,6 +124,55 @@ def test_secure_matmul_kernel_matches_plain(cuda, dtype, bmkn):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("case", ["all -1, K = K_CHUNK", "K above K_CHUNK",
+                                  "stride-0 weight", "unaligned", "K = 1",
+                                  "N = 1", "K = 0", "N = 16", "K = 16",
+                                  "odd M, N and K", "extremes"])
+def test_secure_matmul_hard_cases_match_plain(cuda, dtype, case):
+    """The limb combine's edges, bitwise: every limb 0xFF over a whole
+    K_CHUNK (both halves at their largest diagonal sums), a fold across
+    K_CHUNK, a weight broadcast by stride 0, operands one element off a
+    16-byte boundary (element copies, single-element c loads), the
+    path's K = 1, N = 16 and K = 16 combines, N = 1, an empty K (z = c),
+    odd shapes and INT_MIN / INT_MAX / -1 / 0 / 1 operands."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    info = torch.iinfo(dtype)
+    kc = smm.K_CHUNK[dtype]
+    bt, m, k, n = {"all -1, K = K_CHUNK": (2, 67, kc, 33),
+                   "K above K_CHUNK": (2, 67, kc + 70, 34),
+                   "stride-0 weight": (5, 130, 70, 33),
+                   "unaligned": (3, 70, 64, 40),
+                   "K = 1": (4, 200, 1, 16),
+                   "N = 1": (4, 200, 16, 1),
+                   "K = 0": (2, 70, 0, 40),
+                   "N = 16": (2, 300, 512, 16),
+                   "K = 16": (2, 300, 16, 512),
+                   "odd M, N and K": (3, 67, 45, 131),
+                   "extremes": (2, 128, 128, 64)}[case]
+    shapes = ((bt, m, k), (bt, k, n), (2, bt, m, k), (2, bt, k, n),
+              (2, bt, m, n))
+    if case == "all -1, K = K_CHUNK":
+        args = [torch.full(s, -1, dtype=dtype, device=cuda) for s in shapes]
+    elif case == "extremes":
+        pick = torch.tensor([info.min, info.max, -1, 0, 1], dtype=dtype,
+                            device=cuda)
+        args = [pick[torch.randint(0, 5, s, generator=g, device=cuda)]
+                for s in shapes]
+    else:
+        args = [torch.randint(info.min, info.max, s, generator=g,
+                              dtype=dtype, device=cuda) for s in shapes]
+    if case == "stride-0 weight":
+        args[1] = args[1][:1].expand_as(args[1])
+        args[3] = args[3][:, :1].expand_as(args[3])
+    if case == "unaligned":          # one element past a 16-byte boundary
+        args = [torch.cat([t.new_zeros(1), t.flatten()])[1:].view_as(t)
+                for t in args]
+    want = smm.secure_matmul_plain(*args) if k else args[4].clone()
+    assert torch.equal(smm.launch(*args), want)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("ring_name", ["ring32", "ring64"])
 def test_phase_on_the_card_runs_the_kernels(cuda, ring_name):
     """A small sieve phase on CUDA launches the kernels, never takes a
