@@ -19,7 +19,10 @@ result line):
      two tile widths), none spilling, and so does secure_matmul (int32
      and int64, each at its two tile widths); and that ssd runs on the
      tensor cores: HGMMA in both instantiations (bf16 and float32), the
-     path's (bf16) not spilling;
+     path's (bf16) not spilling; and mlp_softmax_attn's eight
+     instantiations' registers and spills, the path's (float32 Dh 64)
+     not spilling and none holding an atomic in its SASS (A is summed
+     across the cluster in rank order);
   2. every kernel against its plain torch version on the card: the ring
      kernels on int32 and int64, at the main path's shapes plus ragged and
      broadcast-batch shapes, bitwise (both also with every limb 0xFF at
@@ -47,7 +50,13 @@ result line):
      state, chunk 1, P, N and T of 1) and is timed at Mamba-2's prefill
      batch in bf16, host-issued and queued, against its bytes or its
      products at 989 TFLOP/s (`ssd.work`), the CUDA cores' bound beside
-     it, and in float32 against 3xTF32's rate;
+     it, and in float32 against 3xTF32's rate. mlp_softmax_attn adds
+     the cluster's hard cases (Sq 1024, Sq 1 and 8, Skv 450, hid 64,
+     Dh 16 and 128 in bf16, a permuted q), checks that two launches are
+     bitwise equal, and is timed at the clear sieve's two cases,
+     host-issued and queued, against the bytes of
+     `mlp_softmax_attn.work`, the score form's operations bound (the
+     parent kernel's) beside it;
   3. the main path: the two-phase private sieve at BERT-base width
      (d_model 768, 12 heads, d_head 64; proxies <1,1,2> then <3,12,16>;
      batch 4, seq 512, 2 classes; a pool of 64 candidates from --seed,
@@ -75,7 +84,7 @@ result line):
      batch 4) — mlp_softmax_attn once a layer a batch; one phase-2 batch
      agrees with the CPU; its survivors' overlap with the MPC sieve's is
      printed. Each is profiled (torch.profiler, CUDA activity): wall and
-     device kernel time;
+     device kernel time, and mlp_softmax_attn's share of the latter;
   7. token serving at full width: mamba2_2_7b (64 SSD layers, d_model
      2560) and then recurrentgemma_2b (26 layers: 18 RG-LRU, 8 local
      attention with d_head 256 over one kv head), random weights from
@@ -207,36 +216,48 @@ def phase_build() -> str:
     return smi
 
 
-def phase_tensor_core_sass(name: str, opcode: str, entries: dict,
-                           no_spill) -> dict:
-    """The witness that kernel `name` runs on the tensor cores: every
-    instantiation's SASS (cuobjdump) holds `opcode`, the warpgroup product
-    (HGMMA: bf16 and tf32; IGMMA: u8), those in `no_spill` do not spill
-    (-Xptxas -v), and the library holds no other kernel of `name` (no
-    CUDA-core kernel left beside them). `entries` maps each
+def phase_sass(name: str, entries: dict, no_spill, require: str = None,
+               forbid: tuple = None) -> dict:
+    """Kernel `name`'s instantiations, from its build: registers and
+    spills (-Xptxas -v), fatal for one in `no_spill` that spills; and the
+    witness of how it computes, from its SASS (cuobjdump): every
+    instantiation holds opcode `require` (HGMMA, the tensor cores'
+    bf16/tf32 warpgroup product; IGMMA, their u8 one), none holds an
+    opcode of `forbid` = (label, pattern), and the library holds no other
+    kernel of `name` (no kernel left beside them). `entries` maps each
     instantiation's label to its mangled name's template part. ptxas's
     notes that it serialized wgmma are printed."""
     from repro_torch.kernels import build
-    counts = build.sass_counts(build.sass(name), opcode)
+    sass = build.sass(name)
     log_text = build.ptxas_log(name)
     ptxas = build.ptxas_entries(log_text)
+    counts = {}
+    if require:
+        counts[require] = build.sass_counts(sass, require)
+    if forbid:
+        counts[forbid[0]] = build.sass_counts(sass, forbid[1])
+    fns_all = next(iter(counts.values())) if counts else ptxas
     out = {}
     for label, tag in entries.items():
-        fns = [f for f in counts if tag in f]
+        fns = [f for f in fns_all if tag in f]
         if len(fns) != 1:
             fail(f"{name} {label}: {len(fns)} SASS entries")
-        n = counts[fns[0]]
         p = ptxas.get(fns[0], {})
         spill = p.get("spill_stores", -1) + p.get("spill_loads", -1)
-        out[label] = {opcode: n, "registers": p.get("registers"),
-                      "spill_bytes": spill}
-        log(f"[1] {name} {label}: {n} {opcode}, {p.get('registers')} "
-            f"registers, {spill} bytes spilled")
-        if n == 0:
-            fail(f"{name} {label}: no {opcode} in its SASS")
+        out[label] = {key: c.get(fns[0], 0) for key, c in counts.items()}
+        out[label].update(registers=p.get("registers"), spill_bytes=spill)
+        log(f"[1] {name} {label}: "
+            + "".join(f"{n} {key}, " for key, n in out[label].items()
+                      if key in counts)
+            + f"{p.get('registers')} registers, {spill} bytes spilled")
+        if require and out[label][require] == 0:
+            fail(f"{name} {label}: no {require} in its SASS")
+        if forbid and out[label][forbid[0]]:
+            fail(f"{name} {label}: {out[label][forbid[0]]} {forbid[0]} in "
+                 f"its SASS")
         if spill != 0 and label in no_spill:
             fail(f"{name} {label} spills {spill} bytes")
-    others = [f for f in counts if name in f
+    others = [f for f in fns_all if name in f
               and not any(tag in f for tag in entries.values())]
     if others:
         fail(f"{name}: unexpected kernel entries {others}")
@@ -266,6 +287,14 @@ SMM_ENTRIES = {"int32 BN 64": "secure_matmul_kernelIiLi64E",
 # ssd: bf16 (the path's) and float32
 SSD_ENTRIES = {"bf16": "ssd_kernelI13__nv_bfloat16E", "f32": "ssd_kernelIfE"}
 SSD_NO_SPILL = ("bf16",)
+# mlp_softmax_attn: bf16 and float32 at every Dh, the path's (float32 Dh
+# 64) not spilling
+MSA_ENTRIES = {f"{t} Dh {dh}": f"mlp_softmax_attn_kernelI{m}Li{dh}E"
+               for t, m in (("bf16", "13__nv_bfloat16"), ("f32", "f"))
+               for dh in (16, 32, 64, 128)}
+MSA_NO_SPILL = ("f32 Dh 64",)
+# the witness that mlp_softmax_attn sums A with no atomics
+MSA_FORBID = ("atomics", "(?:ATOM|ATOMS|ATOMG|RED)")
 
 
 # ---------------------------------------------------------------------------
@@ -638,34 +667,73 @@ def phase_float_kernels(seed: int) -> dict:
             f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.6f} ms "
             f"({t['bound_by']})")
 
-    # mlp_softmax_attn: (label, BH, S, Dh, hid, dtype, timed); the clear
-    # sieve's phase 2 (<3,12,16>, batch 4) gives BH 48, hid 16, phase 1
-    # (<1,1,2>) BH 4, hid 2
+    # mlp_softmax_attn: (label, BH, Sq, Skv, Dh, hid, dtype, timed); the
+    # clear sieve's phase 2 (<3,12,16>, batch 4) gives BH 48, hid 16,
+    # phase 1 (<1,1,2>) BH 4, hid 2; then the cluster's hard cases: Sq
+    # 1024 (two query tiles a block), Sq 1 and 8 (a cluster of one), Skv
+    # not a multiple of C x 64, hid 64, Dh 16 and 128 in bf16; and a dense
+    # but permuted q, the head-folded q of a clear-sieve batch of one row
     res = out["mlp_softmax_attn"] = {}
-    for label, bh, sq, dh, hid, dt, timed in (
-            ("path phase 2", 48, 512, 64, 16, f32, True),
-            ("hid 2", 48, 512, 64, 2, f32, False),
-            ("path phase 1", 4, 512, 64, 2, f32, False),
-            ("ragged", 48, 100, 64, 16, f32, False),
-            ("bf16", 48, 512, 64, 16, bf16, False)):
-        q, k, v = (randn((bh, sq, dh), dt) for _ in range(3))
-        w = (randn((sq, hid), scale=0.2), randn((hid,), scale=0.1),
-             randn((hid, sq), scale=0.2), randn((sq,), scale=0.01))
-        check("mlp_softmax_attn", f"{label} ({bh},{sq},{dh}) hid {hid}",
-              msa.launch(q, k, v, *w), ref.mlp_softmax_attn(q, k, v, *w),
+    for label, bh, sq, skv, dh, hid, dt, timed in (
+            ("path phase 2", 48, 512, 512, 64, 16, f32, "path"),
+            ("hid 2", 48, 512, 512, 64, 2, f32, None),
+            ("path phase 1", 4, 512, 512, 64, 2, f32, "phase1"),
+            ("ragged", 48, 100, 100, 64, 16, f32, None),
+            ("bf16", 48, 512, 512, 64, 16, bf16, None),
+            ("Sq 1024", 48, 1024, 1024, 64, 16, f32, None),
+            ("Sq 1", 48, 1, 512, 64, 16, f32, None),
+            ("Sq 8", 48, 8, 8, 64, 16, f32, None),
+            ("Skv 450", 48, 512, 450, 64, 5, f32, None),
+            ("hid 64", 48, 512, 512, 64, 64, f32, None),
+            ("Dh 16 bf16", 48, 512, 512, 16, 16, bf16, None),
+            ("Dh 128 bf16", 48, 512, 512, 128, 16, bf16, None),
+            ("q permuted", 12, 512, 512, 64, 16, f32, None)):
+        q = randn((sq, bh, dh), dt).transpose(0, 1) \
+            if label == "q permuted" else randn((bh, sq, dh), dt)
+        k, v = (randn((bh, skv, dh), dt) for _ in range(2))
+        w = (randn((skv, hid), scale=0.2), randn((hid,), scale=0.1),
+             randn((hid, skv), scale=0.2), randn((skv,), scale=0.01))
+        got = msa.launch(q, k, v, *w)
+        check("mlp_softmax_attn", f"{label} ({bh},{sq},{dh}) Skv {skv} hid "
+              f"{hid} {str(dt)[6:]}", got, ref.mlp_softmax_attn(q, k, v, *w),
               TOL if dt == f32 else BF16_TOL, res)
+        if label in ("path phase 2", "Sq 1024"):
+            again = msa.launch(q, k, v, *w)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                fail(f"mlp_softmax_attn {label}: two launches differ by "
+                     f"{_max_err(got, again)}")
+            res.setdefault("bitwise_repeat", []).append(label)
+            log(f"[2] mlp_softmax_attn {label}: two launches bitwise equal")
         if not timed:
             continue
-        res["ms"] = cuda_ms(msa.launch, q, k, v, *w)
-        res["plain_ms"] = cuda_ms(ref.mlp_softmax_attn, q, k, v, *w)
-        ops = 2.0 * bh * sq * sq * (dh + hid) + 2.0 * bh * sq * hid * dh \
-            + 2.0 * bh * hid * sq * dh + 2.0 * bh * sq * dh
-        res["bound_ms"], res["bound_by"] = _bound_ms(
-            (4 * bh * sq * dh + 2 * sq * hid + hid + sq) * 4, ops)
-        res["shape"] = f"({bh},{sq},{dh}) hid {hid} f32"
-        log(f"[2] mlp_softmax_attn {res['shape']}: {res['ms']:.4f} ms, "
-            f"plain {res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} "
-            f"ms ({res['bound_by']})")
+        nbytes, ops = msa.work(bh, 1, sq, skv, dh, hid, dt)
+        t = {"ms": cuda_ms(msa.launch, q, k, v, *w, reps=50),
+             "device_ms": cuda_ms(msa.launch, q, k, v, *w, reps=50,
+                                  queued=True),
+             "shape": f"({bh},{sq},{dh}) hid {hid} f32"}
+        t["bound_ms"], t["bound_by"] = _bound_ms(nbytes, ops)
+        t["bound_share"] = t["bound_ms"] / t["ms"]
+        t["device_bound_share"] = t["bound_ms"] / t["device_ms"]
+        if timed == "phase1":
+            res["phase1"] = t
+        else:
+            t["plain_ms"] = cuda_ms(ref.mlp_softmax_attn, q, k, v, *w)
+            # the score form's operations on the CUDA cores: the bound
+            # of the kernel before A = K^T W1 came first
+            old_ops = 2.0 * bh * sq * skv * (dh + hid) \
+                + 2.0 * bh * sq * hid * dh + 2.0 * bh * hid * skv * dh \
+                + 2.0 * bh * skv * dh
+            t["old_ops_bound_ms"] = old_ops / PEAK_OPS_S * 1e3
+            res.update(t)
+        log(f"[2] mlp_softmax_attn {t['shape']}: {t['ms']:.4f} ms (device "
+            f"{t['device_ms']:.4f}), "
+            + (f"plain {t['plain_ms']:.4f} ms, " if "plain_ms" in t else "")
+            + f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}, "
+            f"{100 * t['device_bound_share']:.1f} % of it in device time)"
+            + (f"; the score form's operations bound "
+               f"{t['old_ops_bound_ms']:.4f} ms" if "old_ops_bound_ms" in t
+               else ""))
     return out
 
 
@@ -1202,8 +1270,11 @@ def phase_clear_sieve(seed: int, proxies, sieve, smi: str) -> dict:
     info = _report("6b", f"clear sieve {POOL} -> {' -> '.join(map(str, keeps))}"
                    f" (batch {BATCH})", wall, kernel_ms, ours, smi)
     info.update(phases=phases, launches={"mlp_softmax_attn": msa})
+    msa_ms, msa_n = ours.get("mlp_softmax_attn", (0.0, 0))
+    info["mlp_softmax_attn_ms"] = msa_ms
     log(f"[6b] launches mlp_softmax_attn {msa} (want {want}), "
-        f"entropy_head {kops.eh_stats()}")
+        f"entropy_head {kops.eh_stats()}; mlp_softmax_attn {msa_ms:.3f} ms "
+        f"of {kernel_ms:.3f} ms of kernels ({msa_n} profiled launches)")
     if msa != {"kernel": want, "ref": 0}:
         fail(f"clear sieve: mlp_softmax_attn {msa}, want {want} kernel "
              "launches and no plain call")
@@ -1411,14 +1482,12 @@ def main(argv=None) -> int:
 
     t_all = time.time()
     smi = phase_build()
-    fa_sass = phase_tensor_core_sass("flash_attn", "HGMMA", FA_ENTRIES,
-                                     FA_NO_SPILL)
-    rmm_sass = phase_tensor_core_sass("ring_matmul", "IGMMA", RMM_ENTRIES,
-                                      RMM_ENTRIES)
-    smm_sass = phase_tensor_core_sass("secure_matmul", "IGMMA",
-                                      SMM_ENTRIES, SMM_ENTRIES)
-    ssd_sass = phase_tensor_core_sass("ssd", "HGMMA", SSD_ENTRIES,
-                                      SSD_NO_SPILL)
+    fa_sass = phase_sass("flash_attn", FA_ENTRIES, FA_NO_SPILL, "HGMMA")
+    rmm_sass = phase_sass("ring_matmul", RMM_ENTRIES, RMM_ENTRIES, "IGMMA")
+    smm_sass = phase_sass("secure_matmul", SMM_ENTRIES, SMM_ENTRIES, "IGMMA")
+    ssd_sass = phase_sass("ssd", SSD_ENTRIES, SSD_NO_SPILL, "HGMMA")
+    msa_build = phase_sass("mlp_softmax_attn", MSA_ENTRIES, MSA_NO_SPILL,
+                           forbid=MSA_FORBID)
     kern = phase_kernels(args.seed)
     fkern = phase_float_kernels(args.seed)
     skern = phase_scan_kernels(args.seed)
@@ -1500,10 +1569,16 @@ def main(argv=None) -> int:
             **{x: k[x] for x in ("bf16_max_abs_err", "vocab", "dh256",
                                  "f32", "cuda_core_bound_ms",
                                  "bound_share", "device_ms",
-                                 "library_device_ms")
+                                 "library_device_ms", "device_bound_share",
+                                 "old_ops_bound_ms", "phase1",
+                                 "bitwise_repeat")
                if x in k}})
         if name == "ssd":
             kernels[-1]["sass"] = ssd_sass
+        if name == "mlp_softmax_attn":
+            kernels[-1]["build"] = msa_build
+            kernels[-1]["clear_sieve_kernel_ms"] = \
+                csieve["mlp_softmax_attn_ms"]
         if name == "flash_attn":
             kernels[-1]["sass"] = fa_sass
             kernels[-1]["launches_by_path"] = {

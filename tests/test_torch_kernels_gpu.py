@@ -303,24 +303,124 @@ def test_entropy_head_kernel_matches_plain(cuda, dtype, rv):
     assert_close(got, ref.entropy_head(x), 1e-5)
 
 
+def msa_operands(g, bh, sq, skv, dh, hid, group, dtype):
+    q = randn(g, (bh, sq, dh), dtype)
+    k, v = (randn(g, (bh // group, skv, dh), dtype) for _ in range(2))
+    w = (randn(g, (skv, hid), scale=0.2), randn(g, (hid,), scale=0.1),
+         randn(g, (hid, skv), scale=0.2), randn(g, (skv,), scale=0.01))
+    return q, k, v, w
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(3, 67, 16, 4, 1), (2, 128, 64, 16, 1),
-                                   (1, 64, 128, 64, 1), (4, 32, 32, 2, 2),
-                                   (6, 100, 64, 16, 3)])
+@pytest.mark.parametrize("shape", [
+    (3, 67, 67, 16, 4, 1), (2, 128, 128, 64, 16, 1), (1, 64, 64, 128, 64, 1),
+    (4, 32, 32, 32, 2, 2), (6, 100, 100, 64, 16, 3),
+    # Sq 1024: two query tiles a block of a cluster of 8
+    (2, 1024, 1024, 64, 16, 1),
+    # Sq 1 and Sq 8: a cluster of one, its keys in several chunks
+    (4, 1, 100, 64, 16, 1), (2, 1, 2000, 16, 4, 1), (4, 8, 8, 32, 3, 1),
+    # Skv not a multiple of C x 64: ragged slices, an unaligned W1 span
+    (3, 512, 450, 64, 5, 1), (2, 300, 70, 32, 7, 1),
+    # hid 64; Dh 128 with its 32-row key chunks, double-buffered
+    (2, 128, 128, 64, 64, 1), (2, 200, 200, 128, 64, 1),
+    (2, 64, 600, 128, 16, 1), (2, 512, 512, 16, 16, 1)])
 def test_mlp_softmax_attn_kernel_matches_plain(cuda, dtype, shape):
-    """(BH, S, Dh, hid, group)."""
+    """(BH, Sq, Skv, Dh, hid, group)."""
     from repro_torch.kernels import mlp_softmax_attn as msa
-    bh, s, dh, hid, group = shape
     g = torch.Generator(device=cuda).manual_seed(5)
-    q = randn(g, (bh, s, dh), dtype)
-    k, v = (randn(g, (bh // group, s, dh), dtype) for _ in range(2))
-    w = (randn(g, (s, hid), scale=0.2), randn(g, (hid,), scale=0.1),
-         randn(g, (hid, s), scale=0.2), randn(g, (s,), scale=0.01))
+    q, k, v, w = msa_operands(g, *shape, dtype)
     got = msa.launch(q, k, v, *w)
     torch.cuda.synchronize()
-    assert got.dtype == dtype
+    assert got.dtype == dtype and got.shape == q.shape
     assert_close(got, ref.mlp_softmax_attn(q, k, v, *w), FLOAT_TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(48, 512, 512, 64, 16, 1),
+                                   (2, 1024, 450, 64, 5, 1),
+                                   (2, 1, 2000, 128, 64, 1)])
+def test_mlp_softmax_attn_launches_are_bitwise_equal(cuda, shape):
+    """A is summed across the cluster in rank order, with no atomics:
+    two launches on the same inputs give the same bits."""
+    from repro_torch.kernels import mlp_softmax_attn as msa
+    g = torch.Generator(device=cuda).manual_seed(6)
+    q, k, v, w = msa_operands(g, *shape, torch.float32)
+    first = msa.launch(q, k, v, *w)
+    second = msa.launch(q, k, v, *w)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mlp_softmax_attn_unaligned_operands(cuda, dtype):
+    """q and k starting off a 16-byte boundary (views into a larger
+    buffer) and w1 rows of 3 floats: the wrapper realigns q and k, the
+    kernel copies w1's unaligned span in 4-byte pieces at its edges."""
+    from repro_torch.kernels import mlp_softmax_attn as msa
+    g = torch.Generator(device=cuda).manual_seed(7)
+    bh, sq, skv, dh, hid = 3, 130, 130, 32, 3
+    q, k, v, w = msa_operands(g, bh, sq, skv, dh, hid, 1, dtype)
+    qo, ko = (torch.empty(x.numel() + 1, dtype=dtype, device=cuda)[1:]
+              .view(x.shape) for x in (q, k))
+    qo.copy_(q)
+    ko.copy_(k)
+    w1 = torch.empty(skv * hid + 1, device=cuda)[1:].view(skv, hid)
+    w1.copy_(w[0])
+    assert qo.data_ptr() % 16 and ko.data_ptr() % 16 and w1.data_ptr() % 16
+    got = msa.launch(qo, ko, v, w1, *w[1:])
+    torch.cuda.synchronize()
+    assert_close(got, ref.mlp_softmax_attn(q, k, v, *w), FLOAT_TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mlp_softmax_attn_permuted_q(cuda, dtype):
+    """A dense but permuted q (the transpose of an (Sq, BH, Dh) array):
+    the kernel writes a contiguous (BH, Sq, Dh) output, which the wrapper
+    returns in that layout."""
+    from repro_torch.kernels import mlp_softmax_attn as msa
+    g = torch.Generator(device=cuda).manual_seed(8)
+    bh, sq, dh, hid = 12, 130, 64, 16
+    _, k, v, w = msa_operands(g, bh, sq, sq, dh, hid, 1, dtype)
+    q = randn(g, (sq, bh, dh), dtype).transpose(0, 1)
+    assert not q.is_contiguous()
+    got = msa.launch(q, k, v, *w)
+    torch.cuda.synchronize()
+    assert got.shape == q.shape
+    assert_close(got, ref.mlp_softmax_attn(q, k, v, *w), FLOAT_TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_clear_attend_batch_of_one_matches_plain(cuda):
+    """ClearEngine.attend on one row with 12 heads (the last batch of a
+    pool of N rows where N % batch == 1): the head-folded q is then a
+    permuted view, and the kernel's output matches the plain version."""
+    from repro_torch.engine import VARIANTS, ClearEngine
+    from repro_torch.kernels import ops as kops
+    g = torch.Generator(device=cuda).manual_seed(9)
+    b, s, wk, dh, hid = 1, 100, 12, 64, 16
+    q, k, v = (randn(g, (b * s, wk * dh)) for _ in range(3))
+    w1, b1, w2, b2 = (randn(g, (s, hid), scale=0.2),
+                      randn(g, (hid,), scale=0.1),
+                      randn(g, (hid, s), scale=0.2),
+                      randn(g, (s,), scale=0.01))
+    pp = {"mlp_sm": [{"w1": w1, "b1": b1, "w2": w2, "b2": b2}]}
+    qT = q.reshape(b, s, wk, 1, dh).movedim(1, 3)            # b wk g s dh
+    kT = k.reshape(b, s, wk, dh).movedim(2, 1).transpose(-1, -2) \
+        .reshape(b, wk, 1, dh, s)                            # b wk g dh s
+    assert not qT.reshape(b * wk, s, dh).is_contiguous()
+    kops.reset_msa_stats()
+    got = ClearEngine().attend(pp, 0, qT, kT, v, VARIANTS["full"])
+    torch.cuda.synchronize()
+    assert kops.msa_stats() == {"kernel": 1, "ref": 0}
+    want = ref.mlp_softmax_attn(
+        q.reshape(s, wk, dh).transpose(0, 1),
+        k.reshape(s, wk, dh).transpose(0, 1),
+        v.reshape(s, wk, dh).transpose(0, 1), w1, b1, w2, b2)
+    assert got.shape == (b, wk, 1, s, dh)
+    assert_close(got.reshape(wk, s, dh), want, FLOAT_TOL[torch.float32])
 
 
 @pytest.mark.gpu
