@@ -22,7 +22,9 @@ result line):
      path's (bf16) not spilling; and mlp_softmax_attn's eight
      instantiations' registers and spills, the path's (float32 Dh 64)
      not spilling and none holding an atomic in its SASS (A is summed
-     across the cluster in rank order);
+     across the cluster in rank order); and rg_lru's registers and
+     spills, neither spilling nor holding an atomic (the chunks' carries
+     are folded in warp order);
   2. every kernel against its plain torch version on the card: the ring
      kernels on int32 and int64, at the main path's shapes plus ragged and
      broadcast-batch shapes, bitwise (both also with every limb 0xFF at
@@ -56,7 +58,12 @@ result line):
      bitwise equal, and is timed at the clear sieve's two cases,
      host-issued and queued, against the bytes of
      `mlp_softmax_attn.work`, the score form's operations bound (the
-     parent kernel's) beside it;
+     parent kernel's) beside it. rg_lru adds the chunked scan's hard
+     cases (T 1 and 129, D 1 and 33, a = 1, a = 0, the model's gate
+     range, a large initial state, permuted operands), checks that two
+     launches are bitwise equal, and is timed at RecurrentGemma's prefill
+     batch host-issued, queued, and queued over four copies of its inputs
+     (which outrun the L2 cache), against the bytes of `rg_lru.work`;
   3. the main path: the two-phase private sieve at BERT-base width
      (d_model 768, 12 heads, d_head 64; proxies <1,1,2> then <3,12,16>;
      batch 4, seq 512, 2 classes; a pool of 64 candidates from --seed,
@@ -106,6 +113,7 @@ The last lines are the card's `nvidia-smi` name and power limit, one
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
 import subprocess
@@ -293,8 +301,16 @@ MSA_ENTRIES = {f"{t} Dh {dh}": f"mlp_softmax_attn_kernelI{m}Li{dh}E"
                for t, m in (("bf16", "13__nv_bfloat16"), ("f32", "f"))
                for dh in (16, 32, 64, 128)}
 MSA_NO_SPILL = ("f32 Dh 64",)
-# the witness that mlp_softmax_attn sums A with no atomics
-MSA_FORBID = ("atomics", "(?:ATOM|ATOMS|ATOMG|RED)")
+# the witness that a kernel sums in a fixed order: no atomics in its SASS
+# (mlp_softmax_attn's A across the cluster, rg_lru's carries)
+NO_ATOMICS = ("atomics", "(?:ATOM|ATOMS|ATOMG|RED)")
+
+
+def lru_entries() -> dict:
+    """rg_lru's one instantiation, float32 at the wrapper's WARPS x
+    STEPS tile; it must not spill."""
+    from repro_torch.kernels import rg_lru
+    return {"f32": f"rg_lru_kernelILi{rg_lru.WARPS}ELi{rg_lru.STEPS}EE"}
 
 
 # ---------------------------------------------------------------------------
@@ -840,27 +856,75 @@ def phase_scan_kernels(seed: int) -> dict:
             f"{100 * t_['bound_share']:.1f} % of it; CUDA-core bound "
             f"{t_['cuda_core_bound_ms']:.4f} ms)")
 
-    # rg_lru: (label, B, T, D, timed)
+    # rg_lru: (label, B, T, D, a, b_0 scale), a = sigmoid(N(0, 1)) and
+    # b = N(0, 1), or a in the model's gate range [0.9, 0.9999] with b =
+    # sqrt(1 - a^2) N(0, 1); then the chunked scan's hard cases: T of 1
+    # and past a tile, D of 1 and past a lane group, no decay (a = 1), a
+    # = 0, a large initial state folded into b_0, and dense but permuted
+    # operands ((T, B, D) storage viewed as (B, T, D))
     res = out["rg_lru"] = {}
-    for label, bsz, t, d, timed in (
-            ("path (RecurrentGemma prefill batch)", 4, 512, 2560, True),
-            ("ragged", 3, 100, 2560, False),
-            ("smoke widths", 2, 64, 16, False),
-            ("odd width", 1, 37, 300, False)):
-        a = torch.sigmoid(randn((bsz, t, d)))
-        b = randn((bsz, t, d))
-        check("rg_lru", f"{label} ({bsz},{t},{d})", lru_k.launch(a, b),
-              ref.rg_lru(a, b), SCAN_TOL, res)
-        if not timed:
+    for label, bsz, t, d, a_kind, b0_scale in (
+            ("path (RecurrentGemma prefill batch)", 4, 512, 2560, "sigmoid",
+             1.0),
+            ("path, gate range", 4, 512, 2560, "gate", 1.0),
+            ("ragged", 3, 100, 2560, "sigmoid", 1.0),
+            ("smoke widths", 2, 64, 16, "sigmoid", 1.0),
+            ("odd width", 1, 37, 300, "sigmoid", 1.0),
+            ("T 1", 3, 1, 300, "sigmoid", 1.0),
+            ("T 129", 2, 129, 2560, "sigmoid", 1.0),
+            ("D 1", 2, 300, 1, "sigmoid", 1.0),
+            ("D 33", 2, 200, 33, "sigmoid", 1.0),
+            ("a = 1", 2, 300, 64, "one", 1.0),
+            ("a = 0", 2, 300, 64, "zero", 1.0),
+            ("large initial state", 2, 300, 96, "gate", 100.0),
+            ("permuted", 3, 300, 40, "sigmoid", 1.0)):
+        shape = (t, bsz, d) if label == "permuted" else (bsz, t, d)
+        if a_kind == "gate":
+            a = 0.9 + 0.0999 * torch.rand(shape, generator=gen,
+                                          device="cuda")
+            b = torch.sqrt(1 - a * a) * randn(shape)
+        else:
+            a = {"sigmoid": lambda: torch.sigmoid(randn(shape)),
+                 "one": lambda: torch.ones(shape, device="cuda"),
+                 "zero": lambda: torch.zeros(shape, device="cuda")}[a_kind]()
+            b = randn(shape)
+        if label == "permuted":
+            a, b = a.transpose(0, 1), b.transpose(0, 1)
+        b[:, 0] *= b0_scale
+        got = lru_k.launch(a, b)
+        check("rg_lru", f"{label} ({bsz},{t},{d})", got, ref.rg_lru(a, b),
+              SCAN_TOL, res)
+        if label in ("path (RecurrentGemma prefill batch)", "T 129"):
+            again = lru_k.launch(a, b)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                fail(f"rg_lru {label}: two launches differ by "
+                     f"{_max_err(got, again)}")
+            res.setdefault("bitwise_repeat", []).append(label)
+            log(f"[2] rg_lru {label}: two launches bitwise equal")
+        if label != "path (RecurrentGemma prefill batch)":
             continue
-        res["ms"] = cuda_ms(lru_k.launch, a, b)
+        # timed host-issued and queued (the device alone), and queued over
+        # four copies of the inputs in turn, which outrun the 50 MB L2
+        copies = itertools.cycle([(a, b)] + [
+            (torch.sigmoid(randn(shape)), randn(shape)) for _ in range(3)])
+        res["ms"] = cuda_ms(lru_k.launch, a, b, reps=50)
+        res["device_ms"] = cuda_ms(lru_k.launch, a, b, reps=50, queued=True)
+        res["rotating_device_ms"] = cuda_ms(
+            lambda: lru_k.launch(*next(copies)), reps=50, queued=True)
         res["plain_ms"] = cuda_ms(ref.rg_lru, a, b, reps=3)
-        res["bound_ms"], res["bound_by"] = _bound_ms(3 * a.numel() * 4,
-                                                     2.0 * a.numel())
+        ops, nbytes = lru_k.work(bsz, t, d)
+        res["bound_ms"], res["bound_by"] = _bound_ms(nbytes, ops)
+        for key in ("ms", "device_ms", "rotating_device_ms"):
+            res[key.replace("ms", "bound_share")] = res["bound_ms"] / res[key]
         res["shape"] = f"({bsz},{t},{d}) f32"
-        log(f"[2] rg_lru {res['shape']}: {res['ms']:.4f} ms, plain "
+        del copies
+        log(f"[2] rg_lru {res['shape']}: {res['ms']:.4f} ms (device "
+            f"{res['device_ms']:.4f}, over four input copies "
+            f"{res['rotating_device_ms']:.4f}), plain "
             f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
-            f"({res['bound_by']})")
+            f"({res['bound_by']}, {100 * res['device_bound_share']:.1f} % "
+            f"of it in device time)")
     return out
 
 
@@ -1487,7 +1551,10 @@ def main(argv=None) -> int:
     smm_sass = phase_sass("secure_matmul", SMM_ENTRIES, SMM_ENTRIES, "IGMMA")
     ssd_sass = phase_sass("ssd", SSD_ENTRIES, SSD_NO_SPILL, "HGMMA")
     msa_build = phase_sass("mlp_softmax_attn", MSA_ENTRIES, MSA_NO_SPILL,
-                           forbid=MSA_FORBID)
+                           forbid=NO_ATOMICS)
+    lru_entries_ = lru_entries()
+    lru_build = phase_sass("rg_lru", lru_entries_, lru_entries_,
+                           forbid=NO_ATOMICS)
     kern = phase_kernels(args.seed)
     fkern = phase_float_kernels(args.seed)
     skern = phase_scan_kernels(args.seed)
@@ -1570,11 +1637,17 @@ def main(argv=None) -> int:
                                  "f32", "cuda_core_bound_ms",
                                  "bound_share", "device_ms",
                                  "library_device_ms", "device_bound_share",
+                                 "rotating_device_ms",
+                                 "rotating_device_bound_share",
                                  "old_ops_bound_ms", "phase1",
                                  "bitwise_repeat")
                if x in k}})
         if name == "ssd":
             kernels[-1]["sass"] = ssd_sass
+        if name == "rg_lru":
+            kernels[-1]["build"] = lru_build
+            kernels[-1]["prefill_batch_kernel_ms"] = serving[
+                "recurrentgemma_2b"]["profile"]["kernels"]["rg_lru"]["ms"]
         if name == "mlp_softmax_attn":
             kernels[-1]["build"] = msa_build
             kernels[-1]["clear_sieve_kernel_ms"] = \

@@ -546,14 +546,64 @@ def test_ssd_kernel_hard_cases_match_plain(cuda, dtype, case):
     assert_close(state, want_s, 1e-5)
 
 
+def lru_inputs(g, shape, a_kind="sigmoid", b0_scale=1.0):
+    """a and b of the recurrence: a = sigmoid(N(0, 1)), 0, 1, or in the
+    model's gate range [0.9, 0.9999] (b = sqrt(1 - a^2) N(0, 1) there, as
+    the model scales it); b_0 times b0_scale, an initial state folded in."""
+    if a_kind == "gate":
+        a = 0.9 + 0.0999 * torch.rand(shape, generator=g, device=g.device)
+        b = torch.sqrt(1 - a * a) * randn(g, shape)
+    else:
+        a = {"sigmoid": lambda: torch.sigmoid(randn(g, shape)),
+             "zero": lambda: torch.zeros(shape, device=g.device),
+             "one": lambda: torch.ones(shape, device=g.device)}[a_kind]()
+        b = randn(g, shape)
+    b[:, 0] *= b0_scale
+    return a, b
+
+
+# (B, T, D), a, b_0 scale: the serving shapes, then the chunked scan's
+# hard cases: T of 1 and past a tile (129), D of 1 and past a lane group
+# (33), no decay, the model's gate range and a large folded initial state
+LRU_CASES = [((2, 64, 16), "sigmoid", 1.0), ((1, 128, 32), "sigmoid", 1.0),
+             ((3, 100, 2560), "sigmoid", 1.0),
+             ((4, 512, 2560), "sigmoid", 1.0),
+             ((3, 1, 300), "sigmoid", 1.0), ((2, 129, 64), "sigmoid", 1.0),
+             ((2, 300, 1), "sigmoid", 1.0), ((2, 200, 33), "sigmoid", 1.0),
+             ((2, 300, 64), "one", 1.0), ((2, 300, 64), "zero", 1.0),
+             ((4, 512, 256), "gate", 1.0), ((2, 300, 96), "gate", 100.0)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(2, 64, 16), (1, 128, 32), (3, 100, 2560),
-                                   (4, 512, 2560)])
-def test_rg_lru_kernel_matches_plain(cuda, shape):
+@pytest.mark.parametrize("shape,a_kind,b0_scale", LRU_CASES)
+def test_rg_lru_kernel_matches_plain(cuda, shape, a_kind, b0_scale):
     from repro_torch.kernels import rg_lru as lru_k
     g = torch.Generator(device=cuda).manual_seed(7)
-    a = torch.sigmoid(randn(g, shape))
-    b = randn(g, shape)
+    a, b = lru_inputs(g, shape, a_kind, b0_scale)
+    got = lru_k.launch(a, b)
+    torch.cuda.synchronize()
+    assert_close(got, ref.rg_lru(a, b), 1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(4, 512, 2560), (2, 129, 33)])
+def test_rg_lru_two_launches_are_bitwise_equal(cuda, shape):
+    """Every sum of the chunked scan has a fixed order (no atomics)."""
+    from repro_torch.kernels import rg_lru as lru_k
+    g = torch.Generator(device=cuda).manual_seed(9)
+    a, b = lru_inputs(g, shape, "gate")
+    first = lru_k.launch(a, b)
+    assert torch.equal(first, lru_k.launch(a, b))
+
+
+@pytest.mark.gpu
+def test_rg_lru_permuted_operands(cuda):
+    """Dense but permuted a and b ((T, B, D) storage viewed as (B, T, D)):
+    h comes back in the operands' index order."""
+    from repro_torch.kernels import rg_lru as lru_k
+    g = torch.Generator(device=cuda).manual_seed(10)
+    a, b = (x.transpose(0, 1) for x in lru_inputs(g, (300, 3, 40)))
+    assert not a.is_contiguous()
     got = lru_k.launch(a, b)
     torch.cuda.synchronize()
     assert_close(got, ref.rg_lru(a, b), 1e-5)
