@@ -24,7 +24,11 @@ result line):
      not spilling and none holding an atomic in its SASS (A is summed
      across the cluster in rank order); and rg_lru's registers and
      spills, neither spilling nor holding an atomic (the chunks' carries
-     are folded in warp order);
+     are folded in warp order); and entropy_head's six instantiations'
+     registers and spills (one thread a row, and a row split across a
+     block or a cluster, each in float32, bf16 and f16), the path's
+     (float32) not spilling and none holding an atomic (the (m, z, s)
+     triples are merged in a fixed order);
   2. every kernel against its plain torch version on the card: the ring
      kernels on int32 and int64, at the main path's shapes plus ragged and
      broadcast-batch shapes, bitwise (both also with every limb 0xFF at
@@ -63,7 +67,16 @@ result line):
      range, a large initial state, permuted operands), checks that two
      launches are bitwise equal, and is timed at RecurrentGemma's prefill
      batch host-issued, queued, and queued over four copies of its inputs
-     (which outrun the L2 cache), against the bytes of `rg_lru.work`;
+     (which outrun the L2 cache), against the bytes of `rg_lru.work`.
+     entropy_head adds the split kernel's hard cases (V 1 and 3, V
+     30521, one row, few rows in clusters of 4 and 8, 65536 rows of 2,
+     logits of scale 1e4, all-equal rows, a transposed-then-sliced view,
+     bf16 and f16 rows off 16 bytes), checks that two launches are
+     bitwise equal, and is timed at the Oracle's (16, 2) and at the
+     vocabulary-wide (256, 30522) float32, host-issued, queued and queued
+     over four copies, against the bytes of `entropy_head.work`, beside
+     the plain version and torch.distributions.Categorical's entropy (a
+     yardstick, not on the path);
   3. the main path: the two-phase private sieve at BERT-base width
      (d_model 768, 12 heads, d_head 64; proxies <1,1,2> then <3,12,16>;
      batch 4, seq 512, 2 classes; a pool of 64 candidates from --seed,
@@ -116,6 +129,7 @@ import argparse
 import itertools
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -304,6 +318,16 @@ MSA_NO_SPILL = ("f32 Dh 64",)
 # the witness that a kernel sums in a fixed order: no atomics in its SASS
 # (mlp_softmax_attn's A across the cluster, rg_lru's carries)
 NO_ATOMICS = ("atomics", "(?:ATOM|ATOMS|ATOMG|RED)")
+
+
+# entropy_head: one thread a row and a row split across a block or a
+# cluster, each in float32, bf16 and f16; the path's (float32) not
+# spilling
+EH_ENTRIES = {f"{k} {t}": f"entropy_head_{k}_kernelI{m}E"
+              for k in ("rows", "split")
+              for t, m in (("f32", "f"), ("bf16", "13__nv_bfloat16"),
+                           ("f16", "6__half"))}
+EH_NO_SPILL = ("rows f32", "split f32")
 
 
 def lru_entries() -> dict:
@@ -656,32 +680,100 @@ def phase_float_kernels(seed: int) -> dict:
             + (f"; CUDA-core bound {t['cuda_core_bound_ms']:.4f} ms)"
                if dt == f32 else ")"))
 
-    # entropy_head: (label, R, V, dtype, timed); (16, 2) is the Oracle's
-    # batch of 16 over 2 classes; (256, 30522) a vocabulary-wide head
+    # entropy_head: (label, R, V, dtype, fill); (16, 2) is the Oracle's
+    # batch of 16 over 2 classes, (256, 30522) a vocabulary-wide head, the
+    # two timed; then the split kernel's hard cases: V of 1 and 3 (no whole
+    # 16-byte vector), a ragged tail (V 30521, an odd row stride), one
+    # row, few rows (a cluster of 4 and of 8 blocks a row), many narrow
+    # rows, logits of scale 1e4 (one-hot rows, where m and s / z cancel),
+    # all-equal rows, a transposed-then-sliced view, and bf16 and f16 rows
+    # at a stride off 16 bytes
     res = out["entropy_head"] = {}
-    for label, r, v, dt, timed in (
-            ("path (Oracle batch)", 16, 2, f32, True),
-            ("64 x 2", 64, 2, f32, False),
-            ("vocab", 256, 30522, f32, True),
-            ("ragged", 7, 1000, f32, False),
-            ("vocab bf16", 256, 30522, bf16, False)):
-        x = randn((r, v), dt, 3.0)
-        check("entropy_head", f"{label} ({r},{v})", eh.launch(x),
-              ref.entropy_head(x), EH_TOL, res)
-        if not timed:
+    f16 = torch.float16
+
+    def categorical(x):
+        """The one PyTorch call a user would write for this function: a
+        yardstick, never on the path."""
+        return torch.distributions.Categorical(
+            logits=x, validate_args=False).entropy()
+
+    def eh_logits(r, v, dt, fill):
+        if fill == "equal":
+            return randn((r, 1), dt, 3.0).expand(r, v).contiguous()
+        if fill == "strided":
+            return randn((v + 8, r), dt, 3.0).t()[:, 3:3 + v]
+        return randn((r, v), dt, 1e4 if fill == "scale 1e4" else 3.0)
+
+    for label, r, v, dt, fill in (
+            ("path (Oracle batch)", 16, 2, f32, "randn"),
+            ("64 x 2", 64, 2, f32, "randn"),
+            ("vocab", 256, 30522, f32, "randn"),
+            ("ragged", 7, 1000, f32, "randn"),
+            ("vocab bf16", 256, 30522, bf16, "randn"),
+            ("V 1", 5, 1, f32, "randn"),
+            ("V 3", 5, 3, f32, "randn"),
+            ("V 30521", 256, 30521, f32, "randn"),
+            ("R 1", 1, 30522, f32, "randn"),
+            ("few rows (cluster of 4)", 16, 30522, f32, "randn"),
+            ("serving head (cluster of 8)", 4, 256000, f32, "randn"),
+            ("many narrow rows", 65536, 2, f32, "randn"),
+            ("scale 1e4", 64, 30522, f32, "scale 1e4"),
+            ("all equal", 16, 30522, f32, "equal"),
+            ("transposed then sliced", 64, 30522, f32, "strided"),
+            ("bf16 odd stride", 256, 30521, bf16, "randn"),
+            ("f16 odd stride", 256, 30521, f16, "randn"),
+            ("f16 few rows", 16, 30521, f16, "randn")):
+        x = eh_logits(r, v, dt, fill)
+        tag = str(dt).replace("torch.", "")
+        got = eh.launch(x)
+        check("entropy_head", f"{label} ({r},{v}) {tag} plan "
+              f"{eh.plan(r, v)}", got, ref.entropy_head(x), EH_TOL, res)
+        if label in ("path (Oracle batch)", "vocab", "few rows (cluster of "
+                     "4)", "serving head (cluster of 8)", "many narrow rows",
+                     "bf16 odd stride"):
+            again = eh.launch(x)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                fail(f"entropy_head {label}: two launches differ by "
+                     f"{_max_err(got, again)}")
+            res.setdefault("bitwise_repeat", []).append(label)
+            log(f"[2] entropy_head {label}: two launches bitwise equal")
+        if label not in ("path (Oracle batch)", "vocab"):
             continue
-        t = {"ms": cuda_ms(eh.launch, x),
-             "plain_ms": cuda_ms(ref.entropy_head, x)}
-        t["bound_ms"], t["bound_by"] = _bound_ms((r * v + r) * 4,
-                                                 4.0 * r * v)
-        t["shape"] = f"({r},{v}) f32"
+        # timed host-issued and queued (the device alone), and queued over
+        # four copies of the logits in turn (four vocab copies, 125 MB,
+        # outrun the 50 MB L2); the plain version and the yardstick beside
+        copies = itertools.cycle([x] + [eh_logits(r, v, dt, fill)
+                                        for _ in range(3)])
+        t = {"ms": cuda_ms(eh.launch, x, reps=50),
+             "device_ms": cuda_ms(eh.launch, x, reps=50, queued=True),
+             "rotating_device_ms": cuda_ms(
+                 lambda: eh.launch(next(copies)), reps=50, queued=True),
+             "plain_ms": cuda_ms(ref.entropy_head, x),
+             "plain_device_ms": cuda_ms(ref.entropy_head, x, queued=True),
+             "library_ms": cuda_ms(categorical, x),
+             "library_device_ms": cuda_ms(categorical, x, queued=True)}
+        lib_err = _max_err(categorical(x), ref.entropy_head(x))
+        ops, nbytes = eh.work(r, v, dt)
+        t["bound_ms"], t["bound_by"] = _bound_ms(nbytes, ops)
+        for key in ("ms", "device_ms", "rotating_device_ms"):
+            t[key.replace("ms", "bound_share")] = t["bound_ms"] / t[key]
+        t["shape"] = f"({r},{v}) {tag}"
+        t["plan"] = eh.plan(r, v)
+        del copies
         if label == "vocab":
             res["vocab"] = t
         else:
             res.update(t)
-        log(f"[2] entropy_head {t['shape']}: {t['ms']:.4f} ms, plain "
-            f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.6f} ms "
-            f"({t['bound_by']})")
+        log(f"[2] entropy_head {t['shape']} plan {t['plan']}: "
+            f"{t['ms']:.4f} ms (device {t['device_ms']:.4f}, over four "
+            f"copies {t['rotating_device_ms']:.4f}), plain "
+            f"{t['plain_ms']:.4f} ms (device {t['plain_device_ms']:.4f}), "
+            f"Categorical {t['library_ms']:.4f} ms (device "
+            f"{t['library_device_ms']:.4f}; max err vs plain "
+            f"{lib_err:.3g}), bound {t['bound_ms']:.6f} ms ({t['bound_by']}, "
+            f"{100 * t['rotating_device_bound_share']:.1f} % of it over "
+            f"four copies)")
 
     # mlp_softmax_attn: (label, BH, Sq, Skv, Dh, hid, dtype, timed); the
     # clear sieve's phase 2 (<3,12,16>, batch 4) gives BH 48, hid 16,
@@ -1059,7 +1151,8 @@ def profiled(fn):
     for e in events:
         for name in ("flash_attn", "entropy_head", "mlp_softmax_attn",
                      "ring_matmul", "secure_matmul", "ssd", "rg_lru"):
-            if f"{name}_kernel" in e.key:
+            # flash_attn_kernel<...>, entropy_head_split_kernel<...>, ...
+            if re.search(rf"\b{name}_(?:\w+_)?kernel\b", e.key):
                 ms, n = ours.get(name, (0.0, 0))
                 ours[name] = (ms + _event_ms(e), n + e.count)
     for e in sorted(events, key=_event_ms, reverse=True)[:4]:
@@ -1552,6 +1645,8 @@ def main(argv=None) -> int:
     ssd_sass = phase_sass("ssd", SSD_ENTRIES, SSD_NO_SPILL, "HGMMA")
     msa_build = phase_sass("mlp_softmax_attn", MSA_ENTRIES, MSA_NO_SPILL,
                            forbid=NO_ATOMICS)
+    eh_build = phase_sass("entropy_head", EH_ENTRIES, EH_NO_SPILL,
+                          forbid=NO_ATOMICS)
     lru_entries_ = lru_entries()
     lru_build = phase_sass("rg_lru", lru_entries_, lru_entries_,
                            forbid=NO_ATOMICS)
@@ -1618,7 +1713,10 @@ def main(argv=None) -> int:
              "ssd": "none: no single torch call computes the chunked SSD "
                     "scan",
              "rg_lru": "none: no single torch call computes a linear "
-                       "recurrence"}
+                       "recurrence",
+             "entropy_head": "torch.distributions.Categorical(logits=x, "
+                             "validate_args=False).entropy(), a yardstick "
+                             "timed here, never on the path"}
     measured = {**fkern, **skern}
     for name in ("flash_attn", "entropy_head", "mlp_softmax_attn", "ssd",
                  "rg_lru"):
@@ -1640,10 +1738,13 @@ def main(argv=None) -> int:
                                  "rotating_device_ms",
                                  "rotating_device_bound_share",
                                  "old_ops_bound_ms", "phase1",
-                                 "bitwise_repeat")
+                                 "bitwise_repeat", "plain_device_ms",
+                                 "plan")
                if x in k}})
         if name == "ssd":
             kernels[-1]["sass"] = ssd_sass
+        if name == "entropy_head":
+            kernels[-1]["build"] = eh_build
         if name == "rg_lru":
             kernels[-1]["build"] = lru_build
             kernels[-1]["prefill_batch_kernel_ms"] = serving[

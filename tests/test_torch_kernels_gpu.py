@@ -289,18 +289,69 @@ def test_flash_attn_hard_cases_match_plain(cuda, case):
                  FLOAT_TOL[dtype])
 
 
+def eh_logits(g, r, v, fill="randn", dtype=torch.float32):
+    """(R, V) logits: N(0, 9), N(0, 1e8) ("scale 1e4") or rows each of
+    one value ("equal")."""
+    if fill == "equal":
+        return randn(g, (r, 1), dtype, 3.0).expand(r, v).contiguous()
+    return randn(g, (r, v), dtype, 1e4 if fill == "scale 1e4" else 3.0)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
-@pytest.mark.parametrize("rv", [(16, 2), (64, 2), (256, 30522), (7, 1000)])
+@pytest.mark.parametrize("rv", [
+    (16, 2), (64, 2), (256, 30522), (7, 1000),
+    # the split kernel's hard cases: V of 1 and 3 (no whole vector), a
+    # ragged tail (an odd row stride, off 16 bytes in every dtype), one
+    # row, clusters of 4 and 8 blocks a row, many narrow rows, logits of
+    # scale 1e4 (one-hot rows, m and s / z cancel) and all-equal rows
+    (5, 1), (5, 3), (3, 30521), (1, 30522), (16, 30522), (4, 256000),
+    (65536, 2), (256, 30521), (64, 30522, "scale 1e4"),
+    (16, 30522, "equal")])
 def test_entropy_head_kernel_matches_plain(cuda, dtype, rv):
     from repro_torch.kernels import entropy_head as eh
     g = torch.Generator(device=cuda).manual_seed(4)
-    x = randn(g, rv, dtype, 3.0)
+    x = eh_logits(g, *rv, dtype=dtype)
     got = eh.launch(x)
     torch.cuda.synchronize()
     assert got.dtype == torch.float32 and got.shape == (rv[0],)
     assert_close(got, ref.entropy_head(x), 1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rv", [(16, 2), (7, 1000), (256, 30522),
+                                (16, 30522), (4, 256000), (65536, 2)])
+def test_entropy_head_two_launches_are_bitwise_equal(cuda, rv):
+    """The triples are merged in a fixed order across lanes, warps and a
+    cluster's ranks, with no atomics: two launches give the same bits."""
+    from repro_torch.kernels import entropy_head as eh
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = eh_logits(g, *rv)
+    first = eh.launch(x)
+    assert torch.equal(first, eh.launch(x))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_entropy_head_strided_and_unaligned_logits(cuda, dtype):
+    """A transposed-then-sliced (R, V) view, which the wrapper makes
+    contiguous before it allocates H; and logits starting one element
+    past a 16-byte boundary, which shifts every row's head."""
+    from repro_torch.kernels import entropy_head as eh
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x = randn(g, (30530, 64), dtype, 3.0).t()[:, 3:30525]
+    assert x.shape == (64, 30522) and not x.is_contiguous()
+    got = eh.launch(x)
+    torch.cuda.synchronize()
+    assert_close(got, ref.entropy_head(x), 1e-5)
+    for r, v in ((64, 30522), (16, 30522), (7, 1000)):
+        xo = torch.empty(r * v + 1, dtype=dtype, device=cuda)[1:].view(r, v)
+        xo.copy_(randn(g, (r, v), dtype, 3.0))
+        assert xo.data_ptr() % 16
+        got = eh.launch(xo)
+        torch.cuda.synchronize()
+        assert_close(got, ref.entropy_head(xo), 1e-5)
 
 
 def msa_operands(g, bh, sq, skv, dh, hid, group, dtype):
