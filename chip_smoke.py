@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port on one NVIDIA GPU: the private sieve, the
-clear scoring paths and token serving.
+clear scoring paths, token serving and the selection pipeline.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -117,7 +117,35 @@ result line):
      request (prefill and 4 decode steps' logits, depth cut to one layer
      or one block pattern, float32) within 1e-4 of max |CPU|. Phase 2
      also checks and times ssd (with its final state), rg_lru and
-     flash_attn at Dh 256.
+     flash_attn at Dh 256;
+  8. the paper's pipeline from `run_selection` down: a BERT-base target (full
+     depth and width, random from --seed), a pool of 64 at seq 512 (8
+     bootstrap rows, a budget of 13), `two_phase_default(12)`. (8a)
+     SelectionConfig's step counts (finetune 200, in-vivo 150; ex-vivo 300
+     cut to 100 for time, A_STEPS), first in mode="clear", then in mode="mpc"
+     on RING32 with phase 3's executor flags; M_g's finetune and phase 1's
+     proxy (in-vivo losses, clear and decoded MPC scores) are held finite;
+     from this random target the phase-2 proxy built by the ex-vivo fits is
+     already non-finite, as the JAX package's is at this width (PERF.md,
+     tools/selection_divergence.py), so phase 2's scores are reported, not
+     held finite. (8b) The same with the finetune and in-vivo steps cut to 3
+     (CUT_STEPS), below the divergence: finite scores, and the largest
+     |decoded MPC - clear| entropy per phase for the trained proxies, on
+     RING32 and with the same proxies rescored on RING64. Each stage's wall
+     (M_g finetune, stats, ex-vivo fits, in-vivo, each sieve phase), its
+     launch counts and the training stages' first and last losses are
+     printed; fatal unless M_g's finetune launches flash_attn's backward
+     kernel and in-vivo mlp_softmax_attn's, the fits entropy_head, the sieve
+     its kernels, and no plain version runs. (8c) The card against the CPU on
+     one finetune and one build_proxy + invivo_finetune at BERT width, depth
+     1, 3 steps of batch 8: bootstrap and batch indices bitwise, losses and
+     parameters within the CPU tests' tolerances, but for M_g's elements
+     whose first gradient is below Adam's eps (ADAM_EPS). (8d) 8a's clear run
+     resumed from its phase checkpoints: 2 phases, the same survivors and
+     appraisal. Phase 1 also reports the backward kernels' registers, spills
+     (none at float32 Dh 64) and atomics (none); phase 2 holds them against
+     autograd of their plain versions (TOL, BF16_TOL), checks a second launch
+     bitwise and times them.
 
 The last lines are the card's `nvidia-smi` name and power limit, one
 `{"kernels": [...]}` JSON line, and the result line
@@ -328,6 +356,29 @@ EH_ENTRIES = {f"{k} {t}": f"entropy_head_{k}_kernelI{m}E"
               for t, m in (("f32", "f"), ("bf16", "13__nv_bfloat16"),
                            ("f16", "6__half"))}
 EH_NO_SPILL = ("rows f32", "split f32")
+
+
+# the backward kernels: flash_attn's two passes and mlp_softmax_attn's
+# tile pass, bf16 and float32 at every Dh; the training path's (float32
+# Dh 64) not spilling; none holding an atomic (every sum in a fixed
+# order)
+FA_BWD_ENTRIES = {f"{k} {t} Dh {dh}": f"fa_bwd_{k}_kernelI{m}Li{dh}E"
+                  for k in ("dq", "dkdv")
+                  for t, m in (("bf16", "13__nv_bfloat16"), ("f32", "f"))
+                  for dh in (16, 32, 64, 128)}
+FA_BWD_NO_SPILL = ("dq f32 Dh 64", "dkdv f32 Dh 64")
+MSA_BWD_ENTRIES = {f"{t} Dh {dh}": f"msa_bwd_kernelI{m}Li{dh}E"
+                   for t, m in (("bf16", "13__nv_bfloat16"), ("f32", "f"))
+                   for dh in (16, 32, 64, 128)}
+MSA_BWD_NO_SPILL = ("f32 Dh 64",)
+FLASH_ATTN_BWD_REPLACES = ("none: the JAX package has no backward kernel; "
+                           "its training differentiates plain attention "
+                           "(src/repro/core/target.py:68)")
+MLP_SOFTMAX_ATTN_BWD_REPLACES = ("none: the JAX package has no backward "
+                                 "kernel; its in-vivo training "
+                                 "differentiates the materialized MLP_sm "
+                                 "attention (src/repro/core/proxy.py:"
+                                 "148)")
 
 
 def lru_entries() -> dict:
@@ -842,6 +893,184 @@ def phase_float_kernels(seed: int) -> dict:
             + (f"; the score form's operations bound "
                f"{t['old_ops_bound_ms']:.4f} ms" if "old_ops_bound_ms" in t
                else ""))
+    return out
+
+
+def phase_backward_kernels(seed: int) -> dict:
+    """The two backward kernels against autograd of their plain versions
+    on the card (`ref.flash_attn`, `ref.mlp_softmax_attn`), every
+    gradient within TOL (float32) or BF16_TOL of max(1, max |plain|), at
+    the training path's shapes and ragged, causal, windowed, grouped,
+    other-Dh and bf16 ones; bitwise equal on a second launch at the path
+    shapes; the path cases timed host-issued and queued beside the plain
+    backward versions (`ref.flash_attn_bwd`, `ref.mlp_softmax_attn_bwd`),
+    the bound of `bwd_work` and, for flash_attn, SDPA's forward and
+    backward at the same shape and dtype (a yardstick, not on the
+    path)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attn as fa
+    from repro_torch.kernels import mlp_softmax_attn as msa
+    from repro_torch.kernels import ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    f32, bf16 = torch.float32, torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(seed + 300)
+
+    def randn(shape, dtype=f32, scale=1.0, grad=False):
+        x = (torch.randn(shape, generator=gen, device="cuda") * scale) \
+            .to(dtype)
+        return x.requires_grad_() if grad else x
+
+    def check(name, label, got, want, tol, res):
+        torch.cuda.synchronize()
+        worst = max((_rel_err(g, w) for g, w in zip(got, want)),
+                    key=lambda e: e[1])
+        if not worst[1] <= tol:
+            fail(f"{name} {label}: kernel vs autograd of plain error "
+                 f"{worst[0]:.3g} ({worst[1]:.3g} of max |plain|, limit "
+                 f"{tol})")
+        key = "bf16_max_abs_err" if got[0].dtype == bf16 else "max_abs_err"
+        res[key] = max(res.get(key, 0.0), worst[0])
+        log(f"[2] {name} {label}: max err {worst[0]:.3g} ({worst[1]:.3g} "
+            f"of max |plain|, limit {tol})")
+
+    def repeat(name, label, fn, res):
+        first, second = fn(), fn()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(first, second)):
+            fail(f"{name} {label}: two launches differ")
+        res.setdefault("bitwise_repeat", []).append(label)
+        log(f"[2] {name} {label}: two launches bitwise equal")
+
+    out = {}
+    # flash_attn backward: (label, BH, S, Dh, group, dtype, causal,
+    # window, timed); (96, 512, 64) is M_g's finetune at BERT width (batch
+    # 8 x 12 heads), float32, bidirectional
+    res = out["flash_attn_bwd"] = {}
+    for (label, bh, s, dh, group, dt, causal, window, timed) in (
+            ("path (M_g finetune)", 96, 512, 64, 1, f32, False, 0, True),
+            ("ragged", 24, 100, 64, 1, f32, False, 0, False),
+            ("causal", 24, 512, 64, 1, f32, True, 0, False),
+            ("ragged causal window 50", 12, 300, 64, 1, f32, True, 50,
+             False),
+            ("group 3", 12, 130, 32, 3, f32, True, 0, False),
+            ("Dh 128", 8, 200, 128, 1, f32, False, 0, False),
+            ("Dh 16", 8, 70, 16, 1, f32, False, 0, False),
+            ("bf16", 24, 512, 64, 1, bf16, False, 0, False),
+            ("bf16 Dh 128 causal", 6, 67, 128, 3, bf16, True, 20, False)):
+        q = randn((bh, s, dh), dt, grad=True)
+        k, v = (randn((bh // group, s, dh), dt, grad=True) for _ in "kv")
+        do = randn((bh, s, dh), dt)
+        got = torch.autograd.grad(
+            fa.flash_attn(q, k, v, causal=causal, window=window),
+            (q, k, v), do)
+        want = torch.autograd.grad(
+            ref.flash_attn(q, k, v, causal=causal, window=window),
+            (q, k, v), do)
+        tag = str(dt)[6:]
+        check("flash_attn backward", f"{label} ({bh},{s},{dh}) group "
+              f"{group} {tag}{' causal' if causal else ''}"
+              f"{f' window {window}' if window else ''}", got, want,
+              TOL if dt == f32 else BF16_TOL, res)
+        if label not in ("path (M_g finetune)", "group 3"):
+            continue
+        q, k, v = q.detach(), k.detach(), v.detach()
+        o = fa.launch(q, k, v, causal, window)
+        repeat("flash_attn backward", label,
+               lambda: fa.launch_bwd(q, k, v, o, do, causal, window), res)
+        if not timed:
+            continue
+        # SDPA's forward and backward on the same (B, heads, S, Dh)
+        qs, ks, vs = (x.reshape(-1, 12, s, dh).clone().requires_grad_()
+                      for x in (q, k, v))
+        dos = do.reshape(-1, 12, s, dh)
+
+        def sdpa_fwd_bwd():
+            return torch.autograd.grad(
+                F.scaled_dot_product_attention(qs, ks, vs), (qs, ks, vs),
+                dos)
+
+        def plain():
+            return ref.flash_attn_bwd(q, k, v, o, do, causal=False)
+        t = {"ms": cuda_ms(fa.launch_bwd, q, k, v, o, do, False, reps=20),
+             "device_ms": cuda_ms(fa.launch_bwd, q, k, v, o, do, False,
+                                  reps=20, queued=True),
+             "plain_ms": cuda_ms(plain, reps=5),
+             "library_ms": cuda_ms(sdpa_fwd_bwd, reps=20),
+             "library_device_ms": cuda_ms(sdpa_fwd_bwd, reps=20,
+                                          queued=True)}
+        # the tensor cores' rate for the type, as the forward's bound;
+        # the CUDA cores' 67 T/s beside it
+        ops, nbytes = fa.bwd_work(q.shape, k.shape[0], dt, causal, window)
+        t["bound_ms"], t["bound_by"] = _bound_ms(
+            nbytes, ops, PEAK_BF16_S if dt == bf16 else PEAK_3XTF32_S)
+        t["cuda_core_bound_ms"] = _bound_ms(nbytes, ops)[0]
+        t["bound_share"] = t["bound_ms"] / t["device_ms"]
+        t["shape"] = f"({bh},{s},{dh}) f32 bidirectional"
+        res.update(t)
+        log(f"[2] flash_attn backward {t['shape']}: {t['ms']:.4f} ms "
+            f"(device {t['device_ms']:.4f}), plain {t['plain_ms']:.4f} ms, "
+            f"SDPA forward + backward {t['library_ms']:.4f} ms (device "
+            f"{t['library_device_ms']:.4f}), bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']}, {100 * t['bound_share']:.1f} % of it in "
+            f"device time; CUDA-core bound {t['cuda_core_bound_ms']:.4f} "
+            f"ms)")
+
+    # mlp_softmax_attn backward: (label, BH, Sq, Skv, Dh, hid, group,
+    # dtype, timed); in-vivo at batch 8: phase 2's <3,12,16> gives BH 96,
+    # hid 16, phase 1's <1,1,2> BH 8, hid 2
+    res = out["mlp_softmax_attn_bwd"] = {}
+    for (label, bh, sq, skv, dh, hid, group, dt, timed) in (
+            ("path phase 2 (in-vivo)", 96, 512, 512, 64, 16, 1, f32, "path"),
+            ("path phase 1 (in-vivo)", 8, 512, 512, 64, 2, 1, f32,
+             "phase1"),
+            ("ragged", 12, 100, 100, 64, 5, 1, f32, None),
+            ("group 3", 12, 130, 130, 32, 7, 3, f32, None),
+            ("Skv 600 Dh 128", 4, 64, 600, 128, 16, 1, f32, None),
+            ("hid 64 Dh 128", 4, 200, 200, 128, 64, 1, f32, None),
+            ("Dh 16", 6, 70, 70, 16, 3, 1, f32, None),
+            ("bf16", 24, 512, 512, 64, 16, 1, bf16, None),
+            ("q permuted", 12, 512, 512, 64, 16, 1, f32, None)):
+        if label == "q permuted":
+            qb = randn((sq, bh, dh), dt, grad=True)
+            q = qb.transpose(0, 1)
+        else:
+            q = qb = randn((bh, sq, dh), dt, grad=True)
+        k, v = (randn((bh // group, skv, dh), dt, grad=True) for _ in "kv")
+        w = [randn(sh, scale=sc, grad=True) for sh, sc in (
+            ((skv, hid), 0.2), ((hid,), 0.1), ((hid, skv), 0.2),
+            ((skv,), 0.01))]
+        do = randn((bh, sq, dh), dt)
+        ins = (qb, k, v, *w)
+        got = torch.autograd.grad(msa.mlp_softmax_attn(q, k, v, *w), ins,
+                                  do)
+        want = torch.autograd.grad(ref.mlp_softmax_attn(q, k, v, *w), ins,
+                                   do)
+        check("mlp_softmax_attn backward", f"{label} ({bh},{sq},{dh}) Skv "
+              f"{skv} hid {hid} group {group} {str(dt)[6:]}", got, want,
+              TOL if dt == f32 else BF16_TOL, res)
+        if not timed:
+            continue
+        args = [x.detach() for x in (q, k, v, *w)] + [do]
+        if timed == "path":
+            repeat("mlp_softmax_attn backward", label,
+                   lambda: msa.launch_bwd(*args), res)
+        nbytes, ops = msa.bwd_work(bh, group, sq, skv, dh, hid, dt)
+        t = {"ms": cuda_ms(msa.launch_bwd, *args, reps=20),
+             "device_ms": cuda_ms(msa.launch_bwd, *args, reps=20,
+                                  queued=True),
+             "plain_ms": cuda_ms(ref.mlp_softmax_attn_bwd, *args, reps=5),
+             "shape": f"({bh},{sq},{dh}) hid {hid} f32"}
+        t["bound_ms"], t["bound_by"] = _bound_ms(nbytes, ops, PEAK_3XTF32_S)
+        t["bound_share"] = t["bound_ms"] / t["device_ms"]
+        if timed == "phase1":
+            res["phase1"] = t
+        else:
+            res.update(t)
+        log(f"[2] mlp_softmax_attn backward {t['shape']}: {t['ms']:.4f} ms "
+            f"(device {t['device_ms']:.4f}), plain {t['plain_ms']:.4f} ms, "
+            f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}, "
+            f"{100 * t['bound_share']:.1f} % of it in device time)")
     return out
 
 
@@ -1620,6 +1849,514 @@ def phase_serve(seed: int, smi: str) -> dict:
     return results
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the paper's pipeline from run_selection down
+# ---------------------------------------------------------------------------
+
+SEL_POOL, SEL_SEED_OFFSET = 64, 8
+CPU_STEPS, CPU_BATCH = 3, 8        # the card-vs-CPU training check
+# cuts of SelectionConfig's step counts (finetune 200, ex-vivo 300,
+# in-vivo 150). 8a: ex-vivo to 100, for time (its two runs took 120-167
+# s at 300, PERF.md). 8b: also finetune and in-vivo to 3, below the
+# random target's divergence
+A_STEPS = {"exvivo_steps": 100}
+CUT_STEPS = {**A_STEPS, "finetune_steps": CPU_STEPS,
+             "invivo_steps": CPU_STEPS}
+# the CPU tests' tolerances (tests/test_torch_training.py): per-step
+# losses 1e-5, parameters 1e-4 absolute. Exempt from the 1e-4, and held
+# within steps x lr (the most Adam's updates can move one), are only M_g's
+# elements whose first gradient on the CPU is nonzero and below Adam's
+# eps: there the first update g / (|g| + eps) follows the gradient's
+# float32 rounding
+LOSS_ATOL, PARAM_ATOL, ADAM_EPS = 1e-5, 1e-4, 1e-8
+FINETUNE_LR, INVIVO_LR = 1e-3, 5e-4     # target.finetune, invivo_finetune
+COUNTERS = ("fa", "fa_bwd", "msa", "msa_bwd", "eh", "rmm", "smm")
+
+
+def _counters() -> dict:
+    from repro_torch.kernels import ops as kops
+    return {name: getattr(kops, f"{name}_stats")() for name in COUNTERS}
+
+
+def _reset_counters() -> None:
+    from repro_torch.kernels import ops as kops
+    for name in COUNTERS:
+        getattr(kops, f"reset_{name}_stats")()
+
+
+def _delta(after: dict, before: dict) -> dict:
+    return {n: {k: after[n][k] - before[n].get(k, 0) for k in after[n]}
+            for n in after}
+
+
+class _LossLog:
+    """Records every training loss while it is open: wraps
+    `models.common.cross_entropy`, the loss `target.finetune` and
+    `proxy.invivo_finetune` take a step on (restored on exit); `values`
+    holds them as floats after exit."""
+
+    def __enter__(self):
+        from repro_torch.models import common
+        self._fn, self._raw = common.cross_entropy, []
+
+        def logged(*a, **kw):
+            loss = self._fn(*a, **kw)
+            self._raw.append(loss.detach())
+            return loss
+        common.cross_entropy = logged
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import common
+        common.cross_entropy = self._fn
+        self.values = [float(x) for x in self._raw]
+
+
+class _FirstGrad:
+    """Records M_g's first training gradient while it is open: wraps the
+    `grads` that `target.finetune` takes its steps on (restored on exit);
+    `first` holds the first step's gradients on the CPU."""
+
+    def __enter__(self):
+        from repro_torch.core import target
+        self._fn, self.first = target.grads, None
+
+        def logged(loss, leaves):
+            g = self._fn(loss, leaves)
+            if self.first is None:
+                self.first = [x.detach().cpu() for x in g]
+            return g
+        target.grads = logged
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import target
+        target.grads = self._fn
+
+
+class _Stages:
+    """Wraps the pipeline's stage functions for one run (restored on
+    exit): each call's wall (ending in a synchronize), the launch-counter
+    delta over it, the training stages' per-step losses, and the trained
+    proxies (in-vivo's outputs, in phase order)."""
+
+    def __init__(self):
+        self.log: list[dict] = []
+        self.proxies: list = []
+        self._orig: list = []
+
+    def __enter__(self):
+        from repro_torch.core import executor, proxy, selection, target
+        from repro_torch.mpc import quickselect
+        for mod, name, stage, losses in (
+                (target, "finetune", "M_g finetune", True),
+                (proxy, "collect_stats", "stats", False),
+                (proxy, "build_proxy", "ex-vivo fits", False),
+                (proxy, "invivo_finetune", "in-vivo", True),
+                (selection, "_score_clear", "sieve (clear scoring)", False),
+                (executor.WaveExecutor, "score_phase",
+                 "sieve (MPC scoring)", False),
+                (quickselect, "top_k_indices", "sieve (QuickSelect)",
+                 False)):
+            self._wrap(mod, name, stage, losses)
+        return self
+
+    def _wrap(self, mod, name, stage, losses):
+        import torch
+        fn = getattr(mod, name)
+        self._orig.append((mod, name, fn))
+
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            before, t0 = _counters(), time.time()
+            with _LossLog() as ll:
+                out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            rec = {"stage": stage, "wall_s": time.time() - t0,
+                   "launches": _delta(_counters(), before)}
+            if losses:
+                rec["losses"] = ll.values
+            if stage == "in-vivo":
+                self.proxies.append(out)
+            self.log.append(rec)
+            return out
+        setattr(mod, name, timed)
+
+    def __exit__(self, *exc):
+        for mod, name, fn in reversed(self._orig):
+            setattr(mod, name, fn)
+
+
+def _run_selection(seed, params, pool, labels, mode, ckpt, ring=None,
+                   steps=None):
+    """run_selection on the card at the phase's scale, SelectionConfig's
+    step counts unless `steps` cuts them (printed); returns (result,
+    stage log, trained proxies, wall s, counters)."""
+    import torch
+    from repro_torch.configs.paper_targets import BERT
+    from repro_torch.core import selection
+    from repro_torch.core.executor import ExecConfig
+    from repro_torch.mpc import prng
+    exe = ExecConfig(wave=WAVE, coalesce=True, overlap=True, fuse=True,
+                     batch=BATCH, device=DEVICE,
+                     **({"ring": ring} if ring else {}))
+    sel = selection.SelectionConfig(
+        selection.two_phase_default(BERT.n_heads), mode=mode,
+        score_batch=BATCH, checkpoint_dir=ckpt, executor=exe,
+        **(steps or {}))
+    if steps:
+        log(f"[8] {mode}: step counts cut from SelectionConfig's defaults "
+            f"to {steps}")
+    _reset_counters()
+    with _Stages() as st:
+        t0 = time.time()
+        res = selection.run_selection(
+            prng.key(seed, device=DEVICE), params, BERT, pool, sel,
+            n_classes=CLASSES, boot_labels_fn=lambda i: labels[i])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    return res, st.log, st.proxies, wall, _counters()
+
+
+def _gate_run(tag, res, stages, counts, scoring, held: int) -> None:
+    """Fatal unless each training stage launched its backward kernel,
+    the scoring the kernels named in `scoring`, nothing took a plain
+    version, M_g's finetune losses and those of the first `held` phases'
+    in-vivo finetunes are finite, and (`held` covering every phase) the
+    appraisal is finite."""
+    import math
+    plain = {n: c["ref"] for n, c in counts.items() if c["ref"]}
+    if plain:
+        fail(f"{tag}: plain versions ran on the card: {plain}")
+    need = {"M_g finetune": ("fa_bwd", "fa"), "in-vivo": ("msa_bwd", "msa"),
+            "stats": ("fa",), "ex-vivo fits": ("eh",)}
+    for rec in stages:
+        for name in need.get(rec["stage"], ()):
+            if rec["launches"][name]["kernel"] <= 0:
+                fail(f"{tag}: {rec['stage']} launched no {name} kernel "
+                     f"({rec['launches'][name]})")
+    for name in scoring:
+        if counts[name]["kernel"] <= 0:
+            fail(f"{tag}: the sieve launched no {name} kernel")
+    invivo = [r for r in stages if r["stage"] == "in-vivo"]
+    for rec in [r for r in stages if r["stage"] == "M_g finetune"] \
+            + invivo[:held]:
+        if not all(map(math.isfinite, rec["losses"])):
+            fail(f"{tag}: {rec['stage']} losses not finite "
+                 f"({rec['losses'][:3]} ... {rec['losses'][-1]})")
+    if len(res.phase_survivors) != 2 or len(res.selected) != round(
+            0.2 * SEL_POOL):
+        fail(f"{tag}: {len(res.selected)} selected, "
+             f"{len(res.phase_survivors)} phases")
+    if held >= len(invivo) and not math.isfinite(res.appraisal_entropy):
+        fail(f"{tag}: appraisal {res.appraisal_entropy}")
+
+
+def _log_run(tag, res, stages, wall, counts) -> dict:
+    info = {"wall_s": wall, "boot_idx": res.boot_idx.tolist(),
+            "survivors": [s.tolist() for s in res.phase_survivors],
+            "selected": res.selected.tolist(),
+            "appraisal": res.appraisal_entropy,
+            "resumed_phases": res.resumed_phases,
+            "launches": counts, "stages": []}
+    for rec in stages:
+        item = {"stage": rec["stage"], "wall_s": rec["wall_s"],
+                "launches": {n: c["kernel"] for n, c in rec["launches"]
+                             .items() if c["kernel"]}}
+        if "losses" in rec:
+            ls = rec["losses"]
+            item.update(steps=len(ls), first_loss=ls[0] if ls else None,
+                        last_loss=ls[-1] if ls else None)
+        info["stages"].append(item)
+        log(f"[8] {tag} {item['stage']}: {item['wall_s']:.2f} s, "
+            + (f"{item['steps']} steps, loss {item['first_loss']:.5f} -> "
+               f"{item['last_loss']:.5f}, " if "losses" in rec and
+               rec["losses"] else "")
+            + f"launches {item['launches']}")
+    for r in res.exec_reports:
+        log(f"[8] {tag} executor phase: agrees {r.agrees()}, rounds "
+            f"{r.ledger.rounds}, wall {r.wall_s:.2f} s, device makespan "
+            f"{r.device_makespan_s:.2f} s")
+    log(f"[8] {tag}: {wall:.1f} s; boot {info['boot_idx']}; survivors "
+        f"{info['survivors']}; appraisal {res.appraisal_entropy:.6f}; "
+        f"launches {counts}")
+    return info
+
+
+def _scored(res) -> list:
+    """The candidates each sieve phase of `res` scored (pool rows)."""
+    import numpy as np
+    return [np.setdiff1d(np.arange(SEL_POOL), res.boot_idx),
+            res.phase_survivors[0]]
+
+
+def _mpc_vs_clear(cands, recon, proxies, pool, ring) -> tuple[list, list]:
+    """Largest |decoded MPC - clear| entropy per phase: `recon` holds each
+    phase's reconstructed ring scores of `cands`, the trained proxies
+    score the same candidates in the clear; and the count of non-finite
+    clear scores per phase."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.paper_targets import BERT
+    from repro_torch.core.selection import _score_clear, two_phase_default
+    from repro_torch.engine import ClearEngine
+    errs, bad = [], []
+    for pi, (spec, pp) in enumerate(zip(two_phase_default(BERT.n_heads),
+                                        proxies)):
+        clear = _score_clear(ClearEngine(), pp, BERT, pool[cands[pi]], spec,
+                             batch=BATCH)
+        mpc = torch.as_tensor(recon[pi]).double() / ring.scale
+        errs.append(float(np.abs(mpc.numpy() - clear).max()))
+        bad.append(int((~np.isfinite(clear)).sum()))
+    return errs, bad
+
+
+def _rescore_ring64(seed, mres, proxies, pool) -> list:
+    """8b's trained proxies scored again on RING64 (the same candidates
+    as the RING32 run's phases): the decoded scores against the clear
+    ones, so RING32's error can be told from the fixed point's."""
+    import numpy as np
+    from repro_torch.configs.paper_targets import BERT
+    from repro_torch.core.executor import ExecConfig, WaveExecutor
+    from repro_torch.core.selection import two_phase_default
+    from repro_torch.mpc import prng
+    from repro_torch.mpc.ring import RING64
+    from repro_torch.mpc.sharing import reconstruct
+    cands = _scored(mres)
+    _reset_counters()
+    scores = []
+    for pi, (spec, pp) in enumerate(zip(two_phase_default(BERT.n_heads),
+                                        proxies)):
+        ex = WaveExecutor(ExecConfig(wave=WAVE, batch=BATCH, ring=RING64,
+                                     device=DEVICE))
+        ent = ex.score_phase(prng.key(seed + 40 + pi, device=DEVICE), pp,
+                             BERT, pool[cands[pi]], spec)
+        scores.append(reconstruct(ent).cpu())
+    counts = _counters()
+    if counts["rmm"]["kernel"] <= 0 or any(c["ref"] for c in
+                                           counts.values()):
+        fail(f"8b ring64: launches {counts}")
+    errs, bad = _mpc_vs_clear(cands, scores, proxies, pool, RING64)
+    log(f"[8] 8b ring64, the same trained proxies and candidates: max "
+        f"|decoded MPC - clear| entropy per phase {errs}")
+    if any(bad) or not all(np.isfinite(errs)):
+        fail(f"8b ring64: errors {errs}")
+    return errs
+
+
+def _card_vs_cpu_training(seed, params, pool, labels, boot_idx) -> dict:
+    """M_g's finetune and one build_proxy + invivo_finetune (spec
+    <1,12,16>) at BERT-base width, depth cut to 1, CPU_STEPS steps of
+    batch CPU_BATCH, on the card and on the CPU from the same weights:
+    the bootstrap draw and batch indices bitwise, per-step losses and
+    parameters within the CPU tests' tolerances; M_g's elements whose
+    first gradient on the CPU is nonzero and below ADAM_EPS are held
+    within steps x lr instead."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.paper_targets import BERT
+    from repro_torch.core import proxy, target, tree
+    from repro_torch.core.proxy import ProxySpec
+    from repro_torch.models.transformer import layer_slice
+    from repro_torch.mpc import prng
+    draws = {}
+    for dev in (DEVICE, "cpu"):
+        k = prng.key(seed, device=dev)
+        rng = np.random.default_rng(int(prng.randint(k, (), 0, 2 ** 31 - 1)))
+        boot = np.sort(rng.choice(SEL_POOL, size=len(boot_idx),
+                                  replace=False))
+        k, idx = prng.key(seed + 1, device=dev), []
+        for _ in range(CPU_STEPS):         # finetune's draws, in its order
+            k, kk = prng.split(k).unbind(-2)
+            idx.append(prng.randint(kk, (CPU_BATCH,), 0, len(boot_idx))
+                       .cpu())
+        draws[dev] = (boot, idx)
+    if not (np.array_equal(draws[DEVICE][0], draws["cpu"][0])
+            and np.array_equal(draws[DEVICE][0], boot_idx)
+            and all(torch.equal(a, b) for a, b in
+                    zip(draws[DEVICE][1], draws["cpu"][1]))):
+        fail(f"card vs CPU: bootstrap or batch indices differ ({draws})")
+    cut = {k: (layer_slice(v, slice(0, 1)) if k == "layers" else v)
+           for k, v in params.items() if k != "unembed"}
+    tok, lab = pool[boot_idx], labels[boot_idx]
+    spec = ProxySpec(1, BERT.n_heads, 16)
+    out, walls, glog = {}, {}, {}
+    for dev in (DEVICE, "cpu"):
+        p = tree.to_device(cut, dev)
+        t0 = time.time()
+        with _LossLog() as fl, _FirstGrad() as fg:
+            mg, _ = target.finetune(prng.key(seed + 1), p, BERT, tok, lab,
+                                    steps=CPU_STEPS, batch=CPU_BATCH,
+                                    n_layers=1)
+        tuned = tree.tree_leaves(tree.to_device(mg, "cpu"))
+        if dev == DEVICE:          # both build the proxy from one M_g
+            mg_start = tree.to_device(mg, "cpu")
+        mg = tree.to_device(mg_start, dev)
+        stats = proxy.collect_stats(mg, BERT, tok, spec)
+        pp = proxy.build_proxy(prng.key(seed + 2), mg, BERT, stats, spec,
+                               seq_len=SEQ, n_classes=CLASSES,
+                               exvivo_steps=CPU_STEPS)
+        with _LossLog() as il:
+            pp = proxy.invivo_finetune(prng.key(seed + 3), pp, BERT, tok,
+                                       lab, spec, steps=CPU_STEPS,
+                                       batch=CPU_BATCH)
+        if dev == DEVICE:
+            torch.cuda.synchronize()
+        walls[dev] = time.time() - t0
+        out[dev] = (fl.values, tuned, il.values,
+                    tree.tree_leaves(tree.to_device(pp, "cpu")))
+        glog[dev] = fg
+    res = {"walls_s": walls}
+    for i, what in enumerate(("finetune losses", "finetune params",
+                              "in-vivo losses", "proxy params")):
+        a, b = out[DEVICE][i], out["cpu"][i]
+        if "losses" in what:
+            err = max(abs(x - y) for x, y in zip(a, b))
+            res[what] = err
+            log(f"[8] card vs CPU (depth 1, {CPU_STEPS} steps, batch "
+                f"{CPU_BATCH}) {what}: max err {err:.3g} (limit "
+                f"{LOSS_ATOL})")
+            if not err <= LOSS_ATOL:
+                fail(f"card vs CPU: {what} differ by {err}")
+            continue
+        diff = torch.cat([(x - y).abs().flatten() for x, y in zip(a, b)])
+        over = diff > PARAM_ATOL
+        bound = CPU_STEPS * (FINETUNE_LR if "finetune" in what
+                             else INVIVO_LR)
+        res[what] = {"max_err": float(diff.max()), "over": int(over.sum()),
+                     "elements": diff.numel()}
+        exempt = torch.zeros_like(over)
+        if "finetune" in what:     # M_g's first gradients, on both sides
+            card_g, cpu_g = glog[DEVICE], glog["cpu"]
+            g1 = torch.cat([x.flatten() for x in cpu_g.first]).abs()
+            exempt = (g1 > 0) & (g1 < ADAM_EPS)
+            res[what].update(
+                exempt=int(exempt.sum()),
+                abs_first_grad_where_over=[
+                    float(x) for x in g1[over].sort().values[:8]],
+                first_grad_max_rel_diff=max(
+                    float((x - y).abs().max()) / max(float(y.abs().max()),
+                                                     1e-30)
+                    for x, y in zip(card_g.first, cpu_g.first)))
+        held = float(diff[~exempt].max()) if (~exempt).any() else 0.0
+        res[what]["max_err_held"] = held
+        log(f"[8] card vs CPU (depth 1, {CPU_STEPS} steps, batch "
+            f"{CPU_BATCH}) {what}: max err {float(diff.max()):.3g}; "
+            f"{int(exempt.sum())} of {diff.numel()} elements with a first "
+            f"gradient in (0, {ADAM_EPS}) on the CPU, the rest within "
+            f"{held:.3g} (limit {PARAM_ATOL}); {int(over.sum())} over "
+            f"{PARAM_ATOL} (each within {bound:.3g})"
+            + (f", first |g| there {res[what]['abs_first_grad_where_over']}"
+               f"; first gradient card vs CPU within "
+               f"{res[what]['first_grad_max_rel_diff']:.3g} of max |g| "
+               f"(leaf by leaf)" if "finetune" in what else ""))
+        if not held <= PARAM_ATOL or not float(diff.max()) <= bound:
+            fail(f"card vs CPU: {what}: max err {held} outside the "
+                 f"elements whose gradient fell below {ADAM_EPS}, "
+                 f"max {float(diff.max())}")
+    res["finetune_losses"] = {d: out[d][0] for d in out}
+    res["invivo_losses"] = {d: out[d][2] for d in out}
+    log(f"[8] card vs CPU: walls {walls}; losses card "
+        f"{res['finetune_losses'][DEVICE]} / {res['invivo_losses'][DEVICE]}")
+    return res
+
+
+def phase_selection(seed: int, smi: str) -> dict:
+    """The paper's pipeline on the card from `run_selection` down: a
+    BERT-base target at full depth and width (random, from --seed), a
+    pool of 64 at seq 512 (8 bootstrap rows, a budget of 13),
+    `two_phase_default(12)`:
+      8a  SelectionConfig's step counts (ex-vivo cut to 100 for time),
+          mode="clear" then mode="mpc" on
+          RING32 with phase 3's executor flags. M_g's finetune and
+          phase 1's proxy are held finite. From this random target the
+          phase-2 proxy out of the ex-vivo fits is non-finite (the JAX
+          package's is too at this width: PERF.md,
+          tools/selection_divergence.py), so phase 2's scores are
+          reported, not held finite;
+      8b  the same with M_g's finetune and the in-vivo finetune cut to
+          CUT_STEPS, below the divergence: finite scores, and the
+          decoded MPC scores against the clear ones per phase, on
+          RING32, and the same proxies rescored on RING64 (the fixed
+          point's share of that error);
+      8c  the card against the CPU on the training steps;
+      8d  8a's clear run resumed from its phase checkpoints."""
+    import math
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.configs.paper_targets import BERT
+    from repro_torch.core import target
+    from repro_torch.data.tasks import make_classification_task
+    from repro_torch.mpc.ring import RING32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    task = make_classification_task(seed + SEL_SEED_OFFSET,
+                                    n_pool=SEL_POOL, n_test=8, seq=SEQ,
+                                    vocab=BERT.vocab_size, n_classes=CLASSES)
+    pool, labels = task.pool_tokens, task.pool_labels
+    params = target.init_classifier(
+        torch.Generator(device=DEVICE).manual_seed(seed + SEL_SEED_OFFSET),
+        BERT, CLASSES, device=DEVICE)
+    out = {}
+
+    def both_modes(tag, steps, ckpt, held):
+        res, stages, _, wall, counts = _run_selection(
+            seed, params, pool, labels, "clear", ckpt, steps=steps)
+        out[f"{tag} clear"] = _log_run(f"{tag} clear", res, stages, wall,
+                                       counts)
+        _gate_run(f"{tag} clear", res, stages, counts, ("msa",), held)
+        name = f"{tag} mpc ring32"
+        mres, mstages, proxies, mwall, mcounts = _run_selection(
+            seed, params, pool, labels, "mpc", None, RING32, steps)
+        out[name] = _log_run(name, mres, mstages, mwall, mcounts)
+        _gate_run(name, mres, mstages, mcounts, ("rmm", "smm"), held)
+        if not all(r.agrees() for r in mres.exec_reports):
+            fail(f"{name}: a phase ledger does not agree")
+        errs, bad = _mpc_vs_clear(
+            _scored(mres), [torch.as_tensor(x).sum(0)
+                            for x in mres.phase_scores], proxies, pool,
+            RING32)
+        out[name].update(max_abs_mpc_minus_clear=errs,
+                         nonfinite_clear_scores=bad)
+        log(f"[8] {name}, trained proxies: max |decoded MPC - clear| "
+            f"entropy per phase {errs}; non-finite clear scores per phase "
+            f"{bad}")
+        if any(bad[:held]) or not all(map(math.isfinite, errs[:held])):
+            fail(f"{name}: non-finite scores {bad}, errors {errs}")
+        log(f"[8] {tag} ({smi}): clear {wall:.1f} s, mpc {mwall:.1f} s, "
+            f"together {wall + mwall:.1f} s; the two share "
+            f"{len(set(res.selected) & set(mres.selected))} of "
+            f"{len(res.selected)} selected")
+        return res, counts, mcounts, mres, proxies
+
+    with tempfile.TemporaryDirectory() as ckpt:
+        res, counts, mcounts, _, _ = both_modes("8a", A_STEPS, ckpt,
+                                                held=1)
+        _, _, _, mres_b, proxies_b = both_modes("8b", CUT_STEPS, None,
+                                                held=2)
+        out["8b ring64"] = _rescore_ring64(seed, mres_b, proxies_b, pool)
+        out["card_vs_cpu"] = _card_vs_cpu_training(seed, params, pool,
+                                                    labels, res.boot_idx)
+        rres, rstages, _, rwall, rcounts = _run_selection(
+            seed, params, pool, labels, "clear", ckpt, steps=A_STEPS)
+        out["resume"] = _log_run("8d resumed clear", rres, rstages, rwall,
+                                 rcounts)
+        same = np.array_equal(rres.appraisal_entropy, res.appraisal_entropy,
+                              equal_nan=True)
+        if rres.resumed_phases != 2 or not same or any(
+                not np.array_equal(a, b) for a, b in
+                zip(rres.phase_survivors, res.phase_survivors)):
+            fail(f"resume: {rres.resumed_phases} phases resumed, appraisal "
+                 f"{rres.appraisal_entropy} against "
+                 f"{res.appraisal_entropy}")
+    out["training_launches"] = {
+        n: mcounts[n]["kernel"] + counts[n]["kernel"]
+        for n in ("fa_bwd", "msa_bwd")}
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1650,8 +2387,13 @@ def main(argv=None) -> int:
     lru_entries_ = lru_entries()
     lru_build = phase_sass("rg_lru", lru_entries_, lru_entries_,
                            forbid=NO_ATOMICS)
+    fa_bwd_build = phase_sass("flash_attn_bwd", FA_BWD_ENTRIES,
+                              FA_BWD_NO_SPILL, forbid=NO_ATOMICS)
+    msa_bwd_build = phase_sass("mlp_softmax_attn_bwd", MSA_BWD_ENTRIES,
+                               MSA_BWD_NO_SPILL, forbid=NO_ATOMICS)
     kern = phase_kernels(args.seed)
     fkern = phase_float_kernels(args.seed)
+    bkern = phase_backward_kernels(args.seed)
     skern = phase_scan_kernels(args.seed)
     proxies = build_proxies(args.seed)
     t0 = time.time()
@@ -1671,6 +2413,9 @@ def main(argv=None) -> int:
     t0 = time.time()
     serving = phase_serve(args.seed, smi)
     log(f"[7] token serving phase: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    pipeline = phase_selection(args.seed, smi)
+    log(f"[8] run_selection phase: {time.time() - t0:.1f} s")
 
     kernels = []
     for name, tpu in (("ring_matmul", RING_MATMUL_TPU),
@@ -1758,6 +2503,33 @@ def main(argv=None) -> int:
             kernels[-1]["launches_by_path"] = {
                 "6a": tgt["launches"]["flash_attn"]["kernel"],
                 "7 recurrentgemma_2b": rg["flash_attn"]["kernel"]}
+    for name, src, replaces, build_info in (
+            ("flash_attn_bwd", "flash_attn_bwd.cu", FLASH_ATTN_BWD_REPLACES,
+             fa_bwd_build),
+            ("mlp_softmax_attn_bwd", "mlp_softmax_attn_bwd.cu",
+             MLP_SOFTMAX_ATTN_BWD_REPLACES, msa_bwd_build)):
+        k = bkern[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"{CSRC}/{src}",
+            "replaces": replaces,
+            "launches": pipeline["training_launches"][name.replace(
+                "flash_attn_bwd", "fa_bwd").replace(
+                "mlp_softmax_attn_bwd", "msa_bwd")],
+            "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"], "library_ms": k.get("library_ms"),
+            "library_note": (
+                "torch.nn.functional.scaled_dot_product_attention forward "
+                "and backward" if name == "flash_attn_bwd" else
+                "none: no single torch call computes this function"),
+            "shape": k["shape"], "build": build_info,
+            **({"launches_note": "two kernels a backward call (dq, then "
+                                 "dk/dv), both counted"}
+               if name == "flash_attn_bwd" else {}),
+            **{x: k[x] for x in ("bf16_max_abs_err", "device_ms",
+                                 "library_device_ms", "bound_share",
+                                 "cuda_core_bound_ms", "bitwise_repeat",
+                                 "phase1") if x in k}})
     log(f"[5] clear-vs-MPC max abs error: {json.dumps(errs)}")
     log(f"total {time.time() - t_all:.1f} s")
     print(smi)

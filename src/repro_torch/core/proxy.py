@@ -1,4 +1,5 @@
-"""Proxy models (paper §4.2): the serving side.
+"""Proxy model generation + execution (paper §4.2) — the port of
+repro/core/proxy.py.
 
 A proxy M̂ = <l, w, d>: l bottom transformer layers of the target with
 w heads, FFN removed, and nonlinearities replaced by MLP emulators of
@@ -6,11 +7,20 @@ hidden dim d (2l + 1 MLPs total: per-layer MLP_sm + MLP_ln, one MLP_se
 on top). The forward exists once, engine-generic, in
 `engine/forward.py`.
 
-This slice ports what scoring a pool with an already-built proxy needs:
-the spec, a random-weight proxy, the parameters of a JAX-built proxy
-carried across (`core.tree.to_device`), and the model owner's secret
-sharing of them. Proxy construction (extraction, pruning, ex-vivo and
-in-vivo training) is a later slice.
+Generation pipeline (all clear, model-owner side), with the JAX
+package's keys and split order:
+  1. extract M_g (bottom max(l_i) layers, weights copied)
+  2. finetune M_g on the bootstrap sample (`target.finetune`)
+  3. collect Gaussian stats of every nonlinear module's inputs
+  4. prune depth/width -> proxy skeleton; ex-vivo-train MLPs; insert
+  5. in-vivo finetune the proxy end-to-end on bootstrap (CE on logits),
+     then refit MLP_se on the updated logits distribution
+On the card, step 3's full M_g layers run `flash_attn`, and step 5
+differentiates the MLP_sm attention through `mlp_softmax_attn`'s
+forward and backward kernels.
+
+Besides: a random-weight proxy for protocol runs, and the model owner's
+secret sharing of a proxy.
 """
 from __future__ import annotations
 
@@ -19,8 +29,13 @@ import dataclasses
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core import approx
-from repro_torch.core.tree import tree_leaves, tree_rebuild
+from repro_torch.core import approx, target
+from repro_torch.core.approx import GaussStats
+from repro_torch.core.tree import (adam_step, detached, grads, trainable,
+                                   tree_leaves, tree_rebuild)
+from repro_torch.engine.clear import ClearEngine
+from repro_torch.engine.forward import proxy_logits
+from repro_torch.models import common, transformer as T
 from repro_torch.mpc import prng
 from repro_torch.mpc.ring import RingSpec, RING64
 from repro_torch.mpc.sharing import share
@@ -32,6 +47,130 @@ class ProxySpec:
     n_heads: int
     mlp_dim: int
     selectivity: float = 1.0     # fraction kept by this phase
+
+
+# ---------------------------------------------------------------------------
+# generation
+# ---------------------------------------------------------------------------
+
+def extract_backbone(params, n_layers: int):
+    """M_g: bottom n_layers with all weights copied."""
+    out = dict(params)
+    out["layers"] = T.layer_slice(params["layers"], slice(0, n_layers))
+    return out
+
+
+@torch.no_grad()
+def collect_stats(params, cfg: ArchConfig, tokens, spec: ProxySpec,
+                  max_rows: int = 4096):
+    """Gaussian <mu, sigma> of each nonlinearity's inputs on M_g."""
+    dh = cfg.d_head
+    w = spec.n_heads
+    emb = params["embed"]
+    tokens = torch.as_tensor(tokens, device=emb.device)
+    x = emb[tokens].float()
+    x = x * float(torch.tensor(cfg.d_model ** 0.5, dtype=torch.float32))
+    b, s, d = x.shape
+    wk = min(w, cfg.n_kv_heads)
+    positions = torch.arange(s, device=x.device)
+    sm_stats, ln_stats = [], []
+    for li in range(spec.n_layers):
+        lp = T.layer_slice(params["layers"], li)
+        mu = x.mean(-1, keepdim=True)
+        var = ((x - mu) ** 2).mean(-1, keepdim=True)
+        ln_stats.append(GaussStats.estimate(var.reshape(-1, 1)))
+        h = common.apply_norm(x, lp["ln1"], cfg.norm_type)
+        ap = lp["attn"]
+        q = (h @ ap["wq"][:, :w * dh]).reshape(b, s, w, dh)
+        k = (h @ ap["wk"][:, :wk * dh]).reshape(b, s, wk, dh)
+        qg = q.reshape(b, s, wk, -1, dh)
+        # NOT a proxy forward (that lives solely in engine/forward.py):
+        # this probes M_g's attention-score distribution to fit MLP_sm
+        scores = torch.einsum("bqkgd,bjkd->bkgqj", qg, k) * dh ** -0.5
+        sm_stats.append(GaussStats.estimate(scores.reshape(-1, s)[:max_rows]))
+        # advance x through the *full* M_g layer (with FFN) for fidelity
+        x, _, _ = T._decoder_layer(x, lp, cfg, mask_kind="bidir",
+                                   positions=positions)
+    logits = target.classifier_logits(params, cfg, tokens,
+                                      n_layers=spec.n_layers)
+    se_stats = GaussStats.estimate(logits)
+    return {"sm": sm_stats, "ln": ln_stats, "se": se_stats}
+
+
+def prune(params, cfg: ArchConfig, spec: ProxySpec):
+    """Bottom-l layers, first-w heads, FFN dropped."""
+    dh = cfg.d_head
+    w = spec.n_heads
+    wk = min(w, cfg.n_kv_heads)
+    layers = T.layer_slice(params["layers"], slice(0, spec.n_layers))
+    attn = layers["attn"]
+    pruned = {
+        "wq": attn["wq"][:, :, :w * dh],
+        "wk": attn["wk"][:, :, :wk * dh],
+        "wv": attn["wv"][:, :, :wk * dh],
+        "wo": attn["wo"][:, :w * dh, :],
+    }
+    for bname, width in (("bq", w), ("bk", wk), ("bv", wk)):
+        if bname in attn:
+            pruned[bname] = attn[bname][:, :width * dh]
+    ln = layers["ln1"]
+    return {"embed": params["embed"], "cls_head": params["cls_head"],
+            "attn": pruned,
+            "ln_scale": ln["scale"],
+            "ln_bias": ln.get("bias", torch.zeros_like(ln["scale"]))}
+
+
+def build_proxy(key, params_g, cfg: ArchConfig, stats, spec: ProxySpec,
+                seq_len: int, n_classes: int, *, exvivo_steps: int = 300):
+    """Prune + ex-vivo-train and insert the 2l+1 MLPs (keys split as the
+    JAX package splits them: 2i for MLP_sm, 2i + 1 for MLP_ln, the last
+    for MLP_se)."""
+    pp = prune(params_g, cfg, spec)
+    keys = prng.split(key, 2 * spec.n_layers + 1).unbind(-2)
+    pp["mlp_sm"] = [approx.fit_softmax_mlp(keys[2 * i], stats["sm"][i],
+                                           seq_len, spec.mlp_dim,
+                                           steps=exvivo_steps)
+                    for i in range(spec.n_layers)]
+    pp["mlp_ln"] = [approx.fit_rsqrt_mlp(keys[2 * i + 1], stats["ln"][i],
+                                         spec.mlp_dim, steps=exvivo_steps)
+                    for i in range(spec.n_layers)]
+    pp["mlp_se"] = approx.fit_entropy_mlp(keys[-1], stats["se"], n_classes,
+                                          spec.mlp_dim, steps=exvivo_steps)
+    return pp
+
+
+def invivo_finetune(key, pp, cfg: ArchConfig, tokens, labels,
+                    spec: ProxySpec, *, steps: int = 150, lr: float = 5e-4,
+                    batch: int = 32):
+    """Co-tune MLPs + exact weights on bootstrap CE through the clear
+    proxy forward (`engine.forward.proxy_logits` on a ClearEngine); refit
+    MLP_se after on the tuned logits. Returns a detached proxy."""
+    pp = dict(pp)
+    mlp_se = pp.pop("mlp_se")
+    dev = pp["embed"].device
+    key = key.to(dev)
+    tokens = torch.as_tensor(tokens, device=dev)
+    labels = torch.as_tensor(labels, device=dev)
+    tp, leaves = trainable(pp)
+    m = [torch.zeros_like(x) for x in leaves]
+    v = [torch.zeros_like(x) for x in leaves]
+    eng = ClearEngine()
+    n = tokens.shape[0]
+    for i in range(steps):
+        key, k = prng.split(key).unbind(-2)
+        idx = prng.randint(k, (min(batch, n),), 0, n)
+        logits = proxy_logits(eng, tp, cfg, tokens[idx], spec)
+        loss = common.cross_entropy(logits[:, None], labels[idx][:, None])
+        adam_step(leaves, grads(loss, leaves), m, v, i, lr)
+    pp = detached(tp)
+    # refit the entropy head on the tuned proxy's logit distribution
+    with torch.no_grad():
+        logits = proxy_logits(eng, pp, cfg, tokens, spec)
+    stats = GaussStats.estimate(logits)
+    key, k = prng.split(key).unbind(-2)
+    pp["mlp_se"] = approx.fit_entropy_mlp(k, stats, logits.shape[-1],
+                                          mlp_se["w1"].shape[1], steps=300)
+    return pp
 
 
 X_VAR = 1 / 16     # variance of random_proxy's embedded inputs

@@ -63,6 +63,26 @@ class TensorEngine(Protocol):
     def entropy_head(self, pp, logits: Tensor, variant) -> Tensor: ...
 
 
+def resolve_engine(engine, ring=None, protocol: str = "2pc") -> "TensorEngine":
+    """Engine instance from an instance (pass-through) or a mode string
+    ("clear" / "mpc" / "trace" — the legacy `SelectionConfig.mode`)."""
+    if not isinstance(engine, str):
+        return engine
+    from repro_torch.engine.clear import ClearEngine
+    from repro_torch.engine.mpc import MPCEngine
+    from repro_torch.engine.trace import TraceEngine
+    from repro_torch.mpc.ring import RING64
+    ring = RING64 if ring is None else ring
+    if engine == "clear":
+        return ClearEngine()
+    if engine == "mpc":
+        return MPCEngine(ring=ring, protocol=protocol)
+    if engine == "trace":
+        return TraceEngine(ring=ring, protocol=protocol)
+    raise ValueError(f"unknown engine {engine!r} "
+                     "(expected 'clear', 'mpc', 'trace', or an instance)")
+
+
 def resolve_variant(engine, variant) -> frozenset:
     """Per-call variant > engine default > full MLP emulation; strings
     name entries of VARIANTS."""

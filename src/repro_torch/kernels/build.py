@@ -30,7 +30,9 @@ SOURCES = {"ring_matmul": "ring_matmul.cu",
            "entropy_head": "entropy_head.cu",
            "mlp_softmax_attn": "mlp_softmax_attn.cu",
            "ssd": "ssd.cu",
-           "rg_lru": "rg_lru.cu"}
+           "rg_lru": "rg_lru.cu",
+           "flash_attn_bwd": "flash_attn_bwd.cu",
+           "mlp_softmax_attn_bwd": "mlp_softmax_attn_bwd.cu"}
 HEADERS = ("float_tile.cuh", "hopper_tile.cuh", "wgmma_ops.cuh",
            "ring_limbs.cuh")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -17,7 +17,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_grad
 from repro_torch.kernels import ref
 
 # launches of the kernel ("kernel") and calls of the plain version on CPU
@@ -79,6 +79,7 @@ def _fn(dtype: torch.dtype):
 
 def launch(logits: torch.Tensor) -> torch.Tensor:
     """Run the kernel on a CUDA tensor of logits (R, V)."""
+    refuse_grad("entropy_head", logits)
     if not logits.is_cuda:
         raise ValueError("entropy_head kernel: logits must be on a CUDA "
                          "device")

@@ -8,6 +8,13 @@ q's dtype out. A causal `window` w > 0 also masks keys k <= q - w (the
 "local" mask), an addition of the port. `work` counts what a call must
 do, for its bound on the card: bytes in bfloat16, operations in float32.
 
+Gradients: when grad mode is on and q, k or v requires grad, the call
+goes through a `torch.autograd.Function` whose forward is the kernel and
+whose backward is the backward kernel in csrc/flash_attn_bwd.cu
+(FlashAttention-2's backward on the CUDA cores, Dh up to 128); on CPU
+tensors the same Function takes the plain versions `ref.flash_attn` and
+`ref.flash_attn_bwd`. `bwd_work` counts what the backward must do.
+
 Dispatch: a CUDA tensor launches the kernel (or raises); a CPU tensor
 takes the plain version `kernels.ref.flash_attn`.
 """
@@ -24,8 +31,15 @@ from repro_torch.kernels import ref
 # tensors ("ref") — the witness that a run went through the kernel
 _stats = {"kernel": 0, "ref": 0}
 
+# launches of the backward kernels (each call launches two: dq, then dk
+# and dv) and calls of their plain version
+_bwd_stats = {"kernel": 0, "ref": 0}
+
 _FN = {torch.float32: "flash_attn_f32", torch.bfloat16: "flash_attn_bf16"}
+_BWD_FN = {torch.float32: "flash_attn_bwd_f32",
+           torch.bfloat16: "flash_attn_bwd_bf16"}
 HEAD_DIMS = (16, 32, 64, 128, 256)
+BWD_HEAD_DIMS = (16, 32, 64, 128)
 
 
 _fns: dict = {}
@@ -64,6 +78,18 @@ def work(q_shape, kv_heads: int, dtype: torch.dtype, causal: bool,
     e = torch.empty((), dtype=dtype).element_size()
     ops = 4.0 * bh * kept_pairs(sq, skv, causal, window) * dh
     return ops, float((2 * bh * sq + 2 * kv_heads * skv) * dh * e)
+
+
+def bwd_work(q_shape, kv_heads: int, dtype: torch.dtype, causal: bool,
+             window: int = 0) -> tuple[float, float]:
+    """(operations, bytes) of one backward call on q (BH, S, Dh): five
+    products of Dh multiply-adds over each kept pair (S, dP, dq, dk,
+    dv), and q, k, v, o, do read and dq, dk, dv written once each at the
+    dtype's element size."""
+    bh, s, dh = q_shape
+    e = torch.empty((), dtype=dtype).element_size()
+    ops = 10.0 * bh * kept_pairs(s, s, causal, window) * dh
+    return ops, float((4 * bh * s + 4 * kv_heads * s) * dh * e)
 
 
 def check_attention_operands(name: str, q, k, v) -> int:
@@ -115,12 +141,103 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o
 
 
+_bwd_fns: dict = {}
+
+
+def _bwd_fn(dtype: torch.dtype):
+    f = _bwd_fns.get(dtype)
+    if f is None:
+        f = getattr(build.lib("flash_attn_bwd"), _BWD_FN[dtype])
+        f.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 \
+            + [ctypes.c_float, ctypes.c_void_p]
+        f.restype = ctypes.c_int
+        _bwd_fns[dtype] = f
+    return f
+
+
+def check_bwd(q, k, causal: bool) -> None:
+    """Refuse what the backward kernel does not take (it never hands back
+    a plain gradient instead)."""
+    if q.shape[2] not in BWD_HEAD_DIMS or (causal
+                                           and q.shape[1] != k.shape[1]):
+        raise ValueError(
+            f"flash_attn backward kernel: head dim {q.shape[2]} (takes "
+            f"{BWD_HEAD_DIMS}) or causal Sq {q.shape[1]} != Skv "
+            f"{k.shape[1]} has no backward kernel yet (ROADMAP Queue 2)")
+
+
+def launch_bwd(q, k, v, o, do, causal: bool, window: int = 0):
+    """Run the backward kernel on CUDA tensors: (dq, dk, dv) for q
+    (BH, Sq, Dh), k/v (BH / group, Skv, Dh), the forward's o and its
+    gradient do; dk and dv sum over each kv head's group."""
+    group = check_attention_operands("flash_attn backward", q, k, v)
+    check_window(causal, window)
+    check_bwd(q, k, causal)
+    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype:
+        raise ValueError(f"flash_attn backward kernel: o {tuple(o.shape)} "
+                         f"and do {tuple(do.shape)} must match q "
+                         f"{tuple(q.shape)}")
+    # inputs made contiguous before any output is allocated: the kernel
+    # reads and writes each as one (rows, Dh) array
+    q, k, v, o = q.contiguous(), k.contiguous(), v.contiguous(), \
+        o.contiguous()
+    do = do.to(q.dtype).contiguous()
+    bh, sq, dh = q.shape
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
+        torch.empty_like(v)
+    if q.numel() == 0 or k.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+    dsum = torch.empty_like(lse)
+    err = _bwd_fn(q.dtype)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                           o.data_ptr(), do.data_ptr(), dq.data_ptr(),
+                           dk.data_ptr(), dv.data_ptr(), lse.data_ptr(),
+                           dsum.data_ptr(), bh, group, sq, k.shape[1], dh,
+                           int(causal), window, dh ** -0.5,
+                           torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attn backward kernel launch failed: CUDA "
+                           f"error {err}")
+    _bwd_stats["kernel"] += 2           # the dq kernel, then the dk/dv one
+    return dq, dk, dv
+
+
+class FlashAttn(torch.autograd.Function):
+    """The kernel with its backward kernel (plain versions on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        if q.device.type == "cpu":
+            _stats["ref"] += 1
+            o = ref.flash_attn(q, k, v, causal=causal, window=window)
+        else:
+            o = launch(q, k, v, causal, window)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        if q.device.type == "cpu":
+            _bwd_stats["ref"] += 1
+            grads = ref.flash_attn_bwd(q, k, v, o, do, causal=ctx.causal,
+                                       window=ctx.window)
+        else:
+            grads = launch_bwd(q, k, v, o, do, ctx.causal, ctx.window)
+        return (*grads, None, None)
+
+
 def flash_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                causal: bool = True, window: int = 0) -> torch.Tensor:
     """softmax(q k^T / sqrt(Dh)) v per head; `causal` masks key j > query
-    i and needs Sq == Skv; a `window` w > 0 also masks j <= i - w."""
+    i and needs Sq == Skv; a `window` w > 0 also masks j <= i - w.
+    Differentiable through the backward kernel (`FlashAttn`)."""
+    check_window(causal, window)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        check_bwd(q, k, causal)
+        return FlashAttn.apply(q, k, v, causal, window)
     if q.device.type == "cpu":
-        check_window(causal, window)
         _stats["ref"] += 1
         return ref.flash_attn(q, k, v, causal=causal, window=window)
     return launch(q, k, v, causal, window)
@@ -133,3 +250,12 @@ def stats() -> dict:
 def reset_stats() -> None:
     for k in _stats:
         _stats[k] = 0
+
+
+def bwd_stats() -> dict:
+    return dict(_bwd_stats)
+
+
+def reset_bwd_stats() -> None:
+    for k in _bwd_stats:
+        _bwd_stats[k] = 0

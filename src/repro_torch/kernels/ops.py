@@ -9,7 +9,8 @@ The launch counters (`smm_stats` for secure_matmul, `rmm_stats` for
 ring_matmul, `fa_stats` for flash_attn, `eh_stats` for entropy_head,
 `msa_stats` for mlp_softmax_attn, `ssd_stats` for ssd, `lru_stats` for
 rg_lru) count kernel launches under "kernel"
-and plain-version calls under "ref". The executor snapshots the ring
+and plain-version calls under "ref"; `fa_bwd_stats` and `msa_bwd_stats`
+count the two backward kernels the same way. The executor snapshots the ring
 counters around a phase (`DeviceReport.combine_*` / `matmul_*`); a run
 on the card reads them all to show that its work went through the
 kernels.
@@ -99,3 +100,21 @@ def lru_stats() -> dict:
 
 def reset_lru_stats() -> None:
     _lru.reset_stats()
+
+
+def fa_bwd_stats() -> dict:
+    """Snapshot of the flash_attn backward counters (kernel / ref)."""
+    return _fa.bwd_stats()
+
+
+def reset_fa_bwd_stats() -> None:
+    _fa.reset_bwd_stats()
+
+
+def msa_bwd_stats() -> dict:
+    """Snapshot of the mlp_softmax_attn backward counters (kernel / ref)."""
+    return _msa.bwd_stats()
+
+
+def reset_msa_bwd_stats() -> None:
+    _msa.reset_bwd_stats()

@@ -13,6 +13,13 @@ materialized (S x S) scores. They take the kernels' grouped layout —
 q (BH, Sq, Dh) against k/v (BH / group, Skv, Dh) — and return q's dtype
 (`entropy_head`: float32), as the kernels do.
 
+Backward (allclose): `flash_attn_bwd` and `mlp_softmax_attn_bwd` are the
+plain versions of the two backward kernels, in their own math — the
+probabilities recomputed from the row log-sum-exp (flash_attn), the
+gradient through A = K^T W1 * scale and U = W2 V (mlp_softmax_attn) —
+held against autograd of the forwards above. k and v's gradients sum
+over each kv head's group.
+
 Scans (allclose): `ssd` and `rg_lru` mirror repro/kernels/ref.py:46-84,
 step by step in float32. `ssd` also returns the final state, which the
 port's kernel writes. `ssd_chunked` is the chunked SSD of
@@ -58,9 +65,16 @@ def secure_matmul_combine(eps, dlt, a_sh, b_sh, c_sh, party: int):
     return z
 
 
+def _up(x: torch.Tensor) -> torch.Tensor:
+    """x in float32, or float64 if it is (so gradcheck can run the
+    attention versions in double precision)."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def _kv_for(q: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-    """k or v (BH / group, S, Dh) repeated to q's BH rows, in float32."""
-    return t.float().repeat_interleave(q.shape[0] // t.shape[0], dim=0)
+    """k or v (BH / group, S, Dh) repeated to q's BH rows, in float32
+    (float64 stays float64)."""
+    return _up(t).repeat_interleave(q.shape[0] // t.shape[0], dim=0)
 
 
 def flash_attn(q, k, v, *, causal: bool = True,
@@ -71,7 +85,7 @@ def flash_attn(q, k, v, *, causal: bool = True,
     if causal and q.shape[1] != k.shape[1]:
         raise ValueError(f"causal attention needs Sq == Skv, got "
                          f"{q.shape[1]} and {k.shape[1]}")
-    s = q.float() @ _kv_for(q, k).transpose(-1, -2) * q.shape[-1] ** -0.5
+    s = _up(q) @ _kv_for(q, k).transpose(-1, -2) * q.shape[-1] ** -0.5
     if causal:
         sq, sk = s.shape[-2:]
         mask = torch.ones((sq, sk), dtype=torch.bool, device=s.device).tril()
@@ -79,6 +93,34 @@ def flash_attn(q, k, v, *, causal: bool = True,
             mask = mask.triu(1 - window)
         s = s.masked_fill(~mask, float("-inf"))
     return (torch.softmax(s, dim=-1) @ _kv_for(q, v)).to(q.dtype)
+
+
+def _group_sum(x: torch.Tensor, group: int) -> torch.Tensor:
+    """(BH, ...) -> (BH / group, ...): the sum over each kv head's group."""
+    return x.reshape((x.shape[0] // group, group) + tuple(x.shape[1:])).sum(1)
+
+
+def flash_attn_bwd(q, k, v, o, do, *, causal: bool = True, window: int = 0):
+    """(dq, dk, dv) of `flash_attn` given the output o and its gradient
+    do: P = exp(S - lse), D = rowsum(do * o), dv = P^T do,
+    dS = P * (do v^T - D), dq = dS k * scale, dk = dS^T q * scale."""
+    group, scale = q.shape[0] // k.shape[0], q.shape[-1] ** -0.5
+    qf, dof = _up(q), _up(do)
+    kf, vf = _kv_for(q, k), _kv_for(q, v)
+    s = qf @ kf.transpose(-1, -2) * scale
+    if causal:
+        sq, sk = s.shape[-2:]
+        mask = torch.ones((sq, sk), dtype=torch.bool, device=s.device).tril()
+        if window:
+            mask = mask.triu(1 - window)
+        s = s.masked_fill(~mask, float("-inf"))
+    p = torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True))
+    d = (dof * _up(o)).sum(-1, keepdim=True)
+    ds = p * (dof @ vf.transpose(-1, -2) - d)
+    dq = ds @ kf * scale
+    dk = _group_sum(ds.transpose(-1, -2) @ qf * scale, group)
+    dv = _group_sum(p.transpose(-1, -2) @ dof, group)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def entropy_head(logits) -> torch.Tensor:
@@ -93,9 +135,41 @@ def entropy_head(logits) -> torch.Tensor:
 def mlp_softmax_attn(q, k, v, w1, b1, w2, b2) -> torch.Tensor:
     """MLP-emulated attention, materialized: probs = relu(S @ w1 + b1)
     @ w2 + b2 over the scores S, out = probs @ v."""
-    s = q.float() @ _kv_for(q, k).transpose(-1, -2) * q.shape[-1] ** -0.5
-    probs = torch.relu(s @ w1.float() + b1.float()) @ w2.float() + b2.float()
+    s = _up(q) @ _kv_for(q, k).transpose(-1, -2) * q.shape[-1] ** -0.5
+    probs = torch.relu(s @ _up(w1) + _up(b1)) @ _up(w2) + _up(b2)
     return (probs @ _kv_for(q, v)).to(q.dtype)
+
+
+def mlp_softmax_attn_bwd(q, k, v, w1, b1, w2, b2, do):
+    """(dq, dk, dv, dw1, db1, dw2, db2) of `mlp_softmax_attn` given do,
+    through its reassociated form out = relu(q A + b1) U + u0:
+    dU = H^T do, du0 = sum do, dZ = (do U^T) [Z > 0], dA = q^T dZ,
+    dq = dZ A^T, then dk = scale w1 dA^T, dw1 = scale sum k dA,
+    dw2 = sum dU v^T, dv = w2^T dU + b2 du0, db2 = sum v du0,
+    db1 = sum dZ (sums over each kv head's group, then over the heads)."""
+    group, scale = q.shape[0] // k.shape[0], q.shape[-1] ** -0.5
+    qf, dof, kf, vf = _up(q), _up(do), _up(k), _up(v)
+    w1, b1, w2, b2 = _up(w1), _up(b1), _up(w2), _up(b2)
+    a = kf.transpose(-1, -2) @ w1 * scale                 # (BHk, Dh, hid)
+    u = w2 @ vf                                           # (BHk, hid, Dh)
+    ar, ur = (x.repeat_interleave(group, dim=0) for x in (a, u))
+    z = qf @ ar + b1
+    h = torch.relu(z)
+    dz = (dof @ ur.transpose(-1, -2)) * (z > 0)
+    dq = dz @ ar.transpose(-1, -2)
+    da = _group_sum(qf.transpose(-1, -2) @ dz, group)
+    du = _group_sum(h.transpose(-1, -2) @ dof, group)
+    du0 = _group_sum(dof.sum(1), group)                  # (BHk, Dh)
+    dk = w1 @ da.transpose(-1, -2) * scale
+    dw1 = kf.transpose(0, 1).reshape(kf.shape[1], -1) \
+        @ da.reshape(-1, da.shape[-1]) * scale
+    dw2 = du.transpose(0, 1).reshape(du.shape[1], -1) \
+        @ vf.transpose(-1, -2).reshape(-1, vf.shape[1])
+    dv = w2.t() @ du + b2[:, None] * du0[:, None, :]
+    db2 = vf.transpose(0, 1).reshape(vf.shape[1], -1) @ du0.reshape(-1)
+    db1 = dz.sum((0, 1))
+    return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dw1, db1, dw2,
+            db2)
 
 
 def ssd(x, a, b, c, state0=None):

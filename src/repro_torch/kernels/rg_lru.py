@@ -16,7 +16,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_grad
 from repro_torch.kernels import ref
 
 # launches of the kernel ("kernel") and calls of the plain version on CPU
@@ -53,6 +53,7 @@ def _fn():
 
 def launch(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Run the kernel on CUDA tensors a, b (B, T, D) float32."""
+    refuse_grad("rg_lru", a, b)
     if not (a.is_cuda and b.device == a.device):
         raise ValueError("rg_lru kernel: operands must share one CUDA device")
     if a.dtype != torch.float32 or b.dtype != torch.float32:

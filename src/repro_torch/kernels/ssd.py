@@ -19,7 +19,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, refuse_grad
 from repro_torch.kernels import ref
 
 # launches of the kernel ("kernel") and calls of the plain version on CPU
@@ -58,6 +58,7 @@ def _fn(dtype: torch.dtype):
 
 def launch(x, a, b, c, chunk: int = MAX_CHUNK, state0=None):
     """Run the kernel on CUDA tensors; returns (y, final state)."""
+    refuse_grad("ssd", x, a, b, c, state0)
     ops = (x, a, b, c) + (() if state0 is None else (state0,))
     if not all(t.is_cuda and t.device == x.device for t in ops):
         raise ValueError("ssd kernel: operands must share one CUDA device")

@@ -731,3 +731,157 @@ def test_local_window_on_the_card_runs_the_kernel(cuda):
     want, _ = T.forward_logits(tree.to_device(params, "cpu"), cfg, batch)
     err = float((got.cpu() - want).abs().max())
     assert err <= 1e-4 * float(want.abs().max()), err
+
+
+# ---------------------------------------------------------------------------
+# the backward kernels, against autograd of the plain versions on the card
+# ---------------------------------------------------------------------------
+
+def _grads(out, inputs, do):
+    return torch.autograd.grad(out, inputs, do)
+
+
+def _leaves(g, shapes, dtype, scales=None):
+    scales = scales or [1.0] * len(shapes)
+    return [randn(g, s, dtype, sc).requires_grad_()
+            for s, sc in zip(shapes, scales)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [
+    # (dtype, BH, S, Dh, group, causal, window): M_g's finetune at BERT
+    # width (8 x 12 heads), ragged S, causal with and without a window,
+    # grouped kv heads, every head dim, bf16
+    (torch.float32, 96, 512, 64, 1, False, 0),
+    (torch.float32, 6, 100, 64, 1, False, 0),
+    (torch.float32, 6, 130, 32, 3, True, 0),
+    (torch.float32, 4, 200, 16, 2, True, 50),
+    (torch.float32, 2, 150, 128, 1, False, 0),
+    (torch.bfloat16, 12, 512, 64, 1, False, 0),
+    (torch.bfloat16, 6, 67, 128, 3, True, 20)])
+def test_flash_attn_backward_matches_plain_autograd(cuda, case):
+    from repro_torch.kernels import flash_attn as fa
+    dtype, bh, s, dh, group, causal, window = case
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q, k, v = _leaves(g, [(bh, s, dh), (bh // group, s, dh),
+                          (bh // group, s, dh)], dtype)
+    do = randn(g, (bh, s, dh), dtype)
+    fa.reset_bwd_stats()
+    got = _grads(fa.flash_attn(q, k, v, causal=causal, window=window),
+                 (q, k, v), do)
+    assert fa.bwd_stats() == {"kernel": 2, "ref": 0}   # dq, then dk/dv
+    want = _grads(ref.flash_attn(q, k, v, causal=causal, window=window),
+                  (q, k, v), do)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        assert_close(a, b, FLOAT_TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_flash_attn_backward_bitwise_and_strided(cuda):
+    """Two launches give the same bits (dk and dv sum a group in order, no
+    atomics); a permuted q (a transposed view) and a sliced k take the
+    allocate-after-contiguous path and still agree with the plain
+    version."""
+    from repro_torch.kernels import flash_attn as fa
+    g = torch.Generator(device=cuda).manual_seed(12)
+    qb = randn(g, (130, 8, 64)).requires_grad_()
+    kb = randn(g, (4, 140, 64)).requires_grad_()
+    v = randn(g, (4, 130, 64)).requires_grad_()
+    q, k = qb.transpose(0, 1), kb[:, 5:135]
+    do = randn(g, (8, 130, 64))
+    first = _grads(fa.flash_attn(q, k, v, causal=True), (qb, kb, v), do)
+    second = _grads(fa.flash_attn(q, k, v, causal=True), (qb, kb, v), do)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    want = _grads(ref.flash_attn(q, k, v, causal=True), (qb, kb, v), do)
+    for a, b in zip(first, want):
+        assert_close(a, b, FLOAT_TOL[torch.float32])
+
+
+@pytest.mark.gpu
+def test_flash_attn_backward_refuses_what_it_lacks(cuda):
+    """Dh 256 has no backward kernel: asking for a gradient raises (naming
+    ROADMAP), never a plain gradient."""
+    from repro_torch.kernels import flash_attn as fa
+    q = torch.randn(2, 16, 256, device=cuda, requires_grad=True)
+    with pytest.raises(ValueError, match="ROADMAP"):
+        fa.flash_attn(q, q.detach(), q.detach())
+    with torch.no_grad():
+        assert fa.flash_attn(q, q, q).shape == q.shape
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [
+    # (dtype, BH, Sq, Skv, Dh, hid, group): in-vivo phase 2 <3,12,16> and
+    # phase 1 <1,1,2> at batch 8, ragged S, a group, Skv != Sq, hid 64 at
+    # Dh 128, bf16
+    (torch.float32, 96, 512, 512, 64, 16, 1),
+    (torch.float32, 8, 512, 512, 64, 2, 1),
+    (torch.float32, 6, 100, 100, 64, 5, 1),
+    (torch.float32, 6, 130, 130, 32, 7, 3),
+    (torch.float32, 2, 64, 600, 128, 16, 1),
+    (torch.float32, 2, 200, 200, 128, 64, 1),
+    (torch.float32, 3, 70, 70, 16, 3, 1),
+    (torch.bfloat16, 12, 512, 512, 64, 16, 1)])
+def test_mlp_softmax_attn_backward_matches_plain_autograd(cuda, case):
+    from repro_torch.kernels import mlp_softmax_attn as msa
+    dtype, bh, sq, skv, dh, hid, group = case
+    g = torch.Generator(device=cuda).manual_seed(13)
+    q, k, v = _leaves(g, [(bh, sq, dh), (bh // group, skv, dh),
+                          (bh // group, skv, dh)], dtype)
+    w = _leaves(g, [(skv, hid), (hid,), (hid, skv), (skv,)], torch.float32,
+                [0.2, 0.1, 0.2, 0.01])
+    do = randn(g, (bh, sq, dh), dtype)
+    msa.reset_bwd_stats()
+    got = _grads(msa.mlp_softmax_attn(q, k, v, *w), (q, k, v, *w), do)
+    assert msa.bwd_stats() == {"kernel": 1, "ref": 0}
+    want = _grads(ref.mlp_softmax_attn(q, k, v, *w), (q, k, v, *w), do)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert_close(a, b, FLOAT_TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_mlp_softmax_attn_backward_bitwise_and_permuted(cuda):
+    """Two launches give the same bits; a permuted q (the head-folded q of
+    a batch of one row) agrees with the plain version."""
+    from repro_torch.kernels import mlp_softmax_attn as msa
+    g = torch.Generator(device=cuda).manual_seed(14)
+    qb = randn(g, (512, 12, 64)).requires_grad_()
+    q = qb.transpose(0, 1)
+    k, v = _leaves(g, [(12, 512, 64), (12, 512, 64)], torch.float32)
+    w = _leaves(g, [(512, 16), (16,), (16, 512), (512,)], torch.float32,
+                [0.2, 0.1, 0.2, 0.01])
+    do = randn(g, (12, 512, 64))
+    ins = (qb, k, v, *w)
+    first = _grads(msa.mlp_softmax_attn(q, k, v, *w), ins, do)
+    second = _grads(msa.mlp_softmax_attn(q, k, v, *w), ins, do)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    want = _grads(ref.mlp_softmax_attn(q, k, v, *w), ins, do)
+    for a, b in zip(first, want):
+        assert_close(a, b, FLOAT_TOL[torch.float32])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["entropy_head", "ssd", "rg_lru"])
+def test_fronts_without_backward_refuse_grad(cuda, kernel):
+    """A kernel with no backward raises on an input that requires grad in
+    grad mode (its output would carry no gradient), and runs under
+    no_grad."""
+    from repro_torch.kernels import ops as kops
+    x = torch.randn(2, 16, 3, 8, device=cuda)
+    calls = {
+        "entropy_head": (kops.entropy_head, (torch.randn(4, 30, device=cuda),)),
+        "ssd": (kops.ssd_chunked, (x, -torch.rand(2, 16, 3, device=cuda),
+                                   torch.randn(2, 16, 8, device=cuda),
+                                   torch.randn(2, 16, 8, device=cuda))),
+        "rg_lru": (kops.rg_lru_scan, (torch.rand(2, 16, 8, device=cuda),
+                                      torch.randn(2, 16, 8, device=cuda)))}
+    fn, args = calls[kernel]
+    args = (args[0].clone().requires_grad_(),) + args[1:]
+    with pytest.raises(RuntimeError, match=f"{kernel} kernel has no backward"):
+        fn(*args)
+    with torch.no_grad():
+        fn(*args)
