@@ -143,9 +143,13 @@ result line):
      whose first gradient is below Adam's eps (ADAM_EPS). (8d) 8a's clear run
      resumed from its phase checkpoints: 2 phases, the same survivors and
      appraisal. Phase 1 also reports the backward kernels' registers, spills
-     (none at float32 Dh 64) and atomics (none); phase 2 holds them against
-     autograd of their plain versions (TOL, BF16_TOL), checks a second launch
-     bitwise and times them.
+     (none at float32 Dh 64) and atomics (none), and fails unless
+     flash_attn's backward shows HGMMA in all sixteen instantiations; phase
+     2 holds them against autograd of their plain versions (TOL, BF16_TOL),
+     flash_attn's also at S off its tiles, every Dh in both types, a group
+     of 10, a window whose first key tile is partial and inputs x 3, checks
+     a second launch bitwise and times them, flash_attn's beside SDPA's
+     forward and backward and its forward alone, in float32 and bf16.
 
 The last lines are the card's `nvidia-smi` name and power limit, one
 `{"kernels": [...]}` JSON line, and the result line
@@ -358,10 +362,10 @@ EH_ENTRIES = {f"{k} {t}": f"entropy_head_{k}_kernelI{m}E"
 EH_NO_SPILL = ("rows f32", "split f32")
 
 
-# the backward kernels: flash_attn's two passes and mlp_softmax_attn's
-# tile pass, bf16 and float32 at every Dh; the training path's (float32
-# Dh 64) not spilling; none holding an atomic (every sum in a fixed
-# order)
+# the backward kernels: flash_attn's two passes (on the tensor cores:
+# HGMMA in every instantiation) and mlp_softmax_attn's tile pass, bf16
+# and float32 at every Dh; the training path's (float32 Dh 64) not
+# spilling; none holding an atomic (every sum in a fixed order)
 FA_BWD_ENTRIES = {f"{k} {t} Dh {dh}": f"fa_bwd_{k}_kernelI{m}Li{dh}E"
                   for k in ("dq", "dkdv")
                   for t, m in (("bf16", "13__nv_bfloat16"), ("f32", "f"))
@@ -905,8 +909,9 @@ def phase_backward_kernels(seed: int) -> dict:
     shapes; the path cases timed host-issued and queued beside the plain
     backward versions (`ref.flash_attn_bwd`, `ref.mlp_softmax_attn_bwd`),
     the bound of `bwd_work` and, for flash_attn, SDPA's forward and
-    backward at the same shape and dtype (a yardstick, not on the
-    path)."""
+    backward at the same shape and dtype and its forward alone, whose
+    difference is SDPA's backward alone (yardsticks, not on the path);
+    flash_attn's path case is also timed in bf16."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attn as fa
@@ -944,10 +949,15 @@ def phase_backward_kernels(seed: int) -> dict:
 
     out = {}
     # flash_attn backward: (label, BH, S, Dh, group, dtype, causal,
-    # window, timed); (96, 512, 64) is M_g's finetune at BERT width (batch
-    # 8 x 12 heads), float32, bidirectional
+    # window, timed[, input scale]); (96, 512, 64) is M_g's finetune at
+    # BERT width (batch 8 x 12 heads), float32, bidirectional, also timed
+    # in bf16; the hard cases after the first nine put S off the tiles
+    # (the dq pass walks keys by 64, halved at Dh 128; the dk/dv pass
+    # queries by 32 in float32 and 64 in bf16), every Dh in both types,
+    # RecurrentGemma's group of 10, a window whose first key tile is
+    # partial, and scores of ~30 (inputs x 3: one tf32 pass misses TOL)
     res = out["flash_attn_bwd"] = {}
-    for (label, bh, s, dh, group, dt, causal, window, timed) in (
+    for (label, bh, s, dh, group, dt, causal, window, timed, *scale) in (
             ("path (M_g finetune)", 96, 512, 64, 1, f32, False, 0, True),
             ("ragged", 24, 100, 64, 1, f32, False, 0, False),
             ("causal", 24, 512, 64, 1, f32, True, 0, False),
@@ -957,9 +967,26 @@ def phase_backward_kernels(seed: int) -> dict:
             ("Dh 128", 8, 200, 128, 1, f32, False, 0, False),
             ("Dh 16", 8, 70, 16, 1, f32, False, 0, False),
             ("bf16", 24, 512, 64, 1, bf16, False, 0, False),
-            ("bf16 Dh 128 causal", 6, 67, 128, 3, bf16, True, 20, False)):
-        q = randn((bh, s, dh), dt, grad=True)
-        k, v = (randn((bh // group, s, dh), dt, grad=True) for _ in "kv")
+            ("bf16 Dh 128 causal", 6, 67, 128, 3, bf16, True, 20, False),
+            ("path bf16", 96, 512, 64, 1, bf16, False, 0, True),
+            ("S 1", 8, 1, 64, 1, f32, False, 0, False),
+            ("S 63 causal", 8, 63, 64, 1, f32, True, 0, False),
+            ("S 65", 8, 65, 64, 1, f32, False, 0, False),
+            ("S 300 causal", 8, 300, 64, 1, f32, True, 0, False),
+            ("Dh 32", 8, 200, 32, 1, f32, False, 0, False),
+            ("Dh 128 causal S 300", 4, 300, 128, 1, f32, True, 0, False),
+            ("bf16 Dh 16", 8, 90, 16, 1, bf16, False, 0, False),
+            ("bf16 Dh 32 causal", 8, 90, 32, 1, bf16, True, 0, False),
+            ("bf16 Dh 128 S 300", 4, 300, 128, 1, bf16, False, 0, False),
+            ("group 10", 20, 512, 64, 10, f32, True, 0, False),
+            ("window 70", 12, 300, 64, 1, f32, True, 70, False),
+            ("inputs x3", 24, 512, 64, 1, f32, False, 0, False, 3.0),
+            ("inputs x3 causal window 70 group 2", 12, 300, 64, 2, f32,
+             True, 70, False, 3.0)):
+        sc = scale[0] if scale else 1.0
+        q = randn((bh, s, dh), dt, scale=sc, grad=True)
+        k = randn((bh // group, s, dh), dt, scale=sc, grad=True)
+        v = randn((bh // group, s, dh), dt, grad=True)
         do = randn((bh, s, dh), dt)
         got = torch.autograd.grad(
             fa.flash_attn(q, k, v, causal=causal, window=window),
@@ -970,17 +997,21 @@ def phase_backward_kernels(seed: int) -> dict:
         tag = str(dt)[6:]
         check("flash_attn backward", f"{label} ({bh},{s},{dh}) group "
               f"{group} {tag}{' causal' if causal else ''}"
-              f"{f' window {window}' if window else ''}", got, want,
+              f"{f' window {window}' if window else ''}"
+              f"{f' inputs x{sc:g}' if sc != 1 else ''}", got, want,
               TOL if dt == f32 else BF16_TOL, res)
-        if label not in ("path (M_g finetune)", "group 3"):
+        if label not in ("path (M_g finetune)", "group 3", "path bf16"):
             continue
         q, k, v = q.detach(), k.detach(), v.detach()
         o = fa.launch(q, k, v, causal, window)
-        repeat("flash_attn backward", label,
-               lambda: fa.launch_bwd(q, k, v, o, do, causal, window), res)
+        if label != "path bf16":
+            repeat("flash_attn backward", label,
+                   lambda: fa.launch_bwd(q, k, v, o, do, causal, window),
+                   res)
         if not timed:
             continue
-        # SDPA's forward and backward on the same (B, heads, S, Dh)
+        # SDPA's forward and backward on the same (B, heads, S, Dh) and
+        # dtype
         qs, ks, vs = (x.reshape(-1, 12, s, dh).clone().requires_grad_()
                       for x in (q, k, v))
         dos = do.reshape(-1, 12, s, dh)
@@ -990,6 +1021,10 @@ def phase_backward_kernels(seed: int) -> dict:
                 F.scaled_dot_product_attention(qs, ks, vs), (qs, ks, vs),
                 dos)
 
+        def sdpa_fwd():
+            with torch.no_grad():
+                return F.scaled_dot_product_attention(qs, ks, vs)
+
         def plain():
             return ref.flash_attn_bwd(q, k, v, o, do, causal=False)
         t = {"ms": cuda_ms(fa.launch_bwd, q, k, v, o, do, False, reps=20),
@@ -998,7 +1033,12 @@ def phase_backward_kernels(seed: int) -> dict:
              "plain_ms": cuda_ms(plain, reps=5),
              "library_ms": cuda_ms(sdpa_fwd_bwd, reps=20),
              "library_device_ms": cuda_ms(sdpa_fwd_bwd, reps=20,
-                                          queued=True)}
+                                          queued=True),
+             "library_fwd_device_ms": cuda_ms(sdpa_fwd, reps=20,
+                                              queued=True)}
+        # SDPA's backward alone: its forward and backward less its forward
+        t["library_bwd_device_ms"] = (t["library_device_ms"]
+                                      - t["library_fwd_device_ms"])
         # the tensor cores' rate for the type, as the forward's bound;
         # the CUDA cores' 67 T/s beside it
         ops, nbytes = fa.bwd_work(q.shape, k.shape[0], dt, causal, window)
@@ -1006,15 +1046,20 @@ def phase_backward_kernels(seed: int) -> dict:
             nbytes, ops, PEAK_BF16_S if dt == bf16 else PEAK_3XTF32_S)
         t["cuda_core_bound_ms"] = _bound_ms(nbytes, ops)[0]
         t["bound_share"] = t["bound_ms"] / t["device_ms"]
-        t["shape"] = f"({bh},{s},{dh}) f32 bidirectional"
-        res.update(t)
+        t["shape"] = f"({bh},{s},{dh}) {tag} bidirectional"
+        if dt == bf16:
+            res["bf16"] = t
+        else:
+            res.update(t)
         log(f"[2] flash_attn backward {t['shape']}: {t['ms']:.4f} ms "
             f"(device {t['device_ms']:.4f}), plain {t['plain_ms']:.4f} ms, "
             f"SDPA forward + backward {t['library_ms']:.4f} ms (device "
-            f"{t['library_device_ms']:.4f}), bound {t['bound_ms']:.4f} ms "
-            f"({t['bound_by']}, {100 * t['bound_share']:.1f} % of it in "
-            f"device time; CUDA-core bound {t['cuda_core_bound_ms']:.4f} "
-            f"ms)")
+            f"{t['library_device_ms']:.4f}; forward alone "
+            f"{t['library_fwd_device_ms']:.4f}, so backward alone "
+            f"{t['library_bwd_device_ms']:.4f}), bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']}, "
+            f"{100 * t['bound_share']:.1f} % of it in device time; "
+            f"CUDA-core bound {t['cuda_core_bound_ms']:.4f} ms)")
 
     # mlp_softmax_attn backward: (label, BH, Sq, Skv, Dh, hid, group,
     # dtype, timed); in-vivo at batch 8: phase 2's <3,12,16> gives BH 96,
@@ -2388,7 +2433,7 @@ def main(argv=None) -> int:
     lru_build = phase_sass("rg_lru", lru_entries_, lru_entries_,
                            forbid=NO_ATOMICS)
     fa_bwd_build = phase_sass("flash_attn_bwd", FA_BWD_ENTRIES,
-                              FA_BWD_NO_SPILL, forbid=NO_ATOMICS)
+                              FA_BWD_NO_SPILL, "HGMMA", forbid=NO_ATOMICS)
     msa_bwd_build = phase_sass("mlp_softmax_attn_bwd", MSA_BWD_ENTRIES,
                                MSA_BWD_NO_SPILL, forbid=NO_ATOMICS)
     kern = phase_kernels(args.seed)
@@ -2527,9 +2572,11 @@ def main(argv=None) -> int:
                                  "dk/dv), both counted"}
                if name == "flash_attn_bwd" else {}),
             **{x: k[x] for x in ("bf16_max_abs_err", "device_ms",
-                                 "library_device_ms", "bound_share",
+                                 "library_device_ms",
+                                 "library_fwd_device_ms",
+                                 "library_bwd_device_ms", "bound_share",
                                  "cuda_core_bound_ms", "bitwise_repeat",
-                                 "phase1") if x in k}})
+                                 "phase1", "bf16") if x in k}})
     log(f"[5] clear-vs-MPC max abs error: {json.dumps(errs)}")
     log(f"total {time.time() - t_all:.1f} s")
     print(smi)

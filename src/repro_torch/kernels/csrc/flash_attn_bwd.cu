@@ -11,360 +11,760 @@
 // autograd graph, so its gradient needs a kernel of its own (the wrapper
 // wraps both in a torch.autograd.Function).
 //
-// Design: FlashAttention-2's backward on the CUDA cores, no S x S tensor
-// in memory, in two passes, neither with atomics:
-// - fa_bwd_dq_kernel, one block a 64-row query tile of a q head: D_i =
-//   rowsum(do * o); the row log-sum-exp lse_i of the scores, in a first
-//   walk over the key tiles (the forward does not write it); then a
-//   second walk recomputing P = exp(S - lse), dP = do V^T,
-//   dS = P * (dP - D) and dq += dS K * scale. It writes dq, lse and D.
-// - fa_bwd_dkdv_kernel, one block a 64-row key tile of a kv head: for
-//   each q head of the group in order, each query tile: P^T, dP^T and
-//   dS^T recomputed from the saved lse and D, dv += P^T do and
-//   dk += dS^T q * scale. So dk and dv sum over a kv head's group in a
-//   fixed order and a second launch is bitwise equal.
-// Both recompute S with the same fused multiply-add chain over DH and one
-// unfused product by scale, so P agrees bitwise between the passes.
-// Tiles: 256 threads; a thread owns four rows and every sixteenth column
-// of a 64-wide product (4 x 4 of a score tile, 4 x DH/16 of a gradient
-// tile); operands in float32 shared memory, rows padded by one float so
-// the sixteen column owners of a warp hit sixteen banks.
+// Bound on the H100 (`flash_attn.bwd_work`): operations. Five products of
+// Sq x Skv x DH multiply-adds over the kept pairs (S, dP, dq, dk, dv); in
+// float32 at 3xTF32's 495 / 3 = 165 TFLOP/s (three tf32 products for each
+// float32 one), in bf16 at 989. M_g's finetune, (96, 512, 64) float32
+// bidirectional, does 16.1 GFLOP: 0.0976 ms; it reads and writes 25 MB
+// (7.5 us at 3.35 TB/s). This kernel does seven products, not five: S and
+// dP once in each pass.
 //
-// Bound on the H100: operations. Five products of Sq x Skv x DH
-// multiply-adds (S, dP, dq, dk, dv) over the kept pairs, two operations
-// each, on the CUDA cores' 67 TFLOP/s; this kernel does seven (S three
-// times, dP twice), and shared-memory reads (half an operand a
-// multiply-add) hold it below that rate. Making it fast (wgmma, the
-// tensor cores) is later work.
-#include <stdint.h>
+// Design: FlashAttention-2's backward on Hopper's tensor cores (`wgmma`,
+// wgmma_ops.cuh; tiles and descriptors from hopper_tile.cuh, as the
+// forward in flash_attn.cu), no S x S tensor in memory, in two launches,
+// neither with atomics:
+// - fa_bwd_dq_kernel: a block of two warpgroups, each owning 64 query rows
+//   (Q and dO resident in shared memory), walks the key tiles once. D =
+//   rowsum(do * o) comes first, from device memory. Each key tile: S = Q
+//   K^T and dP = dO V^T (both operands K-major over DH), then, on S's
+//   accumulator fragments, the online row max m and sum l (as the
+//   forward's), P~ = exp2(S * scale * log2 e - m) and dS~ = P~ * (dP - D),
+//   dq~ rescaled by the change of m and dq~ += dS~ K with dS~ in registers
+//   as the A operand. At the end dq = dq~ * scale / l, and each row's
+//   lse = m + log2 l (base 2) and D are written for the second launch. One
+//   walk, not two: S is formed once in this pass, not again for the lse.
+// - fa_bwd_dkdv_kernel: a block of two warpgroups, each owning 64 keys (K
+//   and V resident), walks the group's q heads, and each one's query
+//   tiles, in order: S^T = K Q^T and dP^T = V dO^T, so that P^T = exp2(S^T
+//   * scale * log2 e - lse) and dS^T = P^T * (dP^T - D) come out in the
+//   accumulator layout that is the A operand's, then dv += P^T dO and dk
+//   += dS^T Q. dk and dv sum over a kv head's group in a fixed order, so a
+//   second launch is bitwise equal.
+// - bf16: the S products are bf16 (ss, K-major); P^T, dS^T and dS~ are
+//   rounded to bf16 in registers, and the B operands of the products that
+//   contract over keys or queries are the same tiles read MN-major (the
+//   transpose bit), as the forward's P V.
+// - float32 (3xTF32): every operand x splits into hi = tf32(x) and lo =
+//   tf32(x - hi) and a product is lo hi + hi lo + hi hi (the forward's
+//   scheme). tf32 `wgmma` takes K-major operands only, so the B operands
+//   that contract over keys or queries are transposed copies (K^T in the
+//   dq pass, Q^T and dO^T in the dk/dv pass), written by the split from
+//   the landed tile, hi and lo, with the columns permuted within groups
+//   of 8 (element 2c at column c, 2c + 1 at c + 4): the tf32 A fragment
+//   holds columns (c, c + 4) where the accumulator holds (2c, 2c + 1), so
+//   the product sums over the same pairs.
+// - P agrees between the passes: both form S from the same split and the
+//   same three tf32 products of the same values in the same k-order (dq:
+//   Q lo K hi, Q hi K lo, Q hi K hi; dk/dv: K hi Q lo, K lo Q hi, K hi Q
+//   hi), then one unfused product by scale * log2 e (__fmul_rn). The dq
+//   pass normalises by l at the end where the dk/dv pass subtracts the
+//   lse, so its P differs from the other's by rounding only.
+// - float32 sums: the tensor cores' accumulation loses accuracy over long
+//   chains, so at Dh <= 64 each step's dq, dk and dv products start a
+//   fresh accumulator, which the next step's wait completes and adds to
+//   the float32 sum in registers (STEP_SUM). Against float64 at M_g's
+//   case, with every step chained into one accumulator (up to 192 tf32
+//   products) the gradients' RMS error was 4.3e-6 of their RMS, with
+//   per-step sums 1.3e-6, the plain float32 version's 0.57e-6
+//   (tools/flash_attn_bwd_ab.py's case, NVIDIA H100 80GB HBM3 at 700 W);
+//   adding the dropped lo lo product changed nothing. Three Adam steps
+//   amplify that error near Adam's eps: chip_smoke.py's phase 8c gate.
+// - Column tiles land by `cp.async` on an mbarrier (as the forward's). In
+//   bf16 they stream through two stages: step i waits for the products of
+//   step i - 1, then loads tile i + 1 into the stage those read. In
+//   float32 one stage fits beside the resident tiles and the transposed
+//   copies: its tiles are read only by the S and dP products, so tile i +
+//   1 is loaded as soon as those end in every warpgroup and lands under
+//   step i's softmax and register-A products; the split of tile i + 1
+//   waits for those products, which read the copies it overwrites.
+// - Wholly masked tiles are skipped: the dq pass ends at its last row's
+//   diagonal and starts at the first row's window; the dk/dv pass starts
+//   at its first key's diagonal and ends at the last query whose window
+//   holds its last key. Masked scores are -inf before the exp (P = 0).
+//   Rows past S are zero-filled by the copies, masked (columns) and never
+//   stored (rows).
+// Shared memory at float32 Dh 64: the dq pass 224 KB (Q, dO and their lo
+// halves for 128 rows 128 KB; 64 keys of K, V and their lo halves 64 KB;
+// K^T and its lo half 32 KB), the dk/dv pass 193 KB (K, V and lo halves
+// for 128 keys 128 KB; 32 queries of Q, dO, lo halves, lse and D 33 KB;
+// Q^T, dO^T and lo halves 32 KB). One warpgroup a block at float32 Dh
+// 128, and column tiles halved there, for the same reason.
+// What holds it back (tools/flash_attn_bwd_ab.py, NVIDIA H100 80GB HBM3 at
+// 700 W, M_g's case float32: 0.42 ms, 23 % of the bound): each step is a
+// chain of the split, the S and dP products, the softmax and the register
+// products, with two warpgroups to overlap it; removing any one of them
+// saves 7-23 %, none dominates (PERF.md). Later work: a producer warp
+// that loads and splits while ping-ponged consumers compute.
+#include <type_traits>
 
 #include "float_tile.cuh"
+#include "hopper_tile.cuh"
+#include "wgmma_ops.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int BT = 64;                 // rows a tile (queries and keys)
+using namespace hopper;
 
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+// Tiles (tests/test_torch_flash_bwd_tiles.py reads these lines): ROWS rows
+// a warpgroup owns (one wgmma M: queries in the dq pass, keys in the dk/dv
+// pass); *_BN the column tile a step walks (keys in the dq pass, queries
+// in the dk/dv pass), halved at Dh 128; *_NWG warpgroups a block, 1 at
+// float32 Dh 128.
+constexpr int ROWS = 64;
+constexpr int DQ_BN_BF16 = 64;
+constexpr int DQ_BN_F32 = 64;
+constexpr int DKDV_BN_BF16 = 64;
+constexpr int DKDV_BN_F32 = 32;
+constexpr int DQ_NWG = 2;
+constexpr int DKDV_NWG = 2;
+constexpr int WG = 128;          // threads of a warpgroup
+
+template <typename T, int DH, bool DQ>
+struct Cfg {
+  static constexpr bool F32 = std::is_same<T, float>::value;
+  static constexpr int E = sizeof(T);
+  static constexpr bool BIG = F32 && DH >= 128;
+  static constexpr int NWG = BIG ? 1 : DQ ? DQ_NWG : DKDV_NWG;
+  static constexpr int BN = (DQ ? (F32 ? DQ_BN_F32 : DQ_BN_BF16)
+                                : (F32 ? DKDV_BN_F32 : DKDV_BN_BF16)) /
+                           (DH >= 128 ? 2 : 1);
+  static constexpr int THREADS = WG * NWG;
+  static constexpr int KS = 32 / E;          // elements a k-step: 32 B
+  // float32: each step's register-A products into a fresh accumulator,
+  // added to the running sum on the CUDA cores (where registers allow)
+  static constexpr bool STEP_SUM = F32 && DH <= 64;
+  static constexpr int NTR = DQ ? 1 : 2;     // float32 transposed copies
+  using RT = Tile<ROWS, DH * E>;   // row side: dq Q, dO; dk/dv K, V
+  using CT = Tile<BN, DH * E>;     // column side: dq K, V; dk/dv Q, dO
+  using TT = Tile<DH, BN * 4>;     // float32 column side transposed
+  static constexpr int R_B = align1024(RT::BYTES);
+  static constexpr int C_B = align1024(CT::BYTES);
+  static constexpr int T_B = align1024(TT::BYTES);
+  // row side: A1 x NWG | A2 x NWG | [their lo halves, A_LO further]
+  static constexpr int A1 = 0, A2 = NWG * R_B, A_LO = 2 * NWG * R_B;
+  static constexpr int ST0 = F32 ? 2 * A_LO : A_LO;
+  // a tile stage: B1 | B2 | [B1 lo | B2 lo] | (lse, D in two halves), B_i
+  // lo 2 C_B past B_i; NB of them: two in bf16, whose register-A products
+  // read the tiles, one in float32, whose products read the transposed
+  // copies at C1 (K^T or Q^T, then dO^T), each with its lo T_B further
+  static constexpr int B1 = 0, B2 = C_B, LD = (F32 ? 4 : 2) * C_B;
+  static constexpr int STAGE = align1024(LD + (DQ ? 0 : 16 * BN));
+  static constexpr int NB = F32 ? 1 : 2;
+  static constexpr int C0 = ST0 + NB * STAGE;
+  static constexpr int C1 = C0;
+  static constexpr int BARS = C0 + (F32 ? 2 * NTR * T_B : 0);
+  static constexpr int BYTES = BARS + 8 * NB + 1024;       // + alignment
+  static_assert(BYTES <= 232448, "tiles do not fit in shared memory");
+  static_assert(BN % 16 == 0 || (F32 && BN % 8 == 0), "bad column tile");
+};
+
+// the position of column `j` in a float32 transposed row: 2c and 2c + 1
+// of each group of 8 at c and c + 4 (the tf32 A fragment's)
+__device__ __forceinline__ int vt_col(int j) {
+  return (j & ~7) | ((j & 1) << 2) | ((j & 7) >> 1);
 }
 
-struct Mask {
-  int sq, skv, causal, window;
-  __device__ __forceinline__ bool keep(int i, int j) const {
-    if (i >= sq || j >= skv) return false;
-    if (!causal) return true;
-    return j <= i && (window == 0 || j > i - window);
+// NR rows of DH elements from row r0 of x (nrows rows) into a tile; rows
+// past the end are zero-filled
+template <typename T, int DH, typename TL, int NR, int THREADS>
+__device__ __forceinline__ void load_rows(uint32_t dst, const T* x, int r0,
+                                          int nrows) {
+  constexpr int CH = DH * (int)sizeof(T) / 16;   // 16-byte chunks a row
+  for (int i = threadIdx.x; i < NR * CH; i += THREADS) {
+    const int r = i / CH, cb = (i % CH) * 16;
+    const bool ok = r0 + r < nrows;
+    const char* src = reinterpret_cast<const char*>(
+                          x + (ok ? (long long)(r0 + r) * DH : 0)) + cb;
+    cp_async16(dst + TL::offset(r, cb), src, ok);
   }
-  // key tiles [first, last] that hold a kept key of query rows [q0, q1)
-  __device__ __forceinline__ void key_tiles(int q0, int q1, int& first,
-                                            int& last) const {
-    first = 0;
-    last = (skv - 1) / BT;
-    if (causal) {
-      last = min(last, (min(q1, sq) - 1) / BT);
-      if (window > 0) first = max(0, q0 - window + 1) / BT;
+}
+
+// float32: x -> hi = tf32(x) in place, lo = tf32(x - hi) `lo` bytes further,
+// over `bytes` bytes (the row side, whose layout the split keeps)
+template <int THREADS>
+__device__ __forceinline__ void split_flat(char* buf, int lo, int bytes) {
+  float4* h = reinterpret_cast<float4*>(buf);
+  float4* l = reinterpret_cast<float4*>(buf + lo);
+  for (int i = threadIdx.x; i < bytes / 16; i += THREADS) {
+    const float4 x = h[i];
+    const float4 y = make_float4(tf32(x.x), tf32(x.y), tf32(x.z), tf32(x.w));
+    h[i] = y;
+    l[i] = make_float4(tf32(x.x - y.x), tf32(x.y - y.y), tf32(x.z - y.z),
+                       tf32(x.w - y.w));
+  }
+}
+
+// float32: a landed column tile at `x` (NR rows of DH) -> hi in place, lo
+// `lo` bytes further, and both transposed into the tiles at `t` and `t +
+// t_lo` (row d, column vt_col(r)). A warp takes 32 rows of one 16-byte
+// chunk, so the transposed stores of a warp fill one row's 32 banks.
+template <int NR, int DH, int THREADS>
+__device__ __forceinline__ void split_transpose(char* x, int lo, char* t,
+                                                int t_lo) {
+  using XT = Tile<NR, DH * 4>;
+  using TT = Tile<DH, NR * 4>;
+  for (int i = threadIdx.x; i < NR * DH / 4; i += THREADS) {
+    const int r = i % NR, d = i / NR * 4;
+    const uint32_t off = XT::offset(r, d * 4);
+    const float4 v = *reinterpret_cast<const float4*>(x + off);
+    const float h[4] = {tf32(v.x), tf32(v.y), tf32(v.z), tf32(v.w)};
+    const float l[4] = {tf32(v.x - h[0]), tf32(v.y - h[1]), tf32(v.z - h[2]),
+                        tf32(v.w - h[3])};
+    *reinterpret_cast<float4*>(x + off) = make_float4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<float4*>(x + lo + off) =
+        make_float4(l[0], l[1], l[2], l[3]);
+    const int cb = vt_col(r) * 4;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const uint32_t to = TT::offset(d + e, cb);
+      *reinterpret_cast<float*>(t + to) = h[e];
+      *reinterpret_cast<float*>(t + t_lo + to) = l[e];
     }
   }
-  // query tiles [first, last] that hold a query keeping a key of rows
-  // [k0, k1)
-  __device__ __forceinline__ void query_tiles(int k0, int k1, int& first,
-                                              int& last) const {
-    first = 0;
-    last = (sq - 1) / BT;
-    if (causal) {
-      first = k0 / BT;
-      if (window > 0) last = min(last, (min(k1, skv) - 1 + window - 1) / BT);
+}
+
+// X = A B^T over DH, for the row tile at `a` and the column tile at `b`
+// (K-major both; N = BN columns). float32 issues the three tf32 products
+// in the order of their values, which the two passes share: Q lo K hi, Q
+// hi K lo, Q hi K hi in the dq pass (A = Q), and from the other side in
+// the dk/dv pass (A = K): K hi Q lo, K lo Q hi, K hi Q hi.
+template <typename C, int DH, bool DQ>
+__device__ __forceinline__ void issue_ss(float (&x)[C::BN / 2], uint32_t a,
+                                         uint32_t b) {
+  constexpr int WA = C::RT::W, WB = C::CT::W;
+#pragma unroll
+  for (int kk = 0; kk < DH / C::KS; ++kk) {
+    const int cb = kk * 32;
+    const uint64_t da = desc(a + C::RT::start(0, cb), 16, 8 * WA, WA);
+    const uint64_t db = desc(b + C::CT::start(0, cb), 16, 8 * WB, WB);
+    if constexpr (C::F32) {
+      const uint64_t dal = desc(a + C::A_LO + C::RT::start(0, cb), 16,
+                                8 * WA, WA);
+      const uint64_t dbl = desc(b + 2 * C::C_B + C::CT::start(0, cb), 16,
+                                8 * WB, WB);
+      if constexpr (DQ) {
+        Wgmma<C::BN>::ss_tf32(x, dal, db, kk > 0);
+        Wgmma<C::BN>::ss_tf32(x, da, dbl, 1);
+      } else {
+        Wgmma<C::BN>::ss_tf32(x, da, dbl, kk > 0);
+        Wgmma<C::BN>::ss_tf32(x, dal, db, 1);
+      }
+      Wgmma<C::BN>::ss_tf32(x, da, db, 1);
+    } else {
+      Wgmma<C::BN>::ss_bf16(x, da, db, kk > 0);
+    }
+  }
+}
+
+// an accumulator tile (64 x BN) as wgmma A fragments: bf16 hi only (a
+// k-step of 16 columns is n-blocks 2t, 2t + 1, whose accumulator pairs are
+// the fragment's); float32 hi and lo (a k-step of 8 columns is n-block t:
+// columns 2c, 2c + 1 stand for the fragment's c, c + 4, as the transposed
+// copies are stored)
+template <typename C>
+struct Frag {
+  static constexpr int NK = C::F32 ? C::BN / 8 : C::BN / 16;
+  uint32_t hi[NK][4];
+  uint32_t lo[C::F32 ? NK : 1][4];
+
+  __device__ __forceinline__ void pack(const float (&p)[C::BN / 2]) {
+#pragma unroll
+    for (int t = 0; t < NK; ++t)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if constexpr (C::F32) {
+          const float x = p[4 * t + (i >> 1) + 2 * (i & 1)], h = tf32(x);
+          hi[t][i] = __float_as_uint(h);
+          lo[t][i] = __float_as_uint(tf32(x - h));
+        } else {
+          hi[t][i] = pack_bf16(p[8 * t + 2 * i], p[8 * t + 2 * i + 1]);
+        }
+      }
+  }
+  __device__ __forceinline__ void fence() {
+#pragma unroll
+    for (int t = 0; t < NK; ++t) fence_regs(hi[t]);
+    if constexpr (C::F32) {
+#pragma unroll
+      for (int t = 0; t < NK; ++t) fence_regs(lo[t]);
     }
   }
 };
 
-// rows [row0, row0 + BT) of a (rows, DH) array into shared memory as
-// float32, row stride DH + 1; rows past `rows` are zero
-template <typename T, int DH>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int row0,
-                                          int rows) {
-  for (int e = threadIdx.x; e < BT * DH; e += THREADS) {
-    const int r = e / DH, d = e % DH;
-    dst[r * (DH + 1) + d] =
-        row0 + r < rows ? ftile::to_f(src[(size_t)(row0 + r) * DH + d]) : 0.f;
-  }
-}
-
-// out[a][b] = sum_d A[r_a][d] * B[c_b][d] over d in order, for the
-// thread's rows r_a = ty * 4 + a and columns c_b = tx + 16 b, both
-// operands row-major with stride DH + 1
-template <int DH>
-__device__ __forceinline__ void dot_tile(float (&out)[4][4], const float* A,
-                                         const float* B, int ty, int tx) {
+// acc += F B over the BN columns, B the column tile at `b` (bf16, read
+// MN-major: its rows are the k) or its transposed copy at `t` (float32,
+// K-major, lo T_B further): lo hi + hi lo + hi hi
+template <typename C, int DH>
+__device__ __forceinline__ void issue_rs(float (&acc)[DH / 2], Frag<C>& f,
+                                         uint32_t b, uint32_t t) {
 #pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) out[a][b] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < DH; ++d) {
-    float x[4], y[4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) x[a] = A[(ty * 4 + a) * (DH + 1) + d];
-#pragma unroll
-    for (int b = 0; b < 4; ++b) y[b] = B[(tx + 16 * b) * (DH + 1) + d];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) out[a][b] = fmaf(x[a], y[b], out[a][b]);
-  }
-}
-
-// acc[a][c] += sum_j P[r_a][j] * B[j][tx + 16 c], P (BT x BT) with stride
-// BT + 1, B (BT x DH) with stride DH + 1
-template <int DH>
-__device__ __forceinline__ void acc_tile(float (&acc)[4][DH / 16],
-                                         const float* P, const float* B,
-                                         int ty, int tx) {
-#pragma unroll 4
-  for (int j = 0; j < BT; ++j) {
-    float x[4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) x[a] = P[(ty * 4 + a) * (BT + 1) + j];
-#pragma unroll
-    for (int c = 0; c < DH / 16; ++c) {
-      const float y = B[j * (DH + 1) + tx + 16 * c];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) acc[a][c] = fmaf(x[a], y, acc[a][c]);
+  for (int s = 0; s < Frag<C>::NK; ++s) {
+    if constexpr (C::F32) {
+      constexpr int WT = C::TT::W;
+      const int cb = s * 32;
+      const uint64_t dt = desc(t + C::TT::start(0, cb), 16, 8 * WT, WT);
+      const uint64_t dtl = desc(t + C::T_B + C::TT::start(0, cb), 16,
+                                8 * WT, WT);
+      Wgmma<DH>::rs_tf32(acc, f.lo[s], dt, !(C::STEP_SUM && s == 0));
+      Wgmma<DH>::rs_tf32(acc, f.hi[s], dtl, 1);
+      Wgmma<DH>::rs_tf32(acc, f.hi[s], dt, 1);
+    } else {
+      constexpr int WC = C::CT::W;
+      Wgmma<DH>::rs_bf16_bmn(
+          acc, f.hi[s],
+          desc(b + C::CT::start(16 * s, 0), C::CT::PANEL, 8 * WC, WC), 1);
     }
   }
 }
 
-// the sum over the 16 lanes that share a row (xor within a half-warp)
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
-
-template <int DH>
-constexpr size_t dq_smem() {
-  return (size_t)(4 * BT * (DH + 1) + BT * (BT + 1)) * sizeof(float);
-}
-
-template <int DH>
-constexpr size_t dkdv_smem() {
-  return (size_t)(4 * BT * (DH + 1) + 2 * BT * (BT + 1) + 2 * BT) *
-         sizeof(float);
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
 template <typename T, int DH>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(Cfg<T, DH, true>::THREADS, 1)
 fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const T* __restrict__ o,
                  const T* __restrict__ dout, T* __restrict__ dq,
                  float* __restrict__ lse_out, float* __restrict__ dsum_out,
-                 int group, Mask mask, float scale) {
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* dOs = Qs + BT * (DH + 1);
-  float* Ks = dOs + BT * (DH + 1);
-  float* Vs = Ks + BT * (DH + 1);
-  float* dSs = Vs + BT * (DH + 1);
-  const int bh = blockIdx.y, kvh = bh / group;
-  const int q0 = blockIdx.x * BT;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const size_t qbase = (size_t)bh * mask.sq * DH;
-  const size_t kbase = (size_t)kvh * mask.skv * DH;
-  load_tile<T, DH>(Qs, q + qbase, q0, mask.sq);
-  load_tile<T, DH>(dOs, dout + qbase, q0, mask.sq);
+                 int nbh, int nqb, int group, int sq, int skv, int causal,
+                 int window, float scale, float scale_log2) {
+  using C = Cfg<T, DH, true>;
+  constexpr int BN = C::BN;
+  extern __shared__ char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sm = (raw + 1023) & ~1023u;
+  const uint32_t bars = sm + C::BARS;
+  char* const gsm = smem_raw + (sm - raw);     // generic view of `sm`
+
+  // heaviest (last) query blocks first, heads innermost; warpgroup `wg`
+  // owns rows [qw, qw + 64) of the block's [q0, q0 + 64 NWG)
+  const int bh = blockIdx.x % nbh;
+  const int q0 = (nqb - 1 - blockIdx.x / nbh) * ROWS * C::NWG;
+  const long long qoff = (long long)bh * sq * DH;
+  const T* kb = k + (long long)(bh / group) * skv * DH;
+  const T* vb = v + (long long)(bh / group) * skv * DH;
+  const int wg = threadIdx.x / WG, qw = q0 + ROWS * wg;
+  const int warp = threadIdx.x % WG / 32, lane = threadIdx.x % 32;
+  const int row0 = warp * 16 + lane / 4;     // and row0 + 8
+  const int c2 = 2 * (lane % 4);             // and c2 + 1, in each 8
+
+  const int kend = causal ? min(skv, q0 + ROWS * C::NWG) : skv;
+  const int kbeg = window > 0 ? max(0, q0 - window + 1) / BN * BN : 0;
+  const int nt = kend > kbeg ? (kend - kbeg + BN - 1) / BN : 0;
+
+  // D = rowsum(do * o) for rows row0 and row0 + 8: each of a row's four
+  // lanes sums a quarter of it
+  float dsum[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = qw + row0 + 8 * h;
+    float s = 0.f;
+    if (i < sq) {
+      const long long at = qoff + (long long)i * DH + (lane % 4) * (DH / 4);
+#pragma unroll
+      for (int d = 0; d < DH / 4; ++d)
+        s = fmaf(ftile::to_f(dout[at + d]), ftile::to_f(o[at + d]), s);
+    }
+    s += __shfl_xor_sync(0xffffffffu, s, 1);
+    s += __shfl_xor_sync(0xffffffffu, s, 2);
+    dsum[h] = s;
+  }
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::NB; ++s) mbar_init(bars + 8 * s, C::THREADS);
+    fence_mbar_init();
+  }
   __syncthreads();
 
-  // D_i = rowsum(do * o)
-  float dsum[4];
+  // dq~, and (STEP_SUM) the last step's dS~ K, which the wait at the top
+  // of the next step completes and folds in
+  float acc[DH / 2], stp[DH / 2];
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int i = q0 + ty * 4 + a;
-    float s = 0.f;
-    if (i < mask.sq)
+  for (int i = 0; i < DH / 2; ++i) acc[i] = stp[i] = 0.f;
+  auto fold = [&] {
+    fence_regs(acc);
+    fence_regs(stp);
+    if constexpr (C::STEP_SUM) {
 #pragma unroll
-      for (int c = 0; c < DH / 16; ++c)
-        s = fmaf(dOs[(ty * 4 + a) * (DH + 1) + tx + 16 * c],
-                 ftile::to_f(o[qbase + (size_t)i * DH + tx + 16 * c]), s);
-    dsum[a] = row_sum(s);
+      for (int i = 0; i < DH / 2; ++i) acc[i] += stp[i];
+    }
+  };
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  Frag<C> f;
+
+  auto load_stage = [&](int it) {
+    const int st = it % C::NB, k0 = kbeg + it * BN;
+    const uint32_t sb = sm + C::ST0 + st * C::STAGE;
+    load_rows<T, DH, typename C::CT, BN, C::THREADS>(sb + C::B1, kb, k0, skv);
+    load_rows<T, DH, typename C::CT, BN, C::THREADS>(sb + C::B2, vb, k0, skv);
+    cp_async_arrive(bars + 8 * st);
+  };
+
+  // no key, no tile: dq is 0
+  if (nt > 0) {
+    // Q and dO join stage 0's barrier
+    for (int w = 0; w < C::NWG; ++w) {
+      load_rows<T, DH, typename C::RT, ROWS, C::THREADS>(
+          sm + C::A1 + w * C::R_B, q + qoff, q0 + ROWS * w, sq);
+      load_rows<T, DH, typename C::RT, ROWS, C::THREADS>(
+          sm + C::A2 + w * C::R_B, dout + qoff, q0 + ROWS * w, sq);
+    }
+    for (int s = 0; s < C::NB && s < nt; ++s) load_stage(s);
+    mbar_wait(bars, 0);
+    if constexpr (C::F32)
+      split_flat<C::THREADS>(gsm + C::A1, C::A_LO, C::A_LO);
+    float zero[BN / 2] = {};
+    f.pack(zero);                  // defined values for the first fence
+
+    for (int it = 0; it < nt; ++it) {
+      const int st = it % C::NB, k0 = kbeg + it * BN;
+      const uint32_t sb = sm + C::ST0 + st * C::STAGE;
+      char* const gsb = gsm + C::ST0 + st * C::STAGE;
+      // float32: dq~ += dS~ K of the step before reads K^T, so that
+      // product ends (in every warpgroup) before the split writes it
+      if constexpr (C::F32) {
+        wgmma_wait<0>();
+        fold();
+        f.fence();
+        __syncthreads();
+      }
+      mbar_wait(bars + 8 * st, (it / C::NB) & 1);
+      if constexpr (C::F32) {
+        split_transpose<BN, DH, C::THREADS>(gsb + C::B1, 2 * C::C_B,
+                                            gsm + C::C1, C::T_B);
+        split_flat<C::THREADS>(gsb + C::B2, 2 * C::C_B, C::CT::BYTES);
+      }
+      fence_proxy_async();
+      // bf16: dq~ += dS~ K of the step before reads K there; past the
+      // barrier (in every warpgroup) that stage takes tile it + 1
+      if constexpr (!C::F32) {
+        wgmma_wait<0>();
+        fence_regs(acc);
+        f.fence();
+      }
+      __syncthreads();
+      if (!C::F32 && it >= 1 && it + 1 < nt) load_stage(it + 1);
+
+      float s[BN / 2], dp[BN / 2];
+      wgmma_fence();
+      issue_ss<C, DH, true>(s, sm + C::A1 + wg * C::R_B, sb + C::B1);
+      issue_ss<C, DH, true>(dp, sm + C::A2 + wg * C::R_B, sb + C::B2);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+      // float32: past the barrier no warpgroup reads K or V again (dq~ +=
+      // dS~ K reads K^T), so tile it + 1 lands under the softmax and the
+      // products
+      if constexpr (C::F32) {
+        __syncthreads();
+        if (it + 1 < nt) load_stage(it + 1);
+      }
+
+      // mask, then the online softmax on the fragments: s[4j + e] is row
+      // qw + row0 + 8 (e / 2), key k0 + 8 j + c2 + e % 2
+      const bool edge = k0 + BN > skv || (causal && k0 + BN - 1 > qw) ||
+                        (window > 0 && k0 <= qw + ROWS - 1 - window);
+      if (edge) {
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = k0 + 8 * j + c2 + (e & 1);
+            const int query = qw + row0 + 8 * (e >> 1);
+            if (key >= skv || (causal && key > query) ||
+                (window > 0 && key <= query - window))
+              s[4 * j + e] = -INFINITY;
+          }
+      }
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x = __fmul_rn(s[4 * j + e], scale_log2);
+          s[4 * j + e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      float alpha[2], mu[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        const float m_new = fmaxf(m[h], mx[h]);
+        mu[h] = m_new == -INFINITY ? 0.f : m_new;
+        alpha[h] = exp2f(m[h] - mu[h]);
+        m[h] = m_new;
+        l[h] *= alpha[h];
+      }
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = exp2f(s[4 * j + e] - mu[e >> 1]);
+          l[e >> 1] += p;
+          s[4 * j + e] = p * (dp[4 * j + e] - dsum[e >> 1]);
+        }
+      f.pack(s);
+#pragma unroll
+      for (int j = 0; j < DH / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[4 * j + e] *= alpha[e >> 1];
+
+      wgmma_fence();
+      issue_rs<C, DH>(C::STEP_SUM ? stp : acc, f, sb + C::B1, sm + C::C1);
+      wgmma_commit();
+    }
+    wgmma_wait<0>();
+    fold();
+    f.fence();
   }
 
-  int kt0, kt1;
-  mask.key_tiles(q0, q0 + BT, kt0, kt1);
-  // first walk: each row's log-sum-exp, a running (max, sum) a thread
-  // over its columns, merged over the row's 16 lanes
-  float m[4], l[4];
+  // dq = dq~ scale / l; lse = m + log2 l (base 2) and D for the dk/dv pass
 #pragma unroll
-  for (int a = 0; a < 4; ++a) m[a] = ftile::NEG_INF, l[a] = 0.f;
-  float s[4][4];
-  for (int kt = kt0; kt <= kt1; ++kt) {
-    __syncthreads();
-    load_tile<T, DH>(Ks, k + kbase, kt * BT, mask.skv);
-    __syncthreads();
-    dot_tile<DH>(s, Qs, Ks, ty, tx);
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        if (!mask.keep(q0 + ty * 4 + a, kt * BT + tx + 16 * b)) continue;
-        const float x = __fmul_rn(s[a][b], scale);
-        const float mn = fmaxf(m[a], x);
-        l[a] = l[a] * expf(m[a] - mn) + expf(x - mn);
-        m[a] = mn;
-      }
-  }
-  float lse[4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1) {
-      const float mo = __shfl_xor_sync(0xffffffffu, m[a], off);
-      const float lo = __shfl_xor_sync(0xffffffffu, l[a], off);
-      const float mn = fmaxf(m[a], mo);
-      l[a] = l[a] * expf(m[a] - mn) + lo * expf(mo - mn);
-      m[a] = mn;
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    const int i = qw + row0 + 8 * h;
+    if (i >= sq) continue;
+    if (lane % 4 == 0) {
+      lse_out[(long long)bh * sq + i] = m[h] + log2f(l[h]);
+      dsum_out[(long long)bh * sq + i] = dsum[h];
     }
-    lse[a] = m[a] + logf(l[a]);
-    const int i = q0 + ty * 4 + a;
-    if (tx == 0 && i < mask.sq) {
-      lse_out[(size_t)bh * mask.sq + i] = lse[a];
-      dsum_out[(size_t)bh * mask.sq + i] = dsum[a];
-    }
-  }
-
-  // second walk: dq += dS K
-  float acc[4][DH / 16];
+    const float r = scale / fmaxf(l[h], 1e-30f);
+    T* row = dq + qoff + (long long)i * DH;
 #pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int c = 0; c < DH / 16; ++c) acc[a][c] = 0.f;
-  float dp[4][4];
-  for (int kt = kt0; kt <= kt1; ++kt) {
-    __syncthreads();
-    load_tile<T, DH>(Ks, k + kbase, kt * BT, mask.skv);
-    load_tile<T, DH>(Vs, v + kbase, kt * BT, mask.skv);
-    __syncthreads();
-    dot_tile<DH>(s, Qs, Ks, ty, tx);
-    dot_tile<DH>(dp, dOs, Vs, ty, tx);
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const bool kept = mask.keep(q0 + ty * 4 + a, kt * BT + tx + 16 * b);
-        const float p = kept ? expf(__fmul_rn(s[a][b], scale) - lse[a]) : 0.f;
-        dSs[(ty * 4 + a) * (BT + 1) + tx + 16 * b] = p * (dp[a][b] - dsum[a]);
-      }
-    __syncthreads();
-    acc_tile<DH>(acc, dSs, Ks, ty, tx);
-  }
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int i = q0 + ty * 4 + a;
-    if (i < mask.sq)
-#pragma unroll
-      for (int c = 0; c < DH / 16; ++c)
-        dq[qbase + (size_t)i * DH + tx + 16 * c] =
-            from_f<T>(__fmul_rn(acc[a][c], scale));
+    for (int j = 0; j < DH / 8; ++j)
+      store2(row + 8 * j + c2, acc[4 * j + 2 * h] * r,
+             acc[4 * j + 2 * h + 1] * r);
   }
 }
 
 template <typename T, int DH>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(Cfg<T, DH, false>::THREADS, 1)
 fa_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, const T* __restrict__ dout,
                    const float* __restrict__ lse_in,
                    const float* __restrict__ dsum_in, T* __restrict__ dk,
-                   T* __restrict__ dv, int group, Mask mask, float scale) {
-  extern __shared__ float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + BT * (DH + 1);
-  float* Qs = Vs + BT * (DH + 1);
-  float* dOs = Qs + BT * (DH + 1);
-  float* Ps = dOs + BT * (DH + 1);
-  float* dSs = Ps + BT * (BT + 1);
-  float* Ls = dSs + BT * (BT + 1);
-  float* Ds = Ls + BT;
-  const int kvh = blockIdx.y;
-  const int k0 = blockIdx.x * BT;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const size_t kbase = (size_t)kvh * mask.skv * DH;
-  load_tile<T, DH>(Ks, k + kbase, k0, mask.skv);
-  load_tile<T, DH>(Vs, v + kbase, k0, mask.skv);
+                   T* __restrict__ dv, int nkv, int group, int sq, int skv,
+                   int causal, int window, float scale, float scale_log2) {
+  using C = Cfg<T, DH, false>;
+  constexpr int BN = C::BN;
+  extern __shared__ char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sm = (raw + 1023) & ~1023u;
+  const uint32_t bars = sm + C::BARS;
+  char* const gsm = smem_raw + (sm - raw);
 
-  float dka[4][DH / 16], dva[4][DH / 16];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int c = 0; c < DH / 16; ++c) dka[a][c] = dva[a][c] = 0.f;
-  int qt0, qt1;
-  mask.query_tiles(k0, k0 + BT, qt0, qt1);
-  float st[4][4], dpt[4][4];
-  for (int g = 0; g < group; ++g) {
-    const int bh = kvh * group + g;
-    const size_t qbase = (size_t)bh * mask.sq * DH;
-    for (int qt = qt0; qt <= qt1; ++qt) {
-      const int q0 = qt * BT;
-      __syncthreads();
-      load_tile<T, DH>(Qs, q + qbase, q0, mask.sq);
-      load_tile<T, DH>(dOs, dout + qbase, q0, mask.sq);
-      for (int r = tid; r < BT; r += THREADS) {
-        const bool in = q0 + r < mask.sq;
-        Ls[r] = in ? lse_in[(size_t)bh * mask.sq + q0 + r] : 0.f;
-        Ds[r] = in ? dsum_in[(size_t)bh * mask.sq + q0 + r] : 0.f;
-      }
-      __syncthreads();
-      dot_tile<DH>(st, Ks, Qs, ty, tx);
-      dot_tile<DH>(dpt, Vs, dOs, ty, tx);
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          const int jl = ty * 4 + a, il = tx + 16 * b;
-          const bool kept = mask.keep(q0 + il, k0 + jl);
-          const float p =
-              kept ? expf(__fmul_rn(st[a][b], scale) - Ls[il]) : 0.f;
-          Ps[jl * (BT + 1) + il] = p;
-          dSs[jl * (BT + 1) + il] = p * (dpt[a][b] - Ds[il]);
-        }
-      __syncthreads();
-      acc_tile<DH>(dva, Ps, dOs, ty, tx);
-      acc_tile<DH>(dka, dSs, Qs, ty, tx);
-    }
+  // key blocks in order (the causal form's first ones see every query),
+  // kv heads innermost; warpgroup `wg` owns keys [kw, kw + 64)
+  const int kvh = blockIdx.x % nkv;
+  const int k0 = blockIdx.x / nkv * ROWS * C::NWG;
+  const long long koff = (long long)kvh * skv * DH;
+  const int wg = threadIdx.x / WG, kw = k0 + ROWS * wg;
+  const int warp = threadIdx.x % WG / 32, lane = threadIdx.x % 32;
+  const int row0 = warp * 16 + lane / 4;
+  const int c2 = 2 * (lane % 4);
+
+  // query tiles holding a query that keeps a key of [k0, klast]: from the
+  // first key's diagonal (causal) to the last query whose window holds the
+  // last key
+  const int klast = min(skv, k0 + ROWS * C::NWG) - 1;
+  const int qbeg = causal ? k0 / BN * BN : 0;
+  const int qend = causal && window > 0 ? min(sq, klast + window) : sq;
+  const int nq = qend > qbeg ? (qend - qbeg + BN - 1) / BN : 0;
+  const int nt = group * nq;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::NB; ++s) mbar_init(bars + 8 * s, C::THREADS);
+    fence_mbar_init();
   }
+  __syncthreads();
+
+  // dk, dv and (STEP_SUM) the last step's products, folded in as in the
+  // dq pass
+  float dka[DH / 2], dva[DH / 2], dks[DH / 2], dvs[DH / 2];
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int j = k0 + ty * 4 + a;
-    if (j < mask.skv)
+  for (int i = 0; i < DH / 2; ++i) dka[i] = dva[i] = dks[i] = dvs[i] = 0.f;
+  auto fold = [&] {
+    fence_regs(dka);
+    fence_regs(dva);
+    fence_regs(dks);
+    fence_regs(dvs);
+    if constexpr (C::STEP_SUM) {
 #pragma unroll
-      for (int c = 0; c < DH / 16; ++c) {
-        dk[kbase + (size_t)j * DH + tx + 16 * c] =
-            from_f<T>(__fmul_rn(dka[a][c], scale));
-        dv[kbase + (size_t)j * DH + tx + 16 * c] = from_f<T>(dva[a][c]);
+      for (int i = 0; i < DH / 2; ++i) {
+        dka[i] += dks[i];
+        dva[i] += dvs[i];
       }
+    }
+  };
+  Frag<C> fp, fd;
+
+  // step `it`: q head kvh * group + it / nq, query tile it % nq
+  auto load_stage = [&](int it) {
+    const int st = it % C::NB, q0 = qbeg + it % nq * BN;
+    const long long bh = (long long)kvh * group + it / nq;
+    const uint32_t sb = sm + C::ST0 + st * C::STAGE;
+    const uint32_t ld = sb + C::LD + (it & 1) * 8 * BN;
+    load_rows<T, DH, typename C::CT, BN, C::THREADS>(sb + C::B1,
+                                                     q + bh * sq * DH, q0, sq);
+    load_rows<T, DH, typename C::CT, BN, C::THREADS>(
+        sb + C::B2, dout + bh * sq * DH, q0, sq);
+    for (int c = threadIdx.x; c < BN; c += C::THREADS) {
+      const bool ok = q0 + c < sq;
+      const long long at = ok ? bh * sq + q0 + c : 0;
+      cp_async4(ld + 4 * c, lse_in + at, ok);
+      cp_async4(ld + 4 * (BN + c), dsum_in + at, ok);
+    }
+    cp_async_arrive(bars + 8 * st);
+  };
+
+  if (nt > 0) {
+    // K and V join stage 0's barrier
+    for (int w = 0; w < C::NWG; ++w) {
+      load_rows<T, DH, typename C::RT, ROWS, C::THREADS>(
+          sm + C::A1 + w * C::R_B, k + koff, k0 + ROWS * w, skv);
+      load_rows<T, DH, typename C::RT, ROWS, C::THREADS>(
+          sm + C::A2 + w * C::R_B, v + koff, k0 + ROWS * w, skv);
+    }
+    for (int s = 0; s < C::NB && s < nt; ++s) load_stage(s);
+    mbar_wait(bars, 0);
+    if constexpr (C::F32)
+      split_flat<C::THREADS>(gsm + C::A1, C::A_LO, C::A_LO);
+    float zero[BN / 2] = {};
+    fp.pack(zero);                 // defined values for the first fence
+    fd.pack(zero);
+
+    for (int it = 0; it < nt; ++it) {
+      const int st = it % C::NB, q0 = qbeg + it % nq * BN;
+      const uint32_t sb = sm + C::ST0 + st * C::STAGE;
+      char* const gsb = gsm + C::ST0 + st * C::STAGE;
+      // as in the dq pass: the step before's dv and dk products end before
+      // the split (float32) or free the other stage for tile it + 1 (bf16)
+      if constexpr (C::F32) {
+        wgmma_wait<0>();
+        fold();
+        fp.fence();
+        fd.fence();
+        __syncthreads();
+      }
+      mbar_wait(bars + 8 * st, (it / C::NB) & 1);
+      if constexpr (C::F32) {
+        split_transpose<BN, DH, C::THREADS>(gsb + C::B1, 2 * C::C_B,
+                                            gsm + C::C1, C::T_B);
+        split_transpose<BN, DH, C::THREADS>(gsb + C::B2, 2 * C::C_B,
+                                            gsm + C::C1 + 2 * C::T_B, C::T_B);
+      }
+      fence_proxy_async();
+      if constexpr (!C::F32) {
+        wgmma_wait<0>();
+        fence_regs(dka);
+        fence_regs(dva);
+        fp.fence();
+        fd.fence();
+      }
+      __syncthreads();
+      if (!C::F32 && it >= 1 && it + 1 < nt) load_stage(it + 1);
+
+      float s[BN / 2], dp[BN / 2];
+      wgmma_fence();
+      issue_ss<C, DH, false>(s, sm + C::A1 + wg * C::R_B, sb + C::B1);
+      issue_ss<C, DH, false>(dp, sm + C::A2 + wg * C::R_B, sb + C::B2);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+      // float32: Q and dO are free past the barrier (the products below
+      // read Q^T and dO^T); lse and D alternate halves
+      if constexpr (C::F32) {
+        __syncthreads();
+        if (it + 1 < nt) load_stage(it + 1);
+      }
+
+      // P^T and dS^T on the fragments: s[4j + e] is key kw + row0 + 8 (e /
+      // 2), query q0 + 8 j + c2 + e % 2 (column 8 j + c2 + e % 2 of the
+      // stage's lse and D)
+      const float* ls =
+          reinterpret_cast<const float*>(gsb + C::LD + (it & 1) * 8 * BN);
+      const float* ds = ls + BN;
+      const bool edge = kw + ROWS > skv || q0 + BN > sq ||
+                        (causal && kw + ROWS - 1 > q0) ||
+                        (window > 0 && kw <= q0 + BN - 1 - window);
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * j + c2 + (e & 1);
+          const int key = kw + row0 + 8 * (e >> 1), query = q0 + col;
+          const bool keep =
+              !edge || (key < skv && query < sq &&
+                        (!causal || (key <= query &&
+                                     (window == 0 || key > query - window))));
+          const float p =
+              keep ? exp2f(__fmul_rn(s[4 * j + e], scale_log2) - ls[col])
+                   : 0.f;
+          s[4 * j + e] = p;
+          dp[4 * j + e] = p * (dp[4 * j + e] - ds[col]);
+        }
+      fp.pack(s);
+      fd.pack(dp);
+
+      // dv += P^T dO, dk += dS^T Q
+      wgmma_fence();
+      issue_rs<C, DH>(C::STEP_SUM ? dvs : dva, fp, sb + C::B2,
+                      sm + C::C1 + 2 * C::T_B);
+      issue_rs<C, DH>(C::STEP_SUM ? dks : dka, fd, sb + C::B1, sm + C::C1);
+      wgmma_commit();
+    }
+    wgmma_wait<0>();
+    fold();
+    fp.fence();
+    fd.fence();
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int j = kw + row0 + 8 * h;
+    if (j >= skv) continue;
+    T* krow = dk + koff + (long long)j * DH;
+    T* vrow = dv + koff + (long long)j * DH;
+#pragma unroll
+    for (int c = 0; c < DH / 8; ++c) {
+      store2(krow + 8 * c + c2, dka[4 * c + 2 * h] * scale,
+             dka[4 * c + 2 * h + 1] * scale);
+      store2(vrow + 8 * c + c2, dva[4 * c + 2 * h], dva[4 * c + 2 * h + 1]);
+    }
   }
 }
 
 template <typename T, int DH>
 int run(const T* q, const T* k, const T* v, const T* o, const T* dout, T* dq,
-        T* dk, T* dv, float* lse, float* dsum, int bh, int group, Mask mask,
-        float scale, cudaStream_t stream) {
+        T* dk, T* dv, float* lse, float* dsum, int bh, int group, int sq,
+        int skv, int causal, int window, float scale, cudaStream_t stream) {
+  using CQ = Cfg<T, DH, true>;
+  using CK = Cfg<T, DH, false>;
   auto dq_kernel = fa_bwd_dq_kernel<T, DH>;
   auto dkdv_kernel = fa_bwd_dkdv_kernel<T, DH>;
-  static const int err0 = ftile::allow_smem(dq_kernel, dq_smem<DH>()) |
-                          ftile::allow_smem(dkdv_kernel, dkdv_smem<DH>());
-  if (err0) return err0;
-  dq_kernel<<<dim3((mask.sq + BT - 1) / BT, bh), THREADS, dq_smem<DH>(),
-              stream>>>(q, k, v, o, dout, dq, lse, dsum, group, mask, scale);
+  static const int err_q = ftile::allow_smem(dq_kernel, CQ::BYTES);
+  static const int err_k = ftile::allow_smem(dkdv_kernel, CK::BYTES);
+  if (err_q) return err_q;
+  if (err_k) return err_k;
+  const float scale_log2 = scale * 1.4426950408889634f;
+  const int nqb = (sq + ROWS * CQ::NWG - 1) / (ROWS * CQ::NWG);
+  dq_kernel<<<nqb * bh, CQ::THREADS, CQ::BYTES, stream>>>(
+      q, k, v, o, dout, dq, lse, dsum, bh, nqb, group, sq, skv, causal,
+      window, scale, scale_log2);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  dkdv_kernel<<<dim3((mask.skv + BT - 1) / BT, bh / group), THREADS,
-                dkdv_smem<DH>(), stream>>>(q, k, v, dout, lse, dsum, dk, dv,
-                                           group, mask, scale);
+  const int nkb = (skv + ROWS * CK::NWG - 1) / (ROWS * CK::NWG);
+  dkdv_kernel<<<nkb * (bh / group), CK::THREADS, CK::BYTES, stream>>>(
+      q, k, v, dout, lse, dsum, dk, dv, bh / group, group, sq, skv, causal,
+      window, scale, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -376,7 +776,6 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   if (bh < 1 || group < 1 || bh % group || sq < 1 || skv < 1 ||
       (causal && sq != skv) || window < 0 || (window && !causal))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Mask mask{sq, skv, causal, window};
   const auto* tq = static_cast<const T*>(q);
   const auto* tk = static_cast<const T*>(k);
   const auto* tv = static_cast<const T*>(v);
@@ -389,10 +788,10 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   auto* fd = static_cast<float*>(dsum);
   auto st = static_cast<cudaStream_t>(stream);
   switch (dh) {
-    case 16: return run<T, 16>(tq, tk, tv, to, td, gq, gk, gv, fl, fd, bh, group, mask, scale, st);
-    case 32: return run<T, 32>(tq, tk, tv, to, td, gq, gk, gv, fl, fd, bh, group, mask, scale, st);
-    case 64: return run<T, 64>(tq, tk, tv, to, td, gq, gk, gv, fl, fd, bh, group, mask, scale, st);
-    case 128: return run<T, 128>(tq, tk, tv, to, td, gq, gk, gv, fl, fd, bh, group, mask, scale, st);
+    case 16: return run<T, 16>(tq, tk, tv, to, td, gq, gk, gv, fl, fd, bh, group, sq, skv, causal, window, scale, st);
+    case 32: return run<T, 32>(tq, tk, tv, to, td, gq, gk, gv, fl, fd, bh, group, sq, skv, causal, window, scale, st);
+    case 64: return run<T, 64>(tq, tk, tv, to, td, gq, gk, gv, fl, fd, bh, group, sq, skv, causal, window, scale, st);
+    case 128: return run<T, 128>(tq, tk, tv, to, td, gq, gk, gv, fl, fd, bh, group, sq, skv, causal, window, scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -11,9 +11,11 @@ do, for its bound on the card: bytes in bfloat16, operations in float32.
 Gradients: when grad mode is on and q, k or v requires grad, the call
 goes through a `torch.autograd.Function` whose forward is the kernel and
 whose backward is the backward kernel in csrc/flash_attn_bwd.cu
-(FlashAttention-2's backward on the CUDA cores, Dh up to 128); on CPU
-tensors the same Function takes the plain versions `ref.flash_attn` and
-`ref.flash_attn_bwd`. `bwd_work` counts what the backward must do.
+(FlashAttention-2's backward on the tensor cores, `wgmma` like the
+forward, in two launches: dq with each row's lse and D, then dk and dv;
+Dh up to 128); on CPU tensors the same Function takes the plain versions
+`ref.flash_attn` and `ref.flash_attn_bwd`. `bwd_work` counts what the
+backward must do: operations in either type, its bound on the card.
 
 Dispatch: a CUDA tensor launches the kernel (or raises); a CPU tensor
 takes the plain version `kernels.ref.flash_attn`.
@@ -187,6 +189,8 @@ def launch_bwd(q, k, v, o, do, causal: bool, window: int = 0):
         torch.empty_like(v)
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
+    # each row's log-sum-exp (base 2) and D = rowsum(do * o), from the dq
+    # kernel to the dk/dv kernel
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
     dsum = torch.empty_like(lse)
     err = _bwd_fn(q.dtype)(q.data_ptr(), k.data_ptr(), v.data_ptr(),

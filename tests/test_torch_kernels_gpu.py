@@ -749,22 +749,44 @@ def _leaves(g, shapes, dtype, scales=None):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", [
-    # (dtype, BH, S, Dh, group, causal, window): M_g's finetune at BERT
-    # width (8 x 12 heads), ragged S, causal with and without a window,
-    # grouped kv heads, every head dim, bf16
+    # (dtype, BH, S, Dh, group, causal, window[, input scale]): M_g's
+    # finetune at BERT width (8 x 12 heads), ragged S, causal with and
+    # without a window, grouped kv heads, every head dim, bf16
     (torch.float32, 96, 512, 64, 1, False, 0),
     (torch.float32, 6, 100, 64, 1, False, 0),
     (torch.float32, 6, 130, 32, 3, True, 0),
     (torch.float32, 4, 200, 16, 2, True, 50),
     (torch.float32, 2, 150, 128, 1, False, 0),
     (torch.bfloat16, 12, 512, 64, 1, False, 0),
-    (torch.bfloat16, 6, 67, 128, 3, True, 20)])
+    (torch.bfloat16, 6, 67, 128, 3, True, 20),
+    # S off the tiles (the dq pass walks keys by 64, the dk/dv pass
+    # queries by 32 in float32 and 64 in bf16; both halved at Dh 128)
+    (torch.float32, 4, 1, 64, 1, False, 0),
+    (torch.float32, 4, 63, 64, 1, True, 0),
+    (torch.float32, 4, 65, 64, 1, False, 0),
+    (torch.float32, 4, 300, 64, 1, True, 0),
+    # Dh 16, 32 and 128 in both dtypes
+    (torch.float32, 4, 90, 16, 1, True, 0),
+    (torch.float32, 4, 90, 32, 1, False, 0),
+    (torch.float32, 2, 300, 128, 1, True, 0),
+    (torch.bfloat16, 4, 90, 16, 1, False, 0),
+    (torch.bfloat16, 4, 90, 32, 1, True, 0),
+    (torch.bfloat16, 2, 300, 128, 1, False, 0),
+    # group 10 (RecurrentGemma's grouping)
+    (torch.float32, 10, 512, 64, 10, True, 0),
+    (torch.bfloat16, 10, 300, 64, 10, True, 70),
+    # a window whose first key tile is partial (70 is no multiple of 32)
+    (torch.float32, 4, 300, 64, 1, True, 70),
+    # inputs x 3, scores of ~30: one tf32 pass misses 1e-4, 3xTF32 not
+    (torch.float32, 4, 512, 64, 1, False, 0, 3.0),
+    (torch.float32, 4, 300, 64, 2, True, 70, 3.0)])
 def test_flash_attn_backward_matches_plain_autograd(cuda, case):
     from repro_torch.kernels import flash_attn as fa
-    dtype, bh, s, dh, group, causal, window = case
+    dtype, bh, s, dh, group, causal, window, *scale = case
     g = torch.Generator(device=cuda).manual_seed(11)
     q, k, v = _leaves(g, [(bh, s, dh), (bh // group, s, dh),
-                          (bh // group, s, dh)], dtype)
+                          (bh // group, s, dh)], dtype,
+                      (scale or [1.0]) * 2 + [1.0])
     do = randn(g, (bh, s, dh), dtype)
     fa.reset_bwd_stats()
     got = _grads(fa.flash_attn(q, k, v, causal=causal, window=window),
