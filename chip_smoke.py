@@ -363,18 +363,24 @@ EH_NO_SPILL = ("rows f32", "split f32")
 
 
 # the backward kernels: flash_attn's two passes (on the tensor cores:
-# HGMMA in every instantiation) and mlp_softmax_attn's tile pass, bf16
-# and float32 at every Dh; the training path's (float32 Dh 64) not
-# spilling; none holding an atomic (every sum in a fixed order)
+# HGMMA in every instantiation) and mlp_softmax_attn's head pass (CUDA
+# cores), bf16 and float32 at every Dh, each with one 4 x 4 tile of dA
+# and dU^T a thread (x1) and, at Dh 64 and 128, with the most that hid 64
+# needs (x2, x4), and its head sum (float32 partials, one instantiation);
+# the training path's (float32 Dh 64, the sum) not spilling; none holding
+# an atomic (every sum in a fixed order)
 FA_BWD_ENTRIES = {f"{k} {t} Dh {dh}": f"fa_bwd_{k}_kernelI{m}Li{dh}E"
                   for k in ("dq", "dkdv")
                   for t, m in (("bf16", "13__nv_bfloat16"), ("f32", "f"))
                   for dh in (16, 32, 64, 128)}
 FA_BWD_NO_SPILL = ("dq f32 Dh 64", "dkdv f32 Dh 64")
-MSA_BWD_ENTRIES = {f"{t} Dh {dh}": f"msa_bwd_kernelI{m}Li{dh}E"
+MSA_BWD_ENTRIES = {f"heads {t} Dh {dh} x{mt}":
+                   f"msa_bwd_heads_kernelI{m}Li{dh}ELi{mt}E"
                    for t, m in (("bf16", "13__nv_bfloat16"), ("f32", "f"))
-                   for dh in (16, 32, 64, 128)}
-MSA_BWD_NO_SPILL = ("f32 Dh 64",)
+                   for dh in (16, 32, 64, 128)
+                   for mt in sorted({1, max(1, dh // 32)})}
+MSA_BWD_ENTRIES["sum"] = "msa_bwd_sum_kernel"
+MSA_BWD_NO_SPILL = ("heads f32 Dh 64 x1", "heads f32 Dh 64 x2", "sum")
 FLASH_ATTN_BWD_REPLACES = ("none: the JAX package has no backward kernel; "
                            "its training differentiates plain attention "
                            "(src/repro/core/target.py:68)")
@@ -1063,7 +1069,11 @@ def phase_backward_kernels(seed: int) -> dict:
 
     # mlp_softmax_attn backward: (label, BH, Sq, Skv, Dh, hid, group,
     # dtype, timed); in-vivo at batch 8: phase 2's <3,12,16> gives BH 96,
-    # hid 16, phase 1's <1,1,2> BH 8, hid 2
+    # hid 16, phase 1's <1,1,2> BH 8, hid 2; after the permuted q, the
+    # head pass's other walks: k and v as the strided views mlp_attend
+    # passes (also repeated bitwise), two work items a block, a cluster of
+    # one, a single key row, 17 kv heads (uneven head groups in the sum),
+    # a group of 4 with ragged tiles, bf16 streaming its keys at Dh 128
     res = out["mlp_softmax_attn_bwd"] = {}
     for (label, bh, sq, skv, dh, hid, group, dt, timed) in (
             ("path phase 2 (in-vivo)", 96, 512, 512, 64, 16, 1, f32, "path"),
@@ -1075,18 +1085,35 @@ def phase_backward_kernels(seed: int) -> dict:
             ("hid 64 Dh 128", 4, 200, 200, 128, 64, 1, f32, None),
             ("Dh 16", 6, 70, 70, 16, 3, 1, f32, None),
             ("bf16", 24, 512, 512, 64, 16, 1, bf16, None),
-            ("q permuted", 12, 512, 512, 64, 16, 1, f32, None)):
+            ("q permuted", 12, 512, 512, 64, 16, 1, f32, None),
+            ("k, v transposed (mlp_attend)", 24, 512, 512, 64, 16, 2, f32,
+             "repeat"),
+            ("Sq 1024", 4, 1024, 300, 64, 16, 1, f32, None),
+            ("Sq 1", 3, 1, 9, 32, 4, 1, f32, None),
+            ("Skv 1", 8, 300, 1, 64, 1, 1, f32, None),
+            ("17 kv heads", 17, 65, 65, 16, 2, 1, f32, None),
+            ("group 4 ragged", 8, 100, 257, 32, 16, 4, f32, None),
+            ("bf16 Skv 600 Dh 128 hid 64", 2, 64, 600, 128, 64, 1, bf16,
+             None)):
         if label == "q permuted":
             qb = randn((sq, bh, dh), dt, grad=True)
             q = qb.transpose(0, 1)
         else:
             q = qb = randn((bh, sq, dh), dt, grad=True)
-        k, v = (randn((bh // group, skv, dh), dt, grad=True) for _ in "kv")
+        if label.startswith("k, v transposed"):
+            # as engine.clear.mlp_attend passes them: k from kT
+            # transposed, v with its heads moved
+            kb = randn((bh // group, dh, skv), dt, grad=True)
+            vb = randn((skv, bh // group, dh), dt, grad=True)
+            k, v = kb.transpose(-1, -2), vb.transpose(0, 1)
+        else:
+            k, v = kb, vb = tuple(randn((bh // group, skv, dh), dt,
+                                        grad=True) for _ in "kv")
         w = [randn(sh, scale=sc, grad=True) for sh, sc in (
             ((skv, hid), 0.2), ((hid,), 0.1), ((hid, skv), 0.2),
             ((skv,), 0.01))]
         do = randn((bh, sq, dh), dt)
-        ins = (qb, k, v, *w)
+        ins = (qb, kb, vb, *w)
         got = torch.autograd.grad(msa.mlp_softmax_attn(q, k, v, *w), ins,
                                   do)
         want = torch.autograd.grad(ref.mlp_softmax_attn(q, k, v, *w), ins,
@@ -1097,9 +1124,19 @@ def phase_backward_kernels(seed: int) -> dict:
         if not timed:
             continue
         args = [x.detach() for x in (q, k, v, *w)] + [do]
-        if timed == "path":
+        if timed in ("path", "repeat"):
             repeat("mlp_softmax_attn backward", label,
                    lambda: msa.launch_bwd(*args), res)
+        if timed == "repeat":
+            continue
+        if timed == "path":
+            # a call launches the head pass and the head sum, each counted
+            msa.reset_bwd_stats()
+            msa.launch_bwd(*args)
+            if msa.bwd_stats() != {"kernel": 2, "ref": 0}:
+                fail(f"mlp_softmax_attn backward: one call counted "
+                     f"{msa.bwd_stats()}, not two launches")
+            msa.reset_bwd_stats()
         nbytes, ops = msa.bwd_work(bh, group, sq, skv, dh, hid, dt)
         t = {"ms": cuda_ms(msa.launch_bwd, *args, reps=20),
              "device_ms": cuda_ms(msa.launch_bwd, *args, reps=20,
@@ -2080,6 +2117,10 @@ def _gate_run(tag, res, stages, counts, scoring, held: int) -> None:
             if rec["launches"][name]["kernel"] <= 0:
                 fail(f"{tag}: {rec['stage']} launched no {name} kernel "
                      f"({rec['launches'][name]})")
+            # a backward call launches two kernels, each counted
+            if name.endswith("_bwd") and rec["launches"][name]["kernel"] % 2:
+                fail(f"{tag}: {rec['stage']} counted an odd number of "
+                     f"{name} launches ({rec['launches'][name]})")
     for name in scoring:
         if counts[name]["kernel"] <= 0:
             fail(f"{tag}: the sieve launched no {name} kernel")
@@ -2568,9 +2609,11 @@ def main(argv=None) -> int:
                 "and backward" if name == "flash_attn_bwd" else
                 "none: no single torch call computes this function"),
             "shape": k["shape"], "build": build_info,
-            **({"launches_note": "two kernels a backward call (dq, then "
-                                 "dk/dv), both counted"}
-               if name == "flash_attn_bwd" else {}),
+            "launches_note": (
+                "two kernels a backward call (dq, then dk/dv), both counted"
+                if name == "flash_attn_bwd" else
+                "two kernels a backward call (head pass, then head sum), "
+                "both counted"),
             **{x: k[x] for x in ("bf16_max_abs_err", "device_ms",
                                  "library_device_ms",
                                  "library_fwd_device_ms",

@@ -11,13 +11,12 @@ emulator weights with hid <= 64, Dh in {16, 32, 64, 128}, q's dtype out.
 
 Gradients: when grad mode is on and an input requires grad, the call
 goes through a `torch.autograd.Function` whose forward is the kernel and
-whose backward is the per-query-tile kernel in
-csrc/mlp_softmax_attn_bwd.cu (dq and the tiles' partial dA, dU, du0 and
-db1) plus plain products here for A = k^T w1 / sqrt(Dh), U = w2 @ v and
-the gradients of k, v and the emulator weights; on CPU tensors the same
-Function takes the plain versions `ref.mlp_softmax_attn` and
-`ref.mlp_softmax_attn_bwd`. `bwd_work` counts what the backward kernel
-must do.
+whose backward is two kernels in csrc/mlp_softmax_attn_bwd.cu: one
+thread-block cluster a kv head (`bwd_plan`) computes A, U, dq, dk, dv
+and the head's partials of the emulator weights' gradients, and a second
+launch sums those over the heads; on CPU tensors the same Function takes
+the plain versions `ref.mlp_softmax_attn` and `ref.mlp_softmax_attn_bwd`.
+`bwd_work` counts what the backward must do.
 
 Dispatch: a CUDA tensor launches the kernel (or raises); a CPU tensor
 takes the plain version `kernels.ref.mlp_softmax_attn`, which
@@ -43,8 +42,8 @@ _bwd_stats = {"kernel": 0, "ref": 0}
 
 _FN = {torch.float32: "mlp_softmax_attn_f32",
        torch.bfloat16: "mlp_softmax_attn_bf16"}
-_BWD_FN = {torch.float32: "mlp_softmax_attn_bwd_f32",
-           torch.bfloat16: "mlp_softmax_attn_bwd_bf16"}
+_BWD_FN = {torch.float32: "msa_bwd_heads_f32",
+           torch.bfloat16: "msa_bwd_heads_bf16"}
 HID_MAX = 64
 HEAD_DIMS = (16, 32, 64, 128)
 BQ = 64                  # query rows a tile (csrc/mlp_softmax_attn.cu)
@@ -57,6 +56,35 @@ def plan(sq: int, skv: int) -> tuple[int, int]:
     key rows [r L, min(Skv, (r + 1) L))."""
     c = max(1, min(CLUSTER_MAX, -(-sq // BQ)))
     return c, -(-skv // c)
+
+
+def bwd_plan(bhk: int, group: int, sq: int, skv: int,
+             sms: int) -> tuple[int, int]:
+    """(C, L) of the backward's head pass on a card of `sms` SMs: each of
+    the BHk kv heads gets a cluster of C blocks, block r walking the
+    head's (q head of the group, 64-row query tile) work items r, r + C,
+    ... and owning key rows [r L, min(Skv, (r + 1) L)). C is the largest
+    power of two up to 8 and up to the work items with BHk C <= 2 SMs (two
+    blocks share a SM on the in-vivo path): the head pass then runs in one
+    wave where the heads allow, since a block's phases, not its work, set
+    its time (PERF.md)."""
+    items = group * -(-sq // BQ)
+    c = 1
+    while 2 * c <= min(CLUSTER_MAX, items) and bhk * 2 * c <= 2 * sms:
+        c *= 2
+    return c, -(-skv // c)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def bwd_scratch(skv: int, hid: int) -> int:
+    """Floats a kv head's row of the backward's weight partials takes:
+    dw1 (Skv, hid), dw2 (hid, Skv), db2 (Skv) and db1 (hid), padded to a
+    multiple of 4 (16 bytes)."""
+    return -(-(2 * skv * hid + skv + hid) // 4) * 4
 
 
 def work(bh: int, group: int, sq: int, skv: int, dh: int, hid: int,
@@ -146,18 +174,27 @@ def launch(q, k, v, w1, b1, w2, b2) -> torch.Tensor:
 @functools.cache
 def _bwd_fn(dtype: torch.dtype):
     f = getattr(build.lib("mlp_softmax_attn_bwd"), _BWD_FN[dtype])
-    f.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 \
+    f.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 9 \
+        + [ctypes.c_float, ctypes.c_void_p]
+    f.restype = ctypes.c_int
+    return f
+
+
+@functools.cache
+def _sum_fn():
+    f = build.lib("mlp_softmax_attn_bwd").msa_bwd_sum
+    f.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 \
         + [ctypes.c_void_p]
     f.restype = ctypes.c_int
     return f
 
 
 def launch_bwd(q, k, v, w1, b1, w2, b2, do):
-    """The gradients (dq, dk, dv, dw1, db1, dw2, db2) on CUDA tensors: the
-    backward kernel for dq and the tiles' partials, then plain products
-    for the rest. Sums over a kv head's group, the tiles and the heads
-    are `torch.sum` over fixed axes (no atomics), so a second call is
-    bitwise equal."""
+    """The gradients (dq, dk, dv, dw1, db1, dw2, db2) on CUDA tensors, in
+    two launches: the head pass (one cluster a kv head: dq, dk, dv and the
+    head's partials of dw1, dw2, db2, db1) and the sum of those partials
+    over the heads. Every sum runs in a fixed order (no atomics), so a
+    second call is bitwise equal."""
     group = check_attention_operands("mlp_softmax_attn backward", q, k, v)
     bh, sq, dh = q.shape
     skv, hid = k.shape[1], w1.shape[-1]
@@ -166,60 +203,37 @@ def launch_bwd(q, k, v, w1, b1, w2, b2, do):
                          f"{tuple(do.shape)} against q {tuple(q.shape)}, "
                          f"head dim {dh} (in {HEAD_DIMS}), hid {hid} (in "
                          f"1..{HID_MAX})")
-    # inputs made contiguous before any output is allocated
-    q, do = q.contiguous(), do.to(q.dtype).contiguous()
-    scale = dh ** -0.5
-    a = (torch.matmul(k.float().transpose(-1, -2), w1.float()) * scale) \
-        .contiguous()                                       # (BHk, Dh, hid)
-    u = torch.matmul(w2.float(), v.float()).contiguous()    # (BHk, hid, Dh)
-    nt = -(-sq // BQ)
-    dq = torch.empty_like(q)
-    da_p = torch.empty((bh, nt, dh, hid), dtype=torch.float32,
-                       device=q.device)
-    du_p = torch.empty((bh, nt, hid, dh), dtype=torch.float32,
-                       device=q.device)
-    du0_p = torch.empty((bh, nt, dh), dtype=torch.float32, device=q.device)
-    db1_p = torch.empty((bh, nt, hid), dtype=torch.float32, device=q.device)
-    b1c = b1.float().contiguous()
-    err = _bwd_fn(q.dtype)(q.data_ptr(), do.data_ptr(), a.data_ptr(),
-                           b1c.data_ptr(), u.data_ptr(), dq.data_ptr(),
-                           da_p.data_ptr(), du_p.data_ptr(), du0_p.data_ptr(),
-                           db1_p.data_ptr(), bh, group, sq, dh, hid,
-                           torch.cuda.current_stream(q.device).cuda_stream)
+    # inputs made contiguous and aligned before any output is allocated
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    do = _aligned(do.to(q.dtype))
+    w1, b1, w2, b2 = (w.float().contiguous() for w in (w1, b1, w2, b2))
+    bhk = bh // group
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
+        torch.empty_like(v)
+    ns4 = bwd_scratch(skv, hid)
+    part = torch.empty((bhk, ns4), dtype=torch.float32, device=q.device)
+    dw1, dw2 = torch.empty_like(w1), torch.empty_like(w2)
+    db1, db2 = torch.empty_like(b1), torch.empty_like(b2)
+    nc, slice_ = bwd_plan(bhk, group, sq, skv, _sm_count(q.device.index))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _bwd_fn(q.dtype)(q.data_ptr(), do.data_ptr(), k.data_ptr(),
+                           v.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+                           w2.data_ptr(), b2.data_ptr(), dq.data_ptr(),
+                           dk.data_ptr(), dv.data_ptr(), part.data_ptr(), bh,
+                           group, sq, skv, dh, hid, nc, slice_, ns4,
+                           dh ** -0.5, stream)
     if err != 0:
-        raise RuntimeError(f"mlp_softmax_attn backward kernel launch "
+        raise RuntimeError(f"mlp_softmax_attn backward head pass launch "
                            f"failed: CUDA error {err}")
     _bwd_stats["kernel"] += 1
-    return (dq, *bwd_products(k, v, w1, b1, w2, b2, da_p, du_p, du0_p, db1_p,
-                              group))
-
-
-def bwd_products(k, v, w1, b1, w2, b2, da_p, du_p, du0_p, db1_p, group: int):
-    """(dk, dv, dw1, db1, dw2, db2) from the backward kernel's per-tile
-    partials dA (BH, T, Dh, hid), dU (BH, T, hid, Dh), du0 (BH, T, Dh)
-    and db1 (BH, T, hid): summed over each kv head's group and tiles (and
-    db1 over every head), then dk = scale w1 dA^T, dw1 = scale sum k dA,
-    dw2 = sum dU v^T, dv = w2^T dU + b2 du0, db2 = sum v du0, with plain
-    products. Every sum is `torch.sum` or a product over fixed axes."""
-    bh, nt, dh, hid = da_p.shape
-    bhk, skv = bh // group, k.shape[1]
-    kf, vf = k.float(), v.float()
-    w1f, w2f, b2f = w1.float(), w2.float(), b2.float()
-    scale = dh ** -0.5
-    da = da_p.reshape(bhk, group * nt, dh, hid).sum(1)
-    du = du_p.reshape(bhk, group * nt, hid, dh).sum(1)
-    du0 = du0_p.reshape(bhk, group * nt, dh).sum(1)
-    db1 = db1_p.sum((0, 1))
-    dk = torch.matmul(w1f, da.transpose(-1, -2)) * scale
-    dw1 = torch.matmul(kf.transpose(0, 1).reshape(skv, bhk * dh),
-                       da.reshape(bhk * dh, hid)) * scale
-    dw2 = torch.matmul(du.transpose(0, 1).reshape(hid, bhk * dh),
-                       vf.transpose(-1, -2).reshape(bhk * dh, skv))
-    dv = torch.matmul(w2f.t(), du) + b2f[:, None] * du0[:, None, :]
-    db2 = torch.matmul(vf.transpose(0, 1).reshape(skv, bhk * dh),
-                       du0.reshape(bhk * dh))
-    return (dk.to(k.dtype), dv.to(v.dtype), dw1.to(w1.dtype),
-            db1.to(b1.dtype), dw2.to(w2.dtype), db2.to(b2.dtype))
+    err = _sum_fn()(part.data_ptr(), dw1.data_ptr(), dw2.data_ptr(),
+                    db2.data_ptr(), db1.data_ptr(), bhk, skv, hid, ns4,
+                    stream)
+    if err != 0:
+        raise RuntimeError(f"mlp_softmax_attn backward head sum launch "
+                           f"failed: CUDA error {err}")
+    _bwd_stats["kernel"] += 1
+    return dq, dk, dv, dw1, db1, dw2, db2
 
 
 class MlpSoftmaxAttn(torch.autograd.Function):

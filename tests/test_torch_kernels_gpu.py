@@ -837,7 +837,10 @@ def test_flash_attn_backward_refuses_what_it_lacks(cuda):
 @pytest.mark.parametrize("case", [
     # (dtype, BH, Sq, Skv, Dh, hid, group): in-vivo phase 2 <3,12,16> and
     # phase 1 <1,1,2> at batch 8, ragged S, a group, Skv != Sq, hid 64 at
-    # Dh 128, bf16
+    # Dh 128, bf16; then the head pass's other walks: two work items a
+    # block (Sq 1024), a cluster of one (Sq 1), one key row (most blocks
+    # own none), 17 kv heads (uneven head groups in the sum), a group of 4
+    # with ragged tiles, and bf16 streaming its keys at Dh 128 and at Dh 16
     (torch.float32, 96, 512, 512, 64, 16, 1),
     (torch.float32, 8, 512, 512, 64, 2, 1),
     (torch.float32, 6, 100, 100, 64, 5, 1),
@@ -845,7 +848,14 @@ def test_flash_attn_backward_refuses_what_it_lacks(cuda):
     (torch.float32, 2, 64, 600, 128, 16, 1),
     (torch.float32, 2, 200, 200, 128, 64, 1),
     (torch.float32, 3, 70, 70, 16, 3, 1),
-    (torch.bfloat16, 12, 512, 512, 64, 16, 1)])
+    (torch.bfloat16, 12, 512, 512, 64, 16, 1),
+    (torch.float32, 4, 1024, 300, 64, 16, 1),
+    (torch.float32, 3, 1, 9, 32, 4, 1),
+    (torch.float32, 8, 300, 1, 64, 1, 1),
+    (torch.float32, 17, 65, 65, 16, 2, 1),
+    (torch.float32, 8, 100, 257, 32, 16, 4),
+    (torch.bfloat16, 2, 64, 600, 128, 64, 1),
+    (torch.bfloat16, 6, 90, 90, 16, 3, 3)])
 def test_mlp_softmax_attn_backward_matches_plain_autograd(cuda, case):
     from repro_torch.kernels import mlp_softmax_attn as msa
     dtype, bh, sq, skv, dh, hid, group = case
@@ -857,7 +867,8 @@ def test_mlp_softmax_attn_backward_matches_plain_autograd(cuda, case):
     do = randn(g, (bh, sq, dh), dtype)
     msa.reset_bwd_stats()
     got = _grads(msa.mlp_softmax_attn(q, k, v, *w), (q, k, v, *w), do)
-    assert msa.bwd_stats() == {"kernel": 1, "ref": 0}
+    # the head pass, then the head sum
+    assert msa.bwd_stats() == {"kernel": 2, "ref": 0}
     want = _grads(ref.mlp_softmax_attn(q, k, v, *w), (q, k, v, *w), do)
     for a, b in zip(got, want):
         assert a.shape == b.shape and a.dtype == b.dtype
@@ -884,6 +895,32 @@ def test_mlp_softmax_attn_backward_bitwise_and_permuted(cuda):
     want = _grads(ref.mlp_softmax_attn(q, k, v, *w), ins, do)
     for a, b in zip(first, want):
         assert_close(a, b, FLOAT_TOL[torch.float32])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mlp_softmax_attn_backward_transposed_kv(cuda, dtype):
+    """k and v as the strided views `engine.clear.mlp_attend` passes (k
+    from kT transposed, v with its heads moved): the gradients agree with
+    the plain version's, and two launches give the same bits."""
+    from repro_torch.kernels import mlp_softmax_attn as msa
+    g = torch.Generator(device=cuda).manual_seed(15)
+    q = randn(g, (24, 512, 64), dtype).requires_grad_()
+    kt = randn(g, (12, 64, 512), dtype).requires_grad_()
+    vb = randn(g, (512, 12, 64), dtype).requires_grad_()
+    k, v = kt.transpose(-1, -2), vb.transpose(0, 1)
+    w = _leaves(g, [(512, 16), (16,), (16, 512), (512,)], torch.float32,
+                [0.2, 0.1, 0.2, 0.01])
+    do = randn(g, (24, 512, 64), dtype)
+    ins = (q, kt, vb, *w)
+    first = _grads(msa.mlp_softmax_attn(q, k, v, *w), ins, do)
+    second = _grads(msa.mlp_softmax_attn(q, k, v, *w), ins, do)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    want = _grads(ref.mlp_softmax_attn(q, k, v, *w), ins, do)
+    for a, b in zip(first, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert_close(a, b, FLOAT_TOL[dtype])
 
 
 @pytest.mark.gpu

@@ -352,39 +352,6 @@ def test_mlp_softmax_attn_function_gradcheck(group):
     assert torch.autograd.gradcheck(msa.MlpSoftmaxAttn.apply, ins)
 
 
-def test_msa_backward_products_match_plain():
-    """The card's wrapper sums the kernel's per-tile partials and forms
-    dk, dv and the weights' gradients with plain products: fed partials
-    from a plain model of the kernel (64-row tiles, rows past Sq zero),
-    it gives the plain backward's gradients."""
-    bh, group, sq, skv, dh, hid = 6, 3, 100, 90, 16, 5
-    q, do = _rand(1, (bh, sq, dh)), _rand(2, (bh, sq, dh))
-    k, v = _rand(3, (bh // group, skv, dh)), _rand(4, (bh // group, skv, dh))
-    w = [_rand(5, (skv, hid), .3), _rand(6, (hid,), .1),
-         _rand(7, (hid, skv), .3), _rand(8, (skv,), .1)]
-    t = [torch.from_numpy(x) for x in (q, k, v, *w, do)]
-    q_, k_, v_, w1, b1, w2, b2, do_ = t
-    scale = dh ** -0.5
-    a = (k_.transpose(-1, -2) @ w1 * scale).repeat_interleave(group, 0)
-    u = (w2 @ v_).repeat_interleave(group, 0)
-    nt = -(-sq // msa.BQ)
-    pad = nt * msa.BQ - sq
-    qp = torch.nn.functional.pad(q_, (0, 0, 0, pad)) \
-        .reshape(bh, nt, msa.BQ, dh)
-    dop = torch.nn.functional.pad(do_, (0, 0, 0, pad)) \
-        .reshape(bh, nt, msa.BQ, dh)
-    z = qp @ a[:, None] + b1
-    dz = (dop @ u[:, None].transpose(-1, -2)) * (z > 0)
-    parts = (qp.transpose(-1, -2) @ dz, torch.relu(z).transpose(-1, -2) @ dop,
-             dop.sum(2), dz.sum(2))
-    got = msa.bwd_products(k_, v_, w1, b1, w2, b2, *parts, group)
-    want = ref.mlp_softmax_attn_bwd(*t)[1:]
-    for g_, w_ in zip(got, want):
-        # summed in another order: 1e-5 of max(1, max |plain|)
-        err = float((g_ - w_).abs().max())
-        assert err <= 1e-5 * max(1.0, float(w_.abs().max())), err
-
-
 def test_port_imports_with_jax_blocked():
     """Every module of src/repro_torch/ imports in a process where jax and
     the JAX package cannot be imported."""
