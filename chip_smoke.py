@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port on one NVIDIA GPU: the private sieve, the
-clear scoring paths, token serving and the selection pipeline.
+clear scoring paths, token serving, the selection pipeline and the
+exact-op MPC baselines.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -150,6 +151,27 @@ result line):
      of 10, a window whose first key tile is partial and inputs x 3, checks
      a second launch bitwise and times them, flash_attn's beside SDPA's
      forward and backward and its forward alone, in float32 and bf16.
+  9. the exact-op MPC baselines, the analytic mirror and the launcher.
+     (9a) Table 2's ablations (no-sm, no-ln, no-se) and Table 3's
+     baselines (quad_sm: MPCFormer 2Quad; poly_sm: Bolt polynomial), each
+     beside the full variant, through `WaveExecutor.score_phase` with
+     phase 3's phase-2 proxy <3,12,16> and executor flags over one wave of
+     VAR_BATCHES batches of 4 at BERT-base width, on RING32 then RING64:
+     each phase must agree with its schedule, launch secure_matmul
+     (RING32) or ring_matmul (RING64), run no plain version and score
+     finite; wall, makespan, rounds, bytes, peak memory and the max
+     |decoded MPC - ClearEngine with the same variant| are printed (not
+     gated: RING32's exp and the NR reciprocal may wrap). (9b) Each
+     exact-op variant's forward on the card and the CPU with the same
+     keys, one row at depth 1 and seq 128, both rings: shares bitwise
+     equal. (9c) `costs.proxy_exec_cost` against the meta probe record for
+     record for phase 3's two proxies, eager and fused, both rings, and
+     `schedule_search.grid_search(42000)`'s Pareto frontier. (9d)
+     `launch.select.run(mode="mpc", ring_bits=32)` at its defaults: its
+     phase ledgers agree, it buys the budget, and secure_matmul, the
+     flash_attn forward and backward, the mlp_softmax_attn forward and
+     backward and entropy_head launch with no plain version; accuracies,
+     the selection wall and the paper-scale delays are printed.
 
 The last lines are the card's `nvidia-smi` name and power limit, one
 `{"kernels": [...]}` JSON line, and the result line
@@ -2443,6 +2465,230 @@ def phase_selection(seed: int, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the exact-op MPC baselines, the analytic mirror, the launcher
+# ---------------------------------------------------------------------------
+
+EXACT = ("no-sm", "no-ln", "no-se", "quad_sm", "poly_sm")
+# 9a's pool: one wave of 2 batches of BATCH, cut from WAVE batches (183 s
+# for the twelve runs), never the width or the depth; the walls are
+# host-bound, so the cut saved less than half (PERF.md §5)
+VAR_BATCHES = 2
+VAR_SEQ = 128                  # 9b's cut sequence (one row, depth 1)
+SELECT_POOL, SELECT_BUDGET = 800, 0.2      # launch/select.run's defaults
+
+
+def _plain(counts) -> dict:
+    return {n: c["ref"] for n, c in counts.items() if c["ref"]}
+
+
+def phase_variants(seed: int, proxies, smi: str) -> dict:
+    """9a: Table 2's ablations and Table 3's baselines executed over
+    shares at BERT-base width: phase 3's phase-2 proxy <3,12,16> and
+    executor flags over one wave (VAR_BATCHES batches of BATCH), each
+    variant beside the full one, on RING32 then RING64. Fatal unless each phase
+    agrees with its schedule, launches its ring kernel (secure_matmul on
+    RING32, ring_matmul on RING64), runs no plain version and scores
+    finite; decoded scores against ClearEngine with the same variant
+    are printed (RING32's 12 fractional bits may wrap in exp and the NR
+    reciprocal, so they are not gated)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.executor import ExecConfig, WaveExecutor
+    from repro_torch.engine import VARIANTS, ClearEngine, proxy_entropy
+    from repro_torch.mpc import prng
+    from repro_torch.mpc.ring import RING32, RING64
+    from repro_torch.mpc.sharing import reconstruct
+    cfg, specs, pps = proxies
+    spec, pp = specs[1], pps[1]
+    pool = np.random.default_rng(seed + 9).integers(
+        0, cfg.vocab_size, (VAR_BATCHES * BATCH, SEQ))
+    tok = torch.as_tensor(pool, device=DEVICE)
+    clear, out = {}, {}
+    launches = {"ring_matmul": 0, "secure_matmul": 0}
+    for ring in (RING32, RING64):
+        for name in ("full",) + EXACT:
+            variant = VARIANTS[name]
+            tag = f"{ring.name} {name}"
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_counters()
+            ex = WaveExecutor(ExecConfig(wave=WAVE, coalesce=True,
+                                         overlap=True, fuse=True,
+                                         batch=BATCH, ring=ring,
+                                         device=DEVICE))
+            t0 = time.time()
+            ent = ex.score_phase(prng.key(seed + 90, device=DEVICE), pp, cfg,
+                                 pool, spec, variant)
+            vals = ring.decode(reconstruct(ent)).double()
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            counts = _counters()
+            rep = ex.reports[-1]
+            ring_kernel = "smm" if ring.bits == 32 else "rmm"
+            if not rep.agrees():
+                fail(f"9a {tag}: ledger does not agree with the schedule")
+            if counts[ring_kernel]["kernel"] <= 0:
+                fail(f"9a {tag}: {ring_kernel} not launched ({counts})")
+            if _plain(counts):
+                fail(f"9a {tag}: a plain version ran ({_plain(counts)})")
+            if vals.shape != (len(pool),) or not torch.isfinite(vals).all():
+                fail(f"9a {tag}: scores of shape {tuple(vals.shape)} or "
+                     "not finite")
+            launches["ring_matmul"] += counts["rmm"]["kernel"]
+            launches["secure_matmul"] += counts["smm"]["kernel"]
+            if name not in clear:
+                clear[name] = torch.cat([
+                    proxy_entropy(ClearEngine(), pp, cfg, tok[i:i + BATCH],
+                                  spec, variant)
+                    for i in range(0, len(tok), BATCH)]).double()
+            led = rep.ledger
+            info = {"wall_s": wall,
+                    "device_makespan_s": rep.device_makespan_s,
+                    "rounds": led.rounds, "lat_rounds": led.lat_rounds,
+                    "bw_rounds": led.bw_rounds, "nbytes": led.nbytes,
+                    "offline_nbytes": led.offline_nbytes,
+                    "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    "max_abs_mpc_minus_clear": float(
+                        (vals - clear[name]).abs().max()),
+                    "ring_matmul": counts["rmm"]["kernel"],
+                    "secure_matmul": counts["smm"]["kernel"]}
+            log(f"[9a] {tag} <{spec.n_layers},{spec.n_heads},"
+                f"{spec.mlp_dim}>, {len(pool)} candidates ({smi}): "
+                + json.dumps(info))
+            out[tag] = info
+    out["launches"] = launches
+    return out
+
+
+def phase_variants_card_vs_cpu(seed: int) -> None:
+    """9b: each exact-op variant's forward on the card and on the CPU
+    with the same keys, one row at depth CPU_LAYERS and seq VAR_SEQ (a
+    proxy of that seq, random from --seed; widths stay BERT-base's), on
+    both rings: shares bitwise equal. The cut bounds the CPU's time; the
+    ring kernels are held bitwise at the path's shapes in phase 2."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.paper_targets import BERT
+    from repro_torch.core.proxy import ProxySpec, random_proxy, share_proxy
+    from repro_torch.core.tree import tree_leaves, tree_rebuild
+    from repro_torch.engine import VARIANTS, MPCEngine, proxy_entropy
+    from repro_torch.mpc import prng
+    from repro_torch.mpc.ring import RING32, RING64
+    from repro_torch.mpc.sharing import Share, share
+    spec = ProxySpec(CPU_LAYERS, *PHASES[1][1:])
+    pp = random_proxy(torch.Generator().manual_seed(seed + 91), BERT, spec,
+                      VAR_SEQ, CLASSES, device="cpu")
+    emb = pp.pop("embed")
+    tok = np.random.default_rng(seed + 92).integers(0, BERT.vocab_size,
+                                                    (1, VAR_SEQ))
+    x = emb[torch.as_tensor(tok)] * float(np.float32(BERT.d_model ** 0.5))
+    for ring in (RING32, RING64):
+        key = prng.key(seed + 93)
+        pp_sh = share_proxy(prng.fold_in(key, 1), pp, ring)
+        x_sh = share(prng.fold_in(key, 2), x, ring)
+        for name in EXACT:
+            got = {}
+            for dev in (DEVICE, "cpu"):
+                d = torch.device(dev)
+                psh = tree_rebuild(pp_sh, [s.with_sh(s.sh.to(d))
+                                           for s in tree_leaves(pp_sh)])
+                eng = MPCEngine(ring).with_key(prng.fold_in(key, 3).to(d))
+                t0 = time.time()
+                ent = proxy_entropy(eng, psh, BERT, Share(x_sh.sh.to(d),
+                                                          ring),
+                                    spec, VARIANTS[name])
+                got[dev] = (ent.sh.cpu(), time.time() - t0)
+            if not torch.equal(got[DEVICE][0], got["cpu"][0]):
+                fail(f"9b {ring.name} {name}: card and CPU shares differ")
+            log(f"[9b] {ring.name} {name}: card == CPU, bitwise (card "
+                f"{got[DEVICE][1]:.2f} s, CPU {got['cpu'][1]:.2f} s)")
+
+
+def phase_mirror(proxies) -> dict:
+    """9c: `costs.proxy_exec_cost` against the meta probe of the executed
+    forward, record for record (rounds, bytes, numel, flops, tag), for
+    phase 3's two proxies at its batch, eager and fused, on both rings;
+    then `schedule_search.grid_search(42_000)`'s Pareto frontier."""
+    from repro_torch.core import schedule_search
+    from repro_torch.engine import cached_probe
+    from repro_torch.mpc import costs
+    from repro_torch.mpc.ring import RING32, RING64
+    cfg, specs, _ = proxies
+
+    def stream(led):
+        return [(r.rounds, r.nbytes, r.numel, r.flops, r.tag)
+                for r in led.records]
+    for ring in (RING32, RING64):
+        for spec in specs:
+            for fused in (False, True):
+                probe = cached_probe(cfg, spec, batch=BATCH, seq=SEQ,
+                                     classes=CLASSES, ring=ring, fused=fused)
+                mirror = costs.proxy_exec_cost(
+                    BATCH, SEQ, cfg.d_model, spec.n_heads, cfg.n_kv_heads,
+                    cfg.d_head, spec.mlp_dim, CLASSES, spec.n_layers,
+                    ring=ring, fused=fused)
+                name = (f"{ring.name} <{spec.n_layers},{spec.n_heads},"
+                        f"{spec.mlp_dim}> {'fused' if fused else 'eager'}")
+                if stream(probe) != stream(mirror):
+                    fail(f"9c {name}: the mirror differs from the probe")
+                log(f"[9c] {name}: mirror == probe, {len(probe.records)} "
+                    f"records, {probe.rounds} rounds, {probe.nbytes} online "
+                    f"B, {probe.offline_nbytes} offline B")
+    t0 = time.time()
+    front = schedule_search.grid_search(42_000)
+    out = [{"phases": [[p.n_layers, p.n_heads, p.mlp_dim, p.selectivity]
+                       for p in s.phases],
+            "delay_wan_h": s.delay_s / 3600, "capacity": s.capacity}
+           for s in front]
+    log(f"[9c] grid_search(42000) Pareto frontier ({time.time() - t0:.1f} "
+        "s): " + json.dumps(out))
+    return {"frontier": out}
+
+
+def phase_select(seed: int, smi: str) -> dict:
+    """9d: the launcher, `launch.select.run(mode="mpc", ring_bits=32,
+    resume=False)` at its defaults on the card. Fatal unless the phase
+    ledgers agree, the purchase is the budget, secure_matmul and every
+    clear-side kernel (flash_attn forward and backward in the finetunes,
+    mlp_softmax_attn forward and backward in in-vivo, entropy_head in
+    the fits) launched, and no plain version ran."""
+    import torch
+    from repro_torch.launch import select
+    _reset_counters()
+    t0 = time.time()
+    out = select.run(seed, mode="mpc", ring_bits=32, resume=False,
+                     device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = _counters()
+    ex = out["executed"]
+    if ex["ledger_agrees"] is not True:
+        fail(f"9d: ledger_agrees {ex['ledger_agrees']}")
+    if out["n_selected"] != int(SELECT_BUDGET * SELECT_POOL):
+        fail(f"9d: {out['n_selected']} selected")
+    missing = [n for n in ("smm", "fa", "fa_bwd", "msa", "msa_bwd", "eh")
+               if counts[n]["kernel"] <= 0]
+    if missing or _plain(counts):
+        fail(f"9d: not launched {missing}, plain {_plain(counts)}")
+    d = out["paper_scale_delay"]
+    info = {"wall_s": wall, "acc_ours": out["acc_ours"],
+            "acc_random": out["acc_random"],
+            "selection_wall_s": out["selection_wall_s"],
+            "device_makespan_s": [p["device_makespan_s"]
+                                  for p in ex["phases"]],
+            "paper_scale_delay": d,
+            "launches": {n: c["kernel"] for n, c in counts.items()}}
+    log(f"[9d] launch.select.run mpc ring32 ({smi}): " + json.dumps(info))
+    log(f"[9d] ours {out['acc_ours']:.4f} vs random "
+        f"{out['acc_random']:.4f}; selection {out['selection_wall_s']:.1f} "
+        f"s; paper-scale delay WAN {d['wan']['ours_hours']:.2f} h vs "
+        f"oracle {d['wan']['oracle_hours']:.1f} h, pod-DCN "
+        f"{d['pod_dcn']['ours_hours']:.4f} h vs "
+        f"{d['pod_dcn']['oracle_hours']:.3f} h")
+    return info
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2502,7 +2748,24 @@ def main(argv=None) -> int:
     t0 = time.time()
     pipeline = phase_selection(args.seed, smi)
     log(f"[8] run_selection phase: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    variants = phase_variants(args.seed, proxies, smi)
+    log(f"[9a] exact-op variants: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    phase_variants_card_vs_cpu(args.seed)
+    log(f"[9b] card vs CPU: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    phase_mirror(proxies)
+    log(f"[9c] mirror: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    selected = phase_select(args.seed, smi)
+    log(f"[9d] launch.select: {time.time() - t0:.1f} s")
 
+    dl = selected["launches"]
+    by_path = {name: {"3": sieve["launches"][name],
+                      "9a": variants["launches"][name], "9d": dl[short]}
+               for name, short in (("ring_matmul", "rmm"),
+                                   ("secure_matmul", "smm"))}
     kernels = []
     for name, tpu in (("ring_matmul", RING_MATMUL_TPU),
                       ("secure_matmul", SECURE_MATMUL_TPU)):
@@ -2510,7 +2773,8 @@ def main(argv=None) -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": f"{CSRC}/{name}.cu",
             "replaces": tpu,
-            "launches": sieve["launches"][name],
+            "launches": sum(by_path[name].values()),
+            "launches_by_path": by_path[name],
             "max_abs_err": max(k32["max_abs_err"], k64["max_abs_err"]),
             "ms": k32["ms"], "plain_ms": k32["plain_ms"],
             "bound_ms": k32["bound_ms"], "bound_by": k32["bound_by"],
@@ -2532,9 +2796,11 @@ def main(argv=None) -> int:
     rg = serving["recurrentgemma_2b"]["launches"]
     launches = {
         "flash_attn": tgt["launches"]["flash_attn"]["kernel"]
-        + rg["flash_attn"]["kernel"],
-        "entropy_head": tgt["launches"]["entropy_head"]["kernel"],
-        "mlp_softmax_attn": csieve["launches"]["mlp_softmax_attn"]["kernel"],
+        + rg["flash_attn"]["kernel"] + dl["fa"],
+        "entropy_head": tgt["launches"]["entropy_head"]["kernel"]
+        + dl["eh"],
+        "mlp_softmax_attn": csieve["launches"]["mlp_softmax_attn"]["kernel"]
+        + dl["msa"],
         "ssd": serving["mamba2_2_7b"]["launches"]["ssd"]["kernel"],
         "rg_lru": rg["rg_lru"]["kernel"]}
     tpu = {"flash_attn": FLASH_ATTN_TPU, "entropy_head": ENTROPY_HEAD_TPU,
@@ -2576,6 +2842,9 @@ def main(argv=None) -> int:
             kernels[-1]["sass"] = ssd_sass
         if name == "entropy_head":
             kernels[-1]["build"] = eh_build
+            kernels[-1]["launches_by_path"] = {
+                "6a": tgt["launches"]["entropy_head"]["kernel"],
+                "9d": dl["eh"]}
         if name == "rg_lru":
             kernels[-1]["build"] = lru_build
             kernels[-1]["prefill_batch_kernel_ms"] = serving[
@@ -2584,23 +2853,27 @@ def main(argv=None) -> int:
             kernels[-1]["build"] = msa_build
             kernels[-1]["clear_sieve_kernel_ms"] = \
                 csieve["mlp_softmax_attn_ms"]
+            kernels[-1]["launches_by_path"] = {
+                "6b": csieve["launches"]["mlp_softmax_attn"]["kernel"],
+                "9d": dl["msa"]}
         if name == "flash_attn":
             kernels[-1]["sass"] = fa_sass
             kernels[-1]["launches_by_path"] = {
                 "6a": tgt["launches"]["flash_attn"]["kernel"],
-                "7 recurrentgemma_2b": rg["flash_attn"]["kernel"]}
-    for name, src, replaces, build_info in (
-            ("flash_attn_bwd", "flash_attn_bwd.cu", FLASH_ATTN_BWD_REPLACES,
-             fa_bwd_build),
-            ("mlp_softmax_attn_bwd", "mlp_softmax_attn_bwd.cu",
+                "7 recurrentgemma_2b": rg["flash_attn"]["kernel"],
+                "9d": dl["fa"]}
+    for name, short, src, replaces, build_info in (
+            ("flash_attn_bwd", "fa_bwd", "flash_attn_bwd.cu",
+             FLASH_ATTN_BWD_REPLACES, fa_bwd_build),
+            ("mlp_softmax_attn_bwd", "msa_bwd", "mlp_softmax_attn_bwd.cu",
              MLP_SOFTMAX_ATTN_BWD_REPLACES, msa_bwd_build)):
         k = bkern[name]
         kernels.append({
             "name": name, "route": "cuda", "source": f"{CSRC}/{src}",
             "replaces": replaces,
-            "launches": pipeline["training_launches"][name.replace(
-                "flash_attn_bwd", "fa_bwd").replace(
-                "mlp_softmax_attn_bwd", "msa_bwd")],
+            "launches": pipeline["training_launches"][short] + dl[short],
+            "launches_by_path": {"8": pipeline["training_launches"][short],
+                                 "9d": dl[short]},
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k.get("library_ms"),

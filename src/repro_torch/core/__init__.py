@@ -11,5 +11,8 @@
                 phase checkpoints, appraisal
   iosched.py    parallel MPC execution: latency-op coalescing + comm/
                 compute overlap makespan (paper §4.4)
-  executor.py   the wave-pipelined sieve executor (Stage 2)
+  executor.py   the wave-pipelined sieve executor (Stage 2), and Fig
+                7's four schedule variants on one pool (run_variants)
+  schedule_search.py  offline grid search over phase schedules, priced
+                by the executed op stream (paper §4.2)
 """

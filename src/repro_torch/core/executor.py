@@ -22,6 +22,9 @@ against the per-batch probe (engine/trace.py). Scores are bitwise
 identical across the (coalesce, overlap) variants and bitwise equal to
 the JAX package's for the same key.
 
+`run_variants` executes Fig 7's four (coalesce, overlap) points on one
+pool and holds them to that contract.
+
 The executor runs on the card (`ExecConfig.device="cuda"`) unless the
 caller asks for the CPU, as the tests do; asking for CUDA where there is
 no card raises.
@@ -107,6 +110,29 @@ class PhaseReport:
         """Realized flights == the makespan model's inputs, exactly."""
         return iosched.ledger_agrees(self.ledger, self.per_batch,
                                      self.n_batches, self.sched)
+
+    def makespan(self, net: comm.NetProfile) -> float:
+        """Modeled end-to-end delay of this phase's measured op stream."""
+        return iosched.makespan(self.per_batch, self.n_batches, net,
+                                self.sched)
+
+    def as_dict(self) -> dict:
+        """The per-phase report dict, in the JAX package's shape less its
+        `wire` entry (real-wire execution is not ported): `makespan_wan_s`
+        prices the measured stream under the WAN profile."""
+        return {
+            "n_batches": self.n_batches, "n_waves": self.n_waves,
+            "protocol": self.protocol,
+            "lat_rounds": self.ledger.lat_rounds,
+            "bw_rounds": self.ledger.bw_rounds,
+            "nbytes": self.ledger.nbytes,
+            "offline_nbytes": self.ledger.offline_nbytes,
+            "makespan_wan_s": self.makespan(comm.PROFILES["wan"]),
+            "wall_s": self.wall_s,
+            "device_makespan_s": self.device_makespan_s,
+            "device": self.device.as_dict() if self.device is not None
+                      else None,
+        }
 
 
 class WaveExecutor:
@@ -285,3 +311,39 @@ class PhaseRun:
             sched=cfg.sched(), ring=self.ring, protocol=self.proto,
             fused=cfg.fuse, device=dev)
         return Share(out, self.ring, self.proto), rep
+
+
+def run_variants(key, pp, arch_cfg: ArchConfig, tokens, spec: ProxySpec,
+                 *, batch: int, wave: int,
+                 flops_per_s: float = 10e12,
+                 fuse: bool | None = None,
+                 protocol: str = "2pc", ring: RingSpec = RING64,
+                 variant=FULL_VARIANT,
+                 device: str = "cuda") -> dict[str, PhaseReport]:
+    """Fig-7's four (coalesce, overlap) points, executed on one pool.
+
+    Returns name -> PhaseReport; every variant is checked for exact
+    ledger agreement with the makespan inputs, and all variants produce
+    bitwise-identical scores (the schedule moves flights, not values —
+    and the flight batcher, on by default, `fuse=None` following
+    ExecConfig, compresses rounds without changing a share either).
+    """
+    reports = {}
+    ref = None
+    fuse_kw = {} if fuse is None else {"fuse": fuse}
+    for name, (co, ov) in iosched.FIG7_VARIANTS.items():
+        ex = WaveExecutor(ExecConfig(wave=wave, coalesce=co, overlap=ov,
+                                     batch=batch, flops_per_s=flops_per_s,
+                                     protocol=protocol, ring=ring,
+                                     device=device, **fuse_kw))
+        ent = ex.score_phase(key, pp, arch_cfg, tokens, spec, variant)
+        rep = ex.reports[-1]
+        if not rep.agrees():
+            raise AssertionError(
+                f"executor ledger for {name} diverges from makespan inputs")
+        if ref is None:
+            ref = ent.sh
+        elif not torch.equal(ref, ent.sh):
+            raise AssertionError(f"variant {name} changed scores")
+        reports[name] = rep
+    return reports

@@ -15,7 +15,8 @@ Nonlinearity policy: the Table-2/Table-3 `variant` sets are engine-level
 strategies. A variant is a frozenset naming which nonlinearities use MLP
 emulators ("sm", "ln", "se"); absent members fall back to the exact op,
 and "quad_sm" / "poly_sm" select the MPCFormer-2Quad and Bolt-polynomial
-softmax baselines. Over MPC only the full MLP variant is ported so far.
+softmax baselines. Every variant runs on every engine: over MPC the
+exact ops are the share-level protocols of `mpc/nonlinear.py`.
 """
 from typing import Any, Protocol, runtime_checkable
 

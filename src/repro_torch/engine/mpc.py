@@ -16,13 +16,14 @@ PRNG keys are threaded internally: the engine is seeded once per
 forward (`with_key`) and derives one key per keyed op site by folding
 an op counter.
 
-Only the full MLP-emulator variant ("sm", "ln", "se": the MLPs plus
-`compare.relu`) is ported. The exact-op strategies — CrypTen softmax,
-NR rsqrt, secure entropy, the 2Quad and polynomial baseline softmaxes —
-need `mpc/nonlinear.py`, which a later slice ports; they raise here.
+Exact-op variant strategies (softmax / rsqrt / entropy when the MLP
+emulator is ablated, plus the 2Quad and polynomial baseline softmaxes)
+run the real CrypTen-style protocols from `mpc/nonlinear.py` — this is
+what lets Table 3's baselines be *executed* over MPC, not only priced.
 """
 from repro_torch.engine.forward import _mlp_at, attend_materialized
-from repro_torch.mpc import compare, fusion, prng, protocols, ops as mops
+from repro_torch.mpc import (compare, fusion, nonlinear, prng, protocols,
+                             ops as mops)
 from repro_torch.mpc.ring import RING64, RingSpec
 from repro_torch.mpc.sharing import Share
 
@@ -30,12 +31,6 @@ from repro_torch.mpc.sharing import Share
 def _ax(axis: int) -> int:
     """Value axis -> share-array axis (leading party axis)."""
     return axis + 1 if axis >= 0 else axis
-
-
-def _not_ported(what: str):
-    raise NotImplementedError(
-        f"{what} over MPC needs mpc/nonlinear.py, which is not ported yet: "
-        "only the full MLP-emulator variant runs")
 
 
 def mlp_apply_mpc(p_sh: dict, x: Share, key) -> Share:
@@ -167,14 +162,16 @@ class MPCEngine:
     def ln_inv(self, pp, li, var, variant):
         if "ln" in variant:
             return self.mlp(_mlp_at(pp["mlp_ln"], li), var)
-        _not_ported("the exact rsqrt")
+        return nonlinear.rsqrt(mops.add_public(var, 1e-5), self._k())
 
     def attn_probs(self, pp, li, scores, variant):
         if "sm" in variant:
             return self.mlp(_mlp_at(pp["mlp_sm"], li), scores)
-        if "quad_sm" in variant or "poly_sm" in variant:
-            _not_ported("the baseline softmax")
-        _not_ported("the exact softmax")
+        if "quad_sm" in variant:
+            return self._quad_softmax(scores)
+        if "poly_sm" in variant:
+            return self._poly_softmax(scores)
+        return nonlinear.softmax(scores, self._k(), axis=-1)
 
     def attend(self, pp, li, qT, kT, v, variant):
         return attend_materialized(self, pp, li, qT, kT, v, variant)
@@ -184,7 +181,65 @@ class MPCEngine:
         public boundary. Downstream consumers (QuickSelect ranking,
         appraisal means) see fb == frac_bits."""
         b = logits.shape[0]
-        if "se" not in variant:
-            _not_ported("the exact entropy")
-        out = self.mlp(pp["mlp_se"], logits).reshape(b)
-        return mops.force(out, self._k())
+        if "se" in variant:
+            out = self.mlp(pp["mlp_se"], logits).reshape(b)
+        else:
+            out = nonlinear.entropy_from_logits(logits, self._k())
+        out = mops.force(out, self._k())
+        # Malicious backends verify every partial opening of the forward
+        # with ONE batched MAC check at this boundary. Semi-honest
+        # backends (every ported one) have no hook; nothing fires.
+        check = getattr(self.backend, "mac_check_flight", None)
+        if check is not None:
+            check(self.ring)
+        return out
+
+    # -- Table-3 baseline softmaxes over shares --------------------------
+    def _quad_softmax(self, scores):
+        """MPCFormer 2Quad: (x+5)^2 / sum — square + NR reciprocal."""
+        a = mops.add_public(scores, 5.0)
+        e = mops.mul(a, a, self._k())
+        s = mops.sum_(e, axis=-1, keepdims=True)
+        # clamp mirroring the clear strategy's max(sum, 1e-6): keeps the
+        # NR reciprocal away from a near-zero pole when every score in a
+        # row sits near -5
+        s = mops.add_public(s, 1e-6)
+        r = nonlinear.reciprocal(s, self._k())
+        rb = r.with_sh(r.sh.expand(e.sh.shape))
+        return mops.mul(e, rb, self._k())
+
+    def _poly_softmax(self, scores):
+        """Bolt-style polynomial exp of clipped, max-shifted scores.
+
+        clip(t, -8, 0) over shares: max(t,-8) = relu(t+8)-8, then
+        min(u,0) = u - relu(u) — two comparisons per element, matching
+        the baseline's real MPC cost profile. The comparisons are
+        scale-invariant and their bits multiply at exponent 0, so the
+        whole clip chain rides at the scores' carried exponent without
+        a single truncation.
+        """
+        mx = compare.max_(scores, axis=-1, key=self._k())
+        mb = mx.with_sh(mx.sh.expand(scores.sh.shape))
+        # keyed subs: the max-shift may align carried exponents DOWN a
+        # real truncation (keyless degrades to the local-shift path,
+        # wrap-prone on RING32)
+        t = mops.sub(scores, mb, key=self._k())
+        lo = mops.add_public(compare.relu(mops.add_public(t, 8.0), self._k()),
+                             -8.0)
+        t = mops.sub(lo, compare.relu(lo, self._k()), key=self._k())
+        # Horner: e = 1 + t(1 + t(1/2 + t(1/6 + t/24))) — one fused
+        # flight: every message is a mask component, the public parts of
+        # the chained openings reconstruct locally (fusion.py legality).
+        # Each step's product emits at 2f and the next mul's headroom
+        # plan forces exactly one trunc.
+        with fusion.fused_group("horner"):
+            acc = mops.add_public(mops.mul_public(t, 1.0 / 24.0,
+                                                  key=self._k()), 1.0 / 6.0)
+            acc = mops.add_public(mops.mul(t, acc, self._k()), 0.5)
+            acc = mops.add_public(mops.mul(t, acc, self._k()), 1.0)
+            e = mops.add_public(mops.mul(t, acc, self._k()), 1.0)
+        e = compare.relu(e, self._k())
+        s = mops.sum_(e, axis=-1, keepdims=True)
+        r = nonlinear.reciprocal(s, self._k())
+        rb = r.with_sh(r.sh.expand(e.sh.shape))
+        return mops.mul(e, rb, self._k())

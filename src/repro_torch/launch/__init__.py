@@ -1,1 +1,2 @@
-"""Launchers of the port: `serve.py`, the token server."""
+"""Launchers of the port: `serve.py`, the token server, and `select.py`,
+the SelectFormer workflow launcher."""

@@ -7,9 +7,9 @@ bytes, and reveals only the binary outcome.
 
 Semantics are computed from the summed components *inside the
 functionality boundary* — the returned object is either a Share of the
-bit (private outcome, used by ReLU) or a revealed bool (public outcome,
-used by QuickSelect ranking, which the paper explicitly reveals).
-Outputs inherit the input's protocol backend.
+bit (private outcome, used by ReLU and the tournament max) or a
+revealed bool (public outcome, used by QuickSelect ranking, which the
+paper explicitly reveals). Outputs inherit the input's protocol backend.
 """
 from __future__ import annotations
 
@@ -44,6 +44,10 @@ def lt_zero(x: Share, key: torch.Tensor) -> Share:
     return share_encoded(key, bit, x.ring, x.proto, fb=0)
 
 
+def le(x: Share, y: Share, key: torch.Tensor) -> Share:
+    return lt_zero(ops.sub(x, y), key)
+
+
 def reveal_lt(x: Share, y: Share) -> torch.Tensor:
     """Public bit x<y — what QuickSelect consumes (outcome revealed)."""
     d = ops.sub(x, y)
@@ -61,3 +65,27 @@ def relu(x: Share, key: torch.Tensor) -> Share:
     neg_bit = lt_zero(x, kb)
     pos_bit = ops.add_public(ops.neg(neg_bit), 1.0)
     return ops.mul(x, pos_bit, km)
+
+
+def max_(x: Share, axis: int, key: torch.Tensor) -> Share:
+    """Tournament max along an axis: log2(n) comparison rounds."""
+    cur = x
+    i = 0
+    while cur.shape[axis] > 1:
+        m = cur.shape[axis]
+        half = m // 2
+        ax = axis + 1 if axis >= 0 else axis
+        lo = cur.with_sh(cur.sh.narrow(ax, 0, half))
+        hi = cur.with_sh(cur.sh.narrow(ax, half, half))
+        kb, km, ka, key = prng.split(prng.fold_in(key, i), 4).unbind(-2)
+        b = le(lo, hi, kb)                      # [lo < hi]
+        diff = ops.sub(hi, lo)
+        # keyed: the align clamp may FORCE lo down a real truncation
+        # (keyless would be the local-shift path — wrap-prone on RING32)
+        mx = ops.add(lo, ops.mul(b, diff, km), key=ka)  # lo + b*(hi-lo)
+        if m % 2:
+            tail = cur.with_sh(cur.sh.narrow(ax, 2 * half, m - 2 * half))
+            mx = ops.concat([mx, tail], axis=axis)
+        cur = mx
+        i += 1
+    return cur

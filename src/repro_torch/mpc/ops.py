@@ -9,7 +9,7 @@ op (multiplication, matmul, truncation) dispatches to the share's
 Fixed-point scale is a tracked property of the value (`Share.fb`, the
 mpc/scale.py lattice), not an op-boundary invariant:
 
-  add/sub ...................... align exponents by exact local lifts
+  add/sub/concat/stack ......... align exponents by exact local lifts
   mul_public by ±2**k .......... pure exponent fold — zero arithmetic
   mul_public general ........... encode at f, emit at fb+f, NO trunc
   mul / matmul ................. emit at the summed exponent (<= 2f),
@@ -194,6 +194,19 @@ def mean(x: Share, axis: int, *, key: torch.Tensor | None = None) -> Share:
     return mul_public(s, 1.0 / n, key=key)
 
 
+def stack(xs: list[Share], axis: int = 0, *,
+          key: torch.Tensor | None = None) -> Share:
+    xs = _aligned(xs, key)
+    return xs[0].with_sh(torch.stack([x.sh for x in xs], dim=axis + 1))
+
+
+def concat(xs: list[Share], axis: int = 0, *,
+           key: torch.Tensor | None = None) -> Share:
+    xs = _aligned(xs, key)
+    ax = axis + 1 if axis >= 0 else axis
+    return xs[0].with_sh(torch.cat([x.sh for x in xs], dim=ax))
+
+
 # ---------------------------------------------------------------------------
 # scheme-dependent ops: dispatch to the share's protocol backend
 # ---------------------------------------------------------------------------
@@ -233,6 +246,10 @@ def mul(x: Share, y: Share, key: torch.Tensor) -> Share:
     x, y, out_fb = _forced_operands(x, y, key)
     z = x.backend.mul(x, y, key)
     return z.with_scale(z.sh, out_fb)
+
+
+def square(x: Share, key: torch.Tensor) -> Share:
+    return mul(x, x, key)
 
 
 def matmul(x: Share, y: Share, key: torch.Tensor, *,

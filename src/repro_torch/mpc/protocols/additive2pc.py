@@ -113,6 +113,9 @@ class Additive2PC(BackendDefaults):
                       ring: RingSpec) -> torch.Tensor:
         return _share_raw(key, enc, ring)
 
+    def from_public(self, enc: torch.Tensor) -> torch.Tensor:
+        return torch.stack([enc, torch.zeros_like(enc)])
+
     def open_bytes(self, ring: RingSpec, n: int) -> int:
         return 2 * ring.elem_bytes * n
 

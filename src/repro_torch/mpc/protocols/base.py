@@ -71,6 +71,10 @@ class ProtocolBackend(Protocol):
     def share_encoded(self, key: torch.Tensor, enc: torch.Tensor,
                       ring: RingSpec) -> torch.Tensor: ...
 
+    def from_public(self, enc: torch.Tensor) -> torch.Tensor:
+        """Trivial sharing of a public ring element."""
+        ...
+
     def open_bytes(self, ring: RingSpec, n: int) -> int: ...
 
     def reconstruct(self, sh: torch.Tensor) -> torch.Tensor: ...

@@ -64,7 +64,7 @@ def pow2_exponent(v) -> int | None:
     encode-at-f path)."""
     try:
         x = float(v)
-    except (TypeError, ValueError):
+    except (TypeError, ValueError, RuntimeError):   # torch: many elements
         return None
     if x == 0.0 or math.isinf(x) or math.isnan(x):
         return None

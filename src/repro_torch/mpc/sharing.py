@@ -137,6 +137,20 @@ def reveal(x: Share) -> torch.Tensor:
     return x.ring.decode_at(open_(x), x.fb)
 
 
+def zeros_like(x: Share) -> Share:
+    return x.with_sh(torch.zeros_like(x.sh))
+
+
+def from_public(v, ring: RingSpec = RING64, proto: str = "2pc",
+                fb: int | None = None) -> Share:
+    """A public constant as a (trivial) share: component 0 holds it all.
+    `v` is a float tensor; the share lives where it lives."""
+    from repro_torch.mpc import protocols
+    fb = ring.frac_bits if fb is None else fb
+    return Share(protocols.get(proto).from_public(ring.encode_at(v, fb)),
+                 ring, proto, fb)
+
+
 def _numel(x: Share) -> int:
     n = 1
     for d in x.shape:
