@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port on one NVIDIA GPU: the private sieve, the
-clear scoring paths, token serving, the selection pipeline and the
-exact-op MPC baselines.
+clear scoring paths, token serving, the selection pipeline, the
+exact-op MPC baselines and the appraisal service.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -88,10 +88,10 @@ result line):
      wave of each ring is then profiled (torch.profiler): device busy
      share, the GEMM kernels' time, secure_matmul's (RING32) and the
      bitwise (threefry) kernels' time;
-  4. the card against the CPU: one batch of the phase-2 forward with the
-     same keys on both — shares must be bitwise equal on both rings
-     (depth cut to CPU_LAYERS to bound the CPU's time; widths stay
-     full);
+  4. the card against the CPU: CPU_ROWS rows of the phase-2 forward
+     with the same keys on both — shares must be bitwise equal on both
+     rings (depth cut to CPU_LAYERS and rows to CPU_ROWS to bound the
+     CPU's time; widths stay full);
   5. clear against MPC: the max |decoded MPC - clear entropy| per ring
      over the phase-2 candidates (printed, not gated);
   6. the clear scoring paths at full width: (a) the BERT-base target
@@ -172,6 +172,23 @@ result line):
      flash_attn forward and backward, the mlp_softmax_attn forward and
      backward and entropy_head launch with no plain version; accuracies,
      the selection wall and the paper-scale delays are printed.
+ 10. the appraisal service. (10a) `serve.AppraisalServer` on the card,
+     dealer on (its material drawn on the card), with three sessions over
+     phase 8's BERT-base target: s0 is 8b's MPC run exactly, s1 its twin,
+     s2 the same target over a second pool (another data owner). Fatal
+     unless s0's and s1's phase scores, survivors and appraisal are
+     bitwise 8b's, s1 executed no MPC phase (served from the cache or by
+     waiting on s0's in-flight phase: 4 of 6 phases executed), every
+     session's ledger agrees and holds only its own flights, s2's phase-1
+     scores decode finite, and secure_matmul, ring_matmul, the flash_attn
+     and mlp_softmax_attn forward and backward and entropy_head launched
+     with no plain version. The phase's and each session's wall, the
+     modelled throughput at wan, the cache's and the dealer's counters
+     (stall seconds, bytes produced), the peak device memory and each
+     session's launches by kernel are printed. (10b)
+     `launch.serve.appraise` at its defaults (TINY target, RING64): its
+     ledgers agree, the cache hits, the kernels launch with no plain
+     version.
 
 The last lines are the card's `nvidia-smi` name and power limit, one
 `{"kernels": [...]}` JSON line, and the result line
@@ -1359,6 +1376,11 @@ def phase_scan_kernels(seed: int) -> dict:
 
 PHASES = ((1, 1, 2), (3, 12, 16))
 CPU_LAYERS = 1                 # phase-2 depth of the card-vs-CPU check
+# its rows: cut from BATCH = 4 so that the script, phase 10 included,
+# stays well inside its time limit on the slowest hosts (at 4 rows the
+# host CPU's forwards took 146 s of a 1,067 s run beside an H100,
+# PERF.md §6)
+CPU_ROWS = 2
 POOL, KEEPS, BATCH, SEQ, CLASSES, WAVE = 64, (24, 8), 4, 512, 2, 4
 
 
@@ -1571,7 +1593,7 @@ def phase_card_vs_cpu(seed: int, proxies) -> None:
         pp[k] = pp[k][:CPU_LAYERS]
     del pp["embed"]
     tok = np.random.default_rng(seed + 1).integers(0, cfg.vocab_size,
-                                                   (BATCH, SEQ))
+                                                   (CPU_ROWS, SEQ))
     x = pps[1]["embed"][torch.as_tensor(tok, device=DEVICE)] \
         * float(np.float32(cfg.d_model ** 0.5))
     for ring in (RING32, RING64):
@@ -2091,6 +2113,22 @@ class _Stages:
             setattr(mod, name, fn)
 
 
+def _sel_config(mode, ckpt, ring=None, steps=None):
+    """Phase 8's SelectionConfig: `two_phase_default(12)`, phase 3's
+    executor flags, SelectionConfig's step counts unless `steps` cuts
+    them."""
+    from repro_torch.configs.paper_targets import BERT
+    from repro_torch.core import selection
+    from repro_torch.core.executor import ExecConfig
+    exe = ExecConfig(wave=WAVE, coalesce=True, overlap=True, fuse=True,
+                     batch=BATCH, device=DEVICE,
+                     **({"ring": ring} if ring else {}))
+    return selection.SelectionConfig(
+        selection.two_phase_default(BERT.n_heads), mode=mode,
+        score_batch=BATCH, checkpoint_dir=ckpt, executor=exe,
+        **(steps or {}))
+
+
 def _run_selection(seed, params, pool, labels, mode, ckpt, ring=None,
                    steps=None):
     """run_selection on the card at the phase's scale, SelectionConfig's
@@ -2099,15 +2137,8 @@ def _run_selection(seed, params, pool, labels, mode, ckpt, ring=None,
     import torch
     from repro_torch.configs.paper_targets import BERT
     from repro_torch.core import selection
-    from repro_torch.core.executor import ExecConfig
     from repro_torch.mpc import prng
-    exe = ExecConfig(wave=WAVE, coalesce=True, overlap=True, fuse=True,
-                     batch=BATCH, device=DEVICE,
-                     **({"ring": ring} if ring else {}))
-    sel = selection.SelectionConfig(
-        selection.two_phase_default(BERT.n_heads), mode=mode,
-        score_batch=BATCH, checkpoint_dir=ckpt, executor=exe,
-        **(steps or {}))
+    sel = _sel_config(mode, ckpt, ring, steps)
     if steps:
         log(f"[8] {mode}: step counts cut from SelectionConfig's defaults "
             f"to {steps}")
@@ -2459,9 +2490,13 @@ def phase_selection(seed: int, smi: str) -> dict:
             fail(f"resume: {rres.resumed_phases} phases resumed, appraisal "
                  f"{rres.appraisal_entropy} against "
                  f"{res.appraisal_entropy}")
-    out["training_launches"] = {
-        n: mcounts[n]["kernel"] + counts[n]["kernel"]
-        for n in ("fa_bwd", "msa_bwd")}
+    # 8a's two runs (clear, then MPC): the training's kernels, forward
+    # and backward, and the sieve's
+    out["launches"] = {n: mcounts[n]["kernel"] + counts[n]["kernel"]
+                       for n in COUNTERS}
+    # what phase 10 serves again: the target, the pool, 8b's MPC result
+    out["inputs"] = (params, pool, labels)
+    out["8b mpc result"] = mres_b
     return out
 
 
@@ -2689,6 +2724,166 @@ def phase_select(seed: int, smi: str) -> dict:
     return info
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the appraisal service
+# ---------------------------------------------------------------------------
+
+def _served(srv, specs) -> tuple[list, dict, dict, float]:
+    """Submit `specs` to `srv` and drain it, counting each session's
+    kernel launches around the server's scheduling quanta (each quantum
+    runs one session's work on this thread); returns (sessions, report,
+    launches by session id, wall s)."""
+    import torch
+    step, per = srv._step, {}
+
+    def counted(sess):
+        before = _counters()
+        step(sess)
+        acc = per.setdefault(sess.sid, dict.fromkeys(COUNTERS, 0))
+        for n, c in _delta(_counters(), before).items():
+            acc[n] += c["kernel"]
+    srv._step = counted
+    t0 = time.time()
+    try:
+        sessions = [srv.submit(s) for s in specs]
+        rep = srv.run()
+        torch.cuda.synchronize()
+    finally:
+        srv.close()
+    return sessions, rep, per, time.time() - t0
+
+
+def phase_service(seed: int, smi: str, pipeline: dict) -> dict:
+    """10a: an `AppraisalServer` on the card (dealer on, default
+    max_active) with three sessions over phase 8's BERT-base target: s0
+    is 8b's MPC run (the same key, target, pool, step counts, RING32 and
+    executor flags), s1 its twin, s2 the same target over a second pool
+    (the task of --seed + 1: another data owner). Fatal unless s0's and
+    s1's phase scores, survivors and appraisal are bitwise 8b's, s1's
+    phases were never executed (cache hits or coalesced waits: 4 of 6
+    phases executed), every session's ledger agrees and holds only its
+    own flights, s2's phase-1 scores decode finite, and the seven kernels
+    launched with no plain version.
+    10b: `launch.serve.appraise` at its defaults (TINY target, three
+    sessions, the second a twin, RING64): its ledgers agree, the cache
+    hits, and the kernels launch with no plain version."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.paper_targets import BERT
+    from repro_torch.data.tasks import make_classification_task
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.mpc import prng
+    from repro_torch.mpc.ring import RING32
+    from repro_torch.serve import AppraisalServer, SessionSpec
+    params, pool, labels = pipeline["inputs"]
+    ref = pipeline["8b mpc result"]
+    other = make_classification_task(seed + SEL_SEED_OFFSET + 1,
+                                     n_pool=SEL_POOL, n_test=8, seq=SEQ,
+                                     vocab=BERT.vocab_size,
+                                     n_classes=CLASSES)
+
+    def spec(sid, tok, lab):
+        return SessionSpec(
+            sid=sid, key=prng.key(seed, device=DEVICE), target_params=params,
+            arch_cfg=BERT, pool_tokens=tok,
+            sel=_sel_config("mpc", None, RING32, CUT_STEPS),
+            n_classes=CLASSES, boot_labels_fn=lambda i: lab[i])
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    (s0, s1, s2), rep, per, wall = _served(
+        AppraisalServer(device=DEVICE),
+        [spec("s0", pool, labels), spec("s1", pool, labels),
+         spec("s2", other.pool_tokens, other.pool_labels)])
+    counts = _counters()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    t = rep["throughput"]
+    for s in (s0, s1):
+        r = s.result
+        same = (len(r.phase_scores) == len(ref.phase_scores)
+                and all(np.array_equal(a, b) for a, b in
+                        zip(r.phase_scores, ref.phase_scores))
+                and np.array_equal(r.selected, ref.selected)
+                and np.array_equal(r.appraisal_entropy,
+                                   ref.appraisal_entropy, equal_nan=True))
+        if not same:
+            fail(f"10a {s.sid}: scores, survivors or appraisal differ from "
+                 f"8b's MPC run (appraisal {r.appraisal_entropy} against "
+                 f"{ref.appraisal_entropy})")
+    if s1.cached_phases != [0, 1] or (t["n_phases_executed"],
+                                      t["n_phases_total"]) != (4, 6):
+        fail(f"10a: s1's cached phases {s1.cached_phases}, "
+             f"{t['n_phases_executed']} of {t['n_phases_total']} phases "
+             "executed")
+    for s in (s0, s1, s2):
+        # the flights of the phases it executed (its reports in phase
+        # order; a cache hit's report is the executing session's)
+        own = [x for i, r in enumerate(s.reports)
+               if i not in s.cached_phases for x in r.ledger.records]
+        if not s.ledger_agrees() or s.ledger.records != own:
+            fail(f"10a {s.sid}: ledger_agrees {s.ledger_agrees()}, "
+                 f"{len(s.ledger.records)} flights in its ledger against "
+                 f"{len(own)} of its own")
+    dec = RING32.decode(torch.as_tensor(s2.result.phase_scores[0]).sum(0))
+    if dec.shape != (SEL_POOL - len(s2.result.boot_idx),) or \
+            not torch.isfinite(dec).all():
+        fail(f"10a s2: phase-1 scores of shape {tuple(dec.shape)} or not "
+             "finite")
+    # every counted kernel: M_g's finetune (flash_attn forward and
+    # backward), the ex-vivo fits (entropy_head), in-vivo
+    # (mlp_softmax_attn forward and backward), the RING32 sieve
+    # (secure_matmul, ring_matmul)
+    missing = [n for n in COUNTERS if counts[n]["kernel"] <= 0]
+    if missing or _plain(counts):
+        fail(f"10a: not launched {missing}, plain {_plain(counts)}")
+    sessions = {s["sid"]: {"wall_s": s["wall_s"],
+                           "cached_phases": s["cached_phases"],
+                           "appraisal": s["appraisal_entropy"],
+                           "device_makespan_s": [p["device_makespan_s"]
+                                                 for p in s["phases"]],
+                           "launches": per[s["sid"]]}
+                for s in rep["sessions"]}
+    info = {"wall_s": wall, "sessions": sessions, "throughput": t,
+            "cache": rep["cache"], "dealer": rep["dealer"],
+            "peak_mem_gb": peak,
+            "launches": {n: c["kernel"] for n, c in counts.items()}}
+    log(f"[10a] appraisal service, 3 sessions at BERT-base width ({smi}): "
+        + json.dumps(info, default=float))
+    log(f"[10a] wall {wall:.1f} s; sessions "
+        + ", ".join(f"{k} {v['wall_s']:.1f} s" for k, v in sessions.items())
+        + f" (8b's MPC run alone: {pipeline['8b mpc ring32']['wall_s']:.1f}"
+        f" s); {t['serve_appraisals_per_hour']:.3f} appraisals/h served vs "
+        f"{t['sequential_appraisals_per_hour']:.3f} sequential (modelled, "
+        f"wan); dealer produced {rep['dealer']['produced_nbytes'] / 1e9:.2f}"
+        f" GB, stalled {rep['dealer']['dealer_stall_s']:.3f} s in "
+        f"{rep['dealer']['stalls']} stalls; peak {peak:.2f} GB; each "
+        "device makespan spans the interleaved sessions' waves on the "
+        "shared stream")
+
+    _reset_counters()
+    t0 = time.time()
+    brep = launch_serve.appraise(device=DEVICE, out_path=None)
+    torch.cuda.synchronize()
+    bwall = time.time() - t0
+    bcounts = _counters()
+    missing = [n for n in ("fa", "fa_bwd", "msa", "msa_bwd", "eh", "rmm")
+               if bcounts[n]["kernel"] <= 0]
+    if brep["ledger_agrees"] is not True or brep["cache"]["hits"] <= 0 \
+            or missing or _plain(bcounts):
+        fail(f"10b: ledger_agrees {brep['ledger_agrees']}, cache "
+             f"{brep['cache']}, not launched {missing}, plain "
+             f"{_plain(bcounts)}")
+    binfo = {"wall_s": bwall, "throughput": brep["throughput"],
+             "cache": brep["cache"], "dealer": brep["dealer"],
+             "launches": {n: c["kernel"] for n, c in bcounts.items()}}
+    log(f"[10b] launch.serve.appraise at its defaults ({smi}): "
+        + json.dumps(binfo, default=float))
+    return {"10a": info, "10b": binfo,
+            "launches": {n: counts[n]["kernel"] + bcounts[n]["kernel"]
+                         for n in COUNTERS}}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2760,10 +2955,15 @@ def main(argv=None) -> int:
     t0 = time.time()
     selected = phase_select(args.seed, smi)
     log(f"[9d] launch.select: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    service = phase_service(args.seed, smi, pipeline)
+    log(f"[10] appraisal service: {time.time() - t0:.1f} s")
 
-    dl = selected["launches"]
-    by_path = {name: {"3": sieve["launches"][name],
-                      "9a": variants["launches"][name], "9d": dl[short]}
+    dl, l8, l10 = selected["launches"], pipeline["launches"], \
+        service["launches"]
+    by_path = {name: {"3": sieve["launches"][name], "8": l8[short],
+                      "9a": variants["launches"][name], "9d": dl[short],
+                      "10": l10[short]}
                for name, short in (("ring_matmul", "rmm"),
                                    ("secure_matmul", "smm"))}
     kernels = []
@@ -2794,13 +2994,17 @@ def main(argv=None) -> int:
             kernels[-1]["ring32_wave_ms"] = \
                 prof["ring32"]["secure_matmul_ms"]
     rg = serving["recurrentgemma_2b"]["launches"]
+    fwd_by_path = {
+        "flash_attn": {"6a": tgt["launches"]["flash_attn"]["kernel"],
+                       "7 recurrentgemma_2b": rg["flash_attn"]["kernel"],
+                       "8": l8["fa"], "9d": dl["fa"], "10": l10["fa"]},
+        "entropy_head": {"6a": tgt["launches"]["entropy_head"]["kernel"],
+                         "8": l8["eh"], "9d": dl["eh"], "10": l10["eh"]},
+        "mlp_softmax_attn": {
+            "6b": csieve["launches"]["mlp_softmax_attn"]["kernel"],
+            "8": l8["msa"], "9d": dl["msa"], "10": l10["msa"]}}
     launches = {
-        "flash_attn": tgt["launches"]["flash_attn"]["kernel"]
-        + rg["flash_attn"]["kernel"] + dl["fa"],
-        "entropy_head": tgt["launches"]["entropy_head"]["kernel"]
-        + dl["eh"],
-        "mlp_softmax_attn": csieve["launches"]["mlp_softmax_attn"]["kernel"]
-        + dl["msa"],
+        **{name: sum(p.values()) for name, p in fwd_by_path.items()},
         "ssd": serving["mamba2_2_7b"]["launches"]["ssd"]["kernel"],
         "rg_lru": rg["rg_lru"]["kernel"]}
     tpu = {"flash_attn": FLASH_ATTN_TPU, "entropy_head": ENTROPY_HEAD_TPU,
@@ -2840,11 +3044,10 @@ def main(argv=None) -> int:
                if x in k}})
         if name == "ssd":
             kernels[-1]["sass"] = ssd_sass
+        if name in fwd_by_path:
+            kernels[-1]["launches_by_path"] = fwd_by_path[name]
         if name == "entropy_head":
             kernels[-1]["build"] = eh_build
-            kernels[-1]["launches_by_path"] = {
-                "6a": tgt["launches"]["entropy_head"]["kernel"],
-                "9d": dl["eh"]}
         if name == "rg_lru":
             kernels[-1]["build"] = lru_build
             kernels[-1]["prefill_batch_kernel_ms"] = serving[
@@ -2853,15 +3056,8 @@ def main(argv=None) -> int:
             kernels[-1]["build"] = msa_build
             kernels[-1]["clear_sieve_kernel_ms"] = \
                 csieve["mlp_softmax_attn_ms"]
-            kernels[-1]["launches_by_path"] = {
-                "6b": csieve["launches"]["mlp_softmax_attn"]["kernel"],
-                "9d": dl["msa"]}
         if name == "flash_attn":
             kernels[-1]["sass"] = fa_sass
-            kernels[-1]["launches_by_path"] = {
-                "6a": tgt["launches"]["flash_attn"]["kernel"],
-                "7 recurrentgemma_2b": rg["flash_attn"]["kernel"],
-                "9d": dl["fa"]}
     for name, short, src, replaces, build_info in (
             ("flash_attn_bwd", "fa_bwd", "flash_attn_bwd.cu",
              FLASH_ATTN_BWD_REPLACES, fa_bwd_build),
@@ -2871,9 +3067,9 @@ def main(argv=None) -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": f"{CSRC}/{src}",
             "replaces": replaces,
-            "launches": pipeline["training_launches"][short] + dl[short],
-            "launches_by_path": {"8": pipeline["training_launches"][short],
-                                 "9d": dl[short]},
+            "launches": l8[short] + dl[short] + l10[short],
+            "launches_by_path": {"8": l8[short], "9d": dl[short],
+                                 "10": l10[short]},
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k.get("library_ms"),

@@ -19,5 +19,15 @@ points run on the card (`device="cuda"`) unless the caller passes
     families — `launch/serve.Server` over `models/transformer`'s
     `prefill` and `decode_step` — with the SSD scan on the `ssd` kernel,
     the RG-LRU recurrence on `rg_lru` and the local attention on
-    `flash_attn` in prefill.
+    `flash_attn` in prefill;
+  * the selection pipeline from `core/selection.run_selection` down, with
+    its training on the card (the backward kernels of `flash_attn` and
+    `mlp_softmax_attn`), the exact-op MPC baselines (`mpc/nonlinear`),
+    the analytic cost mirror (`mpc/costs`, `core/schedule_search`) and
+    the launcher `launch/select`;
+  * the appraisal service — `serve/` (sessions over `selection_plan`,
+    the round-robin wave interleaver, the offline dealer drawing its
+    material on the card, the cross-session phase cache, the throughput
+    report) and `launch/serve --appraise` — with `checkpoint/`, the
+    manifest-verified checkpoints the cache persists through.
 """

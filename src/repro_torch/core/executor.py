@@ -164,6 +164,11 @@ class WaveExecutor:
         return ent
 
 
+def _ring_counts() -> dict:
+    """The ring kernels' launch counters: secure_matmul's, ring_matmul's."""
+    return {"smm": kops.smm_stats(), "rmm": kops.rmm_stats()}
+
+
 class PhaseRun:
     """One sieve phase as a stepwise schedule:
 
@@ -172,10 +177,18 @@ class PhaseRun:
                     (double-buffer discipline)
       drain()       wait for the tail pending wave
       finish()      concat scores, return (Share, PhaseReport)
+
+    `WaveExecutor.score_phase` drives one run sequentially; the serve/
+    appraisal server drives several at once, dispatching one session's
+    wave while another's is in flight. So each run's flights go to its
+    own `outer` ledger, and its kernel launches are counted around its
+    own dispatches (not between construction and finish, which would
+    also count the other sessions' launches).
     """
 
     def __init__(self, cfg: ExecConfig, key, pp, arch_cfg: ArchConfig,
-                 tokens, spec: ProxySpec, variant=FULL_VARIANT):
+                 tokens, spec: ProxySpec, variant=FULL_VARIANT,
+                 outer: Ledger | None = None):
         self.cfg = cfg
         self.device = dev = resolve_device(cfg.device)
         self.ring = ring = cfg.ring
@@ -201,12 +214,14 @@ class PhaseRun:
         self.n_parties = protocols.get(proto).n_parties
         self.dev = DeviceReport(placement=cfg.mesh, n_devices=1,
                                 mesh_axes={})
-        # record into the ambient ledger at CONSTRUCTION time
-        self.outer = comm.get_ledger()
+        # record into `outer`, else the ambient ledger at CONSTRUCTION
+        # time
+        self.outer = comm.get_ledger() if outer is None else outer
         self.phase_led = Ledger()
         self.scale = float(np.float32(arch_cfg.d_model ** 0.5))
-        self.smm0 = kops.smm_stats()
-        self.rmm0 = kops.rmm_stats()
+        # the ring kernels' launches of this run's dispatches, summed
+        self.launches = {n: dict.fromkeys(c, 0)
+                         for n, c in _ring_counts().items()}
         self.results: list[torch.Tensor] = []
         self.pending: torch.cuda.Event | None = None
         self.pending_wi = -1
@@ -222,6 +237,11 @@ class PhaseRun:
             classes=int(pp["cls_head"].shape[-1]), ring=ring,
             protocol=proto, fused=cfg.fuse, variant=variant)
         self.t0 = time.time()
+
+    def lanes(self, wi: int) -> int:
+        """Batches in wave `wi` (the last wave may be short)."""
+        b0, b1 = wi * self.W, min((wi + 1) * self.W, self.n_batches)
+        return b1 - b0
 
     def _fwd(self, sh, k):
         eng = MPCEngine(ring=self.ring, protocol=self.proto).with_key(k)
@@ -249,8 +269,10 @@ class PhaseRun:
         dispatched."""
         cfg = self.cfg
         B, W, seq = self.B, self.W, self.seq
-        b0, b1 = wi * W, min((wi + 1) * W, self.n_batches)
-        lanes = b1 - b0
+        b0 = wi * W
+        lanes = self.lanes(wi)
+        b1 = b0 + lanes
+        before = _ring_counts()
         wave_tok = torch.as_tensor(self.tok[b0 * B:b1 * B]).to(
             self.device).reshape(lanes, B, seq)
         x = self.pp["embed"][wave_tok] * self.scale
@@ -267,6 +289,9 @@ class PhaseRun:
             else:
                 ent = torch.stack([self._fwd(x_sh.sh[:, li], keys[li])
                                    for li in range(lanes)], dim=1)
+        for n, after in _ring_counts().items():
+            for k, v in after.items():
+                self.launches[n][k] += v - before[n][k]
         self.phase_led.records.extend(wave_led.records)
         if self.outer is not None:
             self.outer.records.extend(wave_led.records)
@@ -298,13 +323,13 @@ class PhaseRun:
         cfg = self.cfg
         out = torch.cat(self.results, dim=1)[:, :self.n]
         wall_s = time.time() - self.t0
-        smm1, rmm1 = kops.smm_stats(), kops.rmm_stats()
+        smm, rmm = self.launches["smm"], self.launches["rmm"]
         dev = self.dev
-        dev.combine_kernel = smm1["kernel"] - self.smm0["kernel"]
-        dev.combine_ref = smm1["ref"] - self.smm0["ref"]
-        dev.combine_padded = smm1["padded"] - self.smm0["padded"]
-        dev.matmul_kernel = rmm1["kernel"] - self.rmm0["kernel"]
-        dev.matmul_ref = rmm1["ref"] - self.rmm0["ref"]
+        dev.combine_kernel = smm["kernel"]
+        dev.combine_ref = smm["ref"]
+        dev.combine_padded = smm["padded"]
+        dev.matmul_kernel = rmm["kernel"]
+        dev.matmul_ref = rmm["ref"]
         rep = PhaseReport(
             ledger=self.phase_led, per_batch=self.per_batch,
             n_batches=self.n_batches, n_waves=self.n_waves, wall_s=wall_s,

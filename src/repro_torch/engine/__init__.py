@@ -12,8 +12,9 @@ from repro_torch.engine.clear import ClearEngine
 from repro_torch.engine.forward import proxy_entropy, proxy_logits
 from repro_torch.engine.mpc import MPCEngine
 from repro_torch.engine.trace import (TraceEngine, abstract_shares,
-                                      cached_probe)
+                                      cached_probe, cached_probe_info)
 
 __all__ = ["FULL_VARIANT", "VARIANTS", "TensorEngine", "resolve_variant",
            "ClearEngine", "MPCEngine", "TraceEngine", "abstract_shares",
-           "cached_probe", "proxy_entropy", "proxy_logits"]
+           "cached_probe", "cached_probe_info", "proxy_entropy",
+           "proxy_logits"]

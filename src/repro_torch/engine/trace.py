@@ -89,6 +89,11 @@ def cached_probe(cfg, spec, *, batch: int, seq: int, classes: int,
     return out
 
 
+def cached_probe_info():
+    """lru cache stats for the shared probe memo (hits/misses)."""
+    return _cached_probe.cache_info()
+
+
 def abstract_shares(cfg, spec, seq_len: int, n_classes: int,
                     ring: RingSpec = RING64, protocol: str = "2pc"):
     """Meta-share tree shaped like `proxy.share_proxy`'s output (minus

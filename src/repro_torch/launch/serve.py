@@ -1,22 +1,34 @@
-"""Token server: batched prefill + decode — the port of
-repro/launch/serve.py's token decoding.
+"""Serving: batched prefill + decode, and the appraisal service — the
+port of repro/launch/serve.py.
 
     python -m repro_torch.launch.serve --arch mamba2_2_7b --full
+    python -m repro_torch.launch.serve --appraise [--device cpu]
 
-Requests arrive with prompts, are batched to the configured slot count,
-left-padded, prefilled once, then decoded step-locked with greedy
-(argmax) tokens; finished sequences free their slots for the next queued
-requests (continuous batching at slot granularity). The ssm (mamba2_2_7b)
-and hybrid (recurrentgemma_2b) families are ported; their prefill runs
-on the `ssd`, `rg_lru` and `flash_attn` kernels on the card. The JAX
-package's device mesh and sharding rules are the identity on one card
-and are dropped. `--appraise` (the appraisal service) is not ported yet
-(ROADMAP Queue 1, item 10).
+Two serving modes share this entry point:
+
+  token decoding (default)   requests arrive with prompts, are batched
+      to the configured slot count, left-padded, prefilled once, then
+      decoded step-locked with greedy (argmax) tokens; finished
+      sequences free their slots for the next queued requests
+      (continuous batching at slot granularity). The ssm (mamba2_2_7b)
+      and hybrid (recurrentgemma_2b) families are ported; their prefill
+      runs on the `ssd`, `rg_lru` and `flash_attn` kernels on the card.
+      The JAX package's device mesh and sharding rules are the identity
+      on one card and are dropped.
+  --appraise                 requests are (data-owner, model-owner)
+      APPRAISAL sessions: `repro_torch.serve.AppraisalServer` decomposes
+      each into its multiphase MPC schedule, continuously batches waves
+      across sessions, pipelines the offline dealer (drawn on the
+      card), and serves fingerprint-identical phases from the
+      cross-session cache. Writes SERVE_report.json whose per-phase
+      dicts are PhaseReport.as_dict. Only the 2pc protocol is ported
+      (ROADMAP Queue 1, item 11).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import time
 
 import numpy as np
@@ -109,6 +121,66 @@ class Server:
                 "outputs": {r.rid: r.out for r in done}}
 
 
+def appraise(n_sessions: int = 3, n_pool: int = 96, protocol: str = "2pc",
+             ring_bits: int = 64, seed: int = 0, repeat_first: bool = True,
+             out_path: str | None = "SERVE_report.json",
+             device="cuda") -> dict:
+    """Run an appraisal-service queue on `device` and emit
+    SERVE_report.json.
+
+    Builds `n_sessions` synthetic appraisal sessions (tiny target +
+    synthetic task, the Stage-2 smoke geometry); with `repeat_first` the
+    second session duplicates the first — the cross-session cache serves
+    its phases without re-execution."""
+    from repro_torch.configs.paper_targets import TINY_TARGET
+    from repro_torch.core import target as tgt
+    from repro_torch.core.executor import ExecConfig, resolve_device
+    from repro_torch.core.proxy import ProxySpec
+    from repro_torch.core.selection import SelectionConfig
+    from repro_torch.data.tasks import make_classification_task
+    from repro_torch.engine import MPCEngine
+    from repro_torch.mpc import prng, protocols
+    from repro_torch.mpc.ring import RING32, RING64
+    from repro_torch.serve import AppraisalServer, SessionSpec
+
+    protocols.get(protocol)          # raises for the unported backends
+    dev = resolve_device(device)
+    ring = RING32 if ring_bits == 32 else RING64
+
+    def spec(sid: str, task_seed: int) -> SessionSpec:
+        task = make_classification_task(task_seed, n_pool=n_pool, n_test=32,
+                                        seq=8, vocab=64, n_classes=2)
+        cfg = dataclasses.replace(TINY_TARGET, vocab_size=task.vocab)
+        gen = torch.Generator(device=dev).manual_seed(task_seed)
+        params0 = tgt.init_classifier(gen, cfg, task.n_classes, device=dev)
+        sel = SelectionConfig(
+            phases=[ProxySpec(1, 1, 2, 0.5), ProxySpec(1, 2, 4, 1.0)],
+            budget_frac=0.25, boot_frac=0.1,
+            engine=MPCEngine(ring=ring, protocol=protocol),
+            exvivo_steps=4, invivo_steps=2, finetune_steps=2,
+            score_batch=16, checkpoint_dir=None,
+            executor=ExecConfig(wave=2, ring=ring, protocol=protocol,
+                                device=str(dev)))
+        return SessionSpec(sid=sid, key=prng.key(task_seed, device=dev),
+                           target_params=params0, arch_cfg=cfg,
+                           pool_tokens=task.pool_tokens, sel=sel,
+                           n_classes=task.n_classes,
+                           boot_labels_fn=lambda i: task.pool_labels[i])
+
+    srv = AppraisalServer(dealer_seed=seed, device=dev)
+    try:
+        for i in range(n_sessions):
+            task_seed = seed if (repeat_first and i == 1) else seed + i
+            srv.submit(spec(f"s{i}", task_seed))
+        report = srv.run()
+    finally:
+        srv.close()
+    if out_path:
+        with open(out_path, "w") as f:
+            json.dump(report, f, indent=1, default=float)
+    return report
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="mamba2_2_7b", choices=ARCH_IDS)
@@ -129,12 +201,36 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda",
                     help="torch device (default: the card)")
     ap.add_argument("--appraise", action="store_true",
-                    help="serve appraisals instead of tokens (not ported yet)")
+                    help="serve APPRAISAL sessions through the "
+                         "repro_torch.serve AppraisalServer instead of "
+                         "token decoding; writes SERVE_report.json")
+    ap.add_argument("--sessions", type=int, default=3,
+                    help="appraisal sessions to enqueue (--appraise)")
+    ap.add_argument("--pool", type=int, default=96,
+                    help="candidate pool size per session (--appraise)")
+    ap.add_argument("--protocol",
+                    choices=["2pc", "3pc", "spdz2pc", "aby3trunc"],
+                    default="2pc", help="MPC backend (--appraise; only 2pc "
+                                        "is ported)")
+    ap.add_argument("--ring", type=int, choices=[64, 32], default=64,
+                    help="MPC ring width (--appraise)")
+    ap.add_argument("--out", default="SERVE_report.json",
+                    help="report path (--appraise)")
     args = ap.parse_args(argv)
     if args.appraise:
-        raise NotImplementedError("--appraise (the appraisal service) is "
-                                  "not ported yet (ROADMAP Queue 1, item "
-                                  "10)")
+        rep = appraise(n_sessions=args.sessions, n_pool=args.pool,
+                       protocol=args.protocol, ring_bits=args.ring,
+                       seed=args.seed, out_path=args.out,
+                       device=args.device)
+        t = rep["throughput"]
+        print(f"[serve] {t['n_sessions']} appraisals: "
+              f"{t['serve_appraisals_per_hour']:.2f}/h served vs "
+              f"{t['sequential_appraisals_per_hour']:.2f}/h sequential "
+              f"({t['speedup']:.2f}x); cache {rep['cache']['hits']} hits/"
+              f"{rep['cache']['misses']} misses; dealer stall "
+              f"{rep['dealer']['dealer_stall_s']:.3f}s; "
+              f"ledger_agrees={rep['ledger_agrees']} -> {args.out}")
+        return
     sc = ServeConfig(arch=args.arch, smoke=not args.full, slots=args.slots,
                      max_len=args.max_len, max_new=args.max_new,
                      seed=args.seed)

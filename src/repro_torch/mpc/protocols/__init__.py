@@ -22,7 +22,8 @@ def get(name: str) -> ProtocolBackend:
     except KeyError:
         if name in NOT_PORTED:
             raise NotImplementedError(
-                f"protocol {name!r} is not ported yet (only '2pc' is)"
+                f"protocol {name!r} is not ported yet (only '2pc' is; "
+                "ROADMAP Queue 1, item 11)"
             ) from None
         raise ValueError(
             f"unknown protocol {name!r} (expected one of "

@@ -52,6 +52,29 @@ class BackendDefaults:
         (src, dst, tensor) entries for `comm.record(payload=...)`."""
         return [(0, 1, sh[0]), (1, 0, sh[1])]
 
+    def dealer_material(self, gen: torch.Generator, op: str, ring: RingSpec,
+                        elems: int):
+        """`elems` ring elements of dealer (offline-channel) material for
+        offline op `op` — the bytes a crypto provider streams ahead of
+        the phase. Every offline record (Beaver triples, truncation
+        pairs) already counts its total element footprint in `numel`, so
+        one uniform draw of that many ring elements is shape-correct for
+        all of them. The serve/ dealer pool pre-generates these on a
+        worker thread.
+
+        Drawn on `gen`'s device from `gen`, uniform over the ring (the
+        JAX package draws with a numpy Generator on the host: the bytes
+        differ, their law does not). The material is outside the
+        execution's threefry stream, so no score depends on it."""
+        if elems <= 0:
+            return None
+        lo, hi = -(1 << (ring.bits - 1)), 1 << (ring.bits - 1)
+        out = torch.empty(int(elems), dtype=ring.dtype, device=gen.device)
+        # the int64 ring's upper end is past int64: `to=None` draws the
+        # dtype's full range
+        return out.random_(lo, hi if ring.bits < 64 else None,
+                           generator=gen)
+
 
 @runtime_checkable
 class ProtocolBackend(Protocol):

@@ -273,5 +273,7 @@ def test_main_runs_and_appraise_is_not_ported(capsys):
     serve.main(["--arch", "recurrentgemma_2b", "--device", "cpu",
                 "--requests", "3", "--max-len", "24", "--max-new", "2"])
     assert "3 requests, 3 tokens" in capsys.readouterr().out
+    # the appraisal service runs (tests/test_torch_appraisal.py); its
+    # protocols other than 2pc are not ported
     with pytest.raises(NotImplementedError, match="not ported"):
-        serve.main(["--appraise", "--device", "cpu"])
+        serve.main(["--appraise", "--protocol", "3pc", "--device", "cpu"])
