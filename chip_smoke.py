@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port on one NVIDIA GPU: the private sieve, the
 clear scoring paths, token serving, the selection pipeline, the
-exact-op MPC baselines and the appraisal service.
+exact-op MPC baselines, the appraisal service and the other protocol
+backends.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -155,8 +156,9 @@ result line):
      (9a) Table 2's ablations (no-sm, no-ln, no-se) and Table 3's
      baselines (quad_sm: MPCFormer 2Quad; poly_sm: Bolt polynomial), each
      beside the full variant, through `WaveExecutor.score_phase` with
-     phase 3's phase-2 proxy <3,12,16> and executor flags over one wave of
-     VAR_BATCHES batches of 4 at BERT-base width, on RING32 then RING64:
+     phase 3's phase-2 proxy cut to one layer (<1,12,16>, VAR_LAYERS) and
+     phase 3's executor flags over one wave of VAR_BATCHES batches of 4 at
+     BERT-base width, on RING32 then RING64:
      each phase must agree with its schedule, launch secure_matmul
      (RING32) or ring_matmul (RING64), run no plain version and score
      finite; wall, makespan, rounds, bytes, peak memory and the max
@@ -189,6 +191,25 @@ result line):
      `launch.serve.appraise` at its defaults (TINY target, RING64): its
      ledgers agree, the cache hits, the kernels launch with no plain
      version.
+ 11. the other protocol backends. (11a) The executed sieve under
+     replicated3pc on RING64 and aby3trunc and spdz2pc on both rings
+     (3pc on RING32 is left out: its regrouped shift wraps), phase 3's
+     phase-2 proxy <3,12,16> shared under each and phase 3's executor
+     flags over one wave of VAR_BATCHES batches of 4: fatal unless each
+     phase agrees with its schedule, its per-batch ledger equals
+     `costs.proxy_exec_cost` record for record, the shares have 3 rows
+     (4 for spdz2pc), the offline channel is empty for the dealer-free
+     backends and not for spdz2pc, spdz2pc's ledger holds its sacrifice
+     and MAC-check records, ring_matmul launched and secure_matmul did
+     not, no plain version ran and the scores are finite; wall,
+     makespan, rounds, bytes, peak memory, launches and max |decoded MPC
+     - ClearEngine| are printed. (11b) Each pair's forward on the card
+     and the CPU with the same keys, one row at depth 1 and seq 128:
+     shares bitwise equal. (11c) One eager spdz2pc RING64 forward of a
+     batch of 4 at 11a's width inside `mac_scope` passes the boundary
+     MAC check (every obligation read), and 11b's small forward with
+     one bit of a partial open flipped raises MacCheckError at
+     `MPCEngine.entropy_head`.
 
 The last lines are the card's `nvidia-smi` name and power limit, one
 `{"kernels": [...]}` JSON line, and the result line
@@ -2506,9 +2527,12 @@ def phase_selection(seed: int, smi: str) -> dict:
 
 EXACT = ("no-sm", "no-ln", "no-se", "quad_sm", "poly_sm")
 # 9a's pool: one wave of 2 batches of BATCH, cut from WAVE batches (183 s
-# for the twelve runs), never the width or the depth; the walls are
-# host-bound, so the cut saved less than half (PERF.md §5)
+# for the twelve runs), never the width; the walls are host-bound, so
+# the cut saved less than half (PERF.md §5)
 VAR_BATCHES = 2
+# 9a's depth: phase 3's phase-2 proxy cut from 3 layers to 1 at the same
+# width, to pay for phase 11 (9a took 144-151 s at depth 3, PERF.md §5)
+VAR_LAYERS = 1
 VAR_SEQ = 128                  # 9b's cut sequence (one row, depth 1)
 SELECT_POOL, SELECT_BUDGET = 800, 0.2      # launch/select.run's defaults
 
@@ -2517,10 +2541,35 @@ def _plain(counts) -> dict:
     return {n: c["ref"] for n, c in counts.items() if c["ref"]}
 
 
+def _cut_proxy(spec, pp, n_layers: int):
+    """A proxy's first `n_layers` layers at the same width (embedding,
+    class head and MLP_se kept): the depth cut of a later path."""
+    from repro_torch.core.proxy import ProxySpec
+    out = dict(pp, attn={k: v[:n_layers] for k, v in pp["attn"].items()})
+    for k in ("ln_scale", "ln_bias", "mlp_sm", "mlp_ln"):
+        out[k] = pp[k][:n_layers]
+    return ProxySpec(n_layers, spec.n_heads, spec.mlp_dim,
+                     spec.selectivity), out
+
+
+def _mirror_stream(led) -> list:
+    """What the probe and the mirror share (the mirror names its sites)."""
+    return [(r.rounds, r.nbytes, r.numel, r.flops, r.tag)
+            for r in led.records]
+
+
+def _on(tree, dev):
+    """A tree of shares with every share's components moved to `dev`."""
+    from repro_torch.core.tree import tree_leaves, tree_rebuild
+    return tree_rebuild(tree, [s.with_sh(s.sh.to(dev))
+                               for s in tree_leaves(tree)])
+
+
 def phase_variants(seed: int, proxies, smi: str) -> dict:
     """9a: Table 2's ablations and Table 3's baselines executed over
-    shares at BERT-base width: phase 3's phase-2 proxy <3,12,16> and
-    executor flags over one wave (VAR_BATCHES batches of BATCH), each
+    shares at BERT-base width: phase 3's phase-2 proxy cut to VAR_LAYERS
+    layers (<1,12,16>) and phase 3's executor flags over one wave
+    (VAR_BATCHES batches of BATCH), each
     variant beside the full one, on RING32 then RING64. Fatal unless each phase
     agrees with its schedule, launches its ring kernel (secure_matmul on
     RING32, ring_matmul on RING64), runs no plain version and scores
@@ -2535,7 +2584,7 @@ def phase_variants(seed: int, proxies, smi: str) -> dict:
     from repro_torch.mpc.ring import RING32, RING64
     from repro_torch.mpc.sharing import reconstruct
     cfg, specs, pps = proxies
-    spec, pp = specs[1], pps[1]
+    spec, pp = _cut_proxy(specs[1], pps[1], VAR_LAYERS)
     pool = np.random.default_rng(seed + 9).integers(
         0, cfg.vocab_size, (VAR_BATCHES * BATCH, SEQ))
     tok = torch.as_tensor(pool, device=DEVICE)
@@ -2606,7 +2655,6 @@ def phase_variants_card_vs_cpu(seed: int) -> None:
     import torch
     from repro_torch.configs.paper_targets import BERT
     from repro_torch.core.proxy import ProxySpec, random_proxy, share_proxy
-    from repro_torch.core.tree import tree_leaves, tree_rebuild
     from repro_torch.engine import VARIANTS, MPCEngine, proxy_entropy
     from repro_torch.mpc import prng
     from repro_torch.mpc.ring import RING32, RING64
@@ -2626,8 +2674,7 @@ def phase_variants_card_vs_cpu(seed: int) -> None:
             got = {}
             for dev in (DEVICE, "cpu"):
                 d = torch.device(dev)
-                psh = tree_rebuild(pp_sh, [s.with_sh(s.sh.to(d))
-                                           for s in tree_leaves(pp_sh)])
+                psh = _on(pp_sh, d)
                 eng = MPCEngine(ring).with_key(prng.fold_in(key, 3).to(d))
                 t0 = time.time()
                 ent = proxy_entropy(eng, psh, BERT, Share(x_sh.sh.to(d),
@@ -2650,10 +2697,6 @@ def phase_mirror(proxies) -> dict:
     from repro_torch.mpc import costs
     from repro_torch.mpc.ring import RING32, RING64
     cfg, specs, _ = proxies
-
-    def stream(led):
-        return [(r.rounds, r.nbytes, r.numel, r.flops, r.tag)
-                for r in led.records]
     for ring in (RING32, RING64):
         for spec in specs:
             for fused in (False, True):
@@ -2665,7 +2708,7 @@ def phase_mirror(proxies) -> dict:
                     ring=ring, fused=fused)
                 name = (f"{ring.name} <{spec.n_layers},{spec.n_heads},"
                         f"{spec.mlp_dim}> {'fused' if fused else 'eager'}")
-                if stream(probe) != stream(mirror):
+                if _mirror_stream(probe) != _mirror_stream(mirror):
                     fail(f"9c {name}: the mirror differs from the probe")
                 log(f"[9c] {name}: mirror == probe, {len(probe.records)} "
                     f"records, {probe.rounds} rounds, {probe.nbytes} online "
@@ -2884,6 +2927,241 @@ def phase_service(seed: int, smi: str, pipeline: dict) -> dict:
                          for n in COUNTERS}}
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the other protocol backends
+# ---------------------------------------------------------------------------
+
+# 11a's and 11b's (protocol, ring bits). 3pc on RING32 is left out: its
+# regrouped local shift wraps at about |v| / 2^31 an element
+# (tests/test_malicious.py), which is why aby3trunc exists
+PROTO_PAIRS = (("3pc", 64), ("aby3trunc", 32), ("aby3trunc", 64),
+               ("spdz2pc", 32), ("spdz2pc", 64))
+# share rows of each backend: replicated 3 components; SPDZ 2 value rows
+# and 2 MAC rows
+PROTO_ROWS = {"3pc": 3, "aby3trunc": 3, "spdz2pc": 4}
+
+
+def phase_protocols(seed: int, proxies, smi: str) -> dict:
+    """11a: the executed sieve under replicated3pc (RING64), aby3trunc
+    and spdz2pc (both rings) at BERT-base width: phase 3's phase-2
+    proxy <3,12,16>, shared under each protocol, and phase 3's executor
+    flags (wave, coalesce, overlap, fuse) over one wave of VAR_BATCHES
+    batches of BATCH. Fatal unless each phase agrees with its schedule,
+    its per-batch ledger equals `costs.proxy_exec_cost` record for
+    record, the shares have the backend's rows, the offline channel is
+    empty for the dealer-free backends and not for spdz2pc, spdz2pc's
+    ledger holds its sacrifices and its MAC check (their dealer records:
+    the fused phase folds their opens into its flights), ring_matmul
+    launched and secure_matmul did not, no plain version ran and the
+    scores are finite. Wall, makespan, rounds, bytes, peak memory,
+    launches and max |decoded MPC - ClearEngine| are printed."""
+    import numpy as np
+    import torch
+    from repro_torch.core.executor import ExecConfig, WaveExecutor
+    from repro_torch.engine import ClearEngine, proxy_entropy
+    from repro_torch.mpc import costs, prng, protocols
+    from repro_torch.mpc.ring import RING32, RING64
+    cfg, specs, pps = proxies
+    spec, pp = specs[1], pps[1]
+    pool = np.random.default_rng(seed + 11).integers(
+        0, cfg.vocab_size, (VAR_BATCHES * BATCH, SEQ))
+    tok = torch.as_tensor(pool, device=DEVICE)
+    clear = torch.cat([proxy_entropy(ClearEngine(), pp, cfg,
+                                     tok[i:i + BATCH], spec)
+                       for i in range(0, len(tok), BATCH)]).double()
+    out, rmm = {}, 0
+    for proto, bits in PROTO_PAIRS:
+        ring = RING32 if bits == 32 else RING64
+        backend = protocols.get(proto)
+        tag = f"{proto} {ring.name}"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counters()
+        ex = WaveExecutor(ExecConfig(wave=WAVE, coalesce=True, overlap=True,
+                                     fuse=True, batch=BATCH, ring=ring,
+                                     protocol=proto, device=DEVICE))
+        t0 = time.time()
+        ent = ex.score_phase(prng.key(seed + 110, device=DEVICE), pp, cfg,
+                             pool, spec)
+        vals = ring.decode(backend.reconstruct(ent.sh)).double()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = _counters()
+        rep = ex.reports[-1]
+        led = rep.ledger
+        mirror = costs.proxy_exec_cost(
+            BATCH, SEQ, cfg.d_model, spec.n_heads, cfg.n_kv_heads,
+            cfg.d_head, spec.mlp_dim, CLASSES, spec.n_layers, ring=ring,
+            protocol=proto, fused=True)
+        ops_ = {r.op for r in led.records}
+        if not rep.agrees():
+            fail(f"11a {tag}: ledger does not agree with the schedule")
+        if _mirror_stream(rep.per_batch) != _mirror_stream(mirror):
+            fail(f"11a {tag}: the per-batch ledger differs from "
+                 "costs.proxy_exec_cost")
+        if tuple(ent.sh.shape) != (PROTO_ROWS[proto], len(pool)):
+            fail(f"11a {tag}: shares of shape {tuple(ent.sh.shape)}")
+        if (led.offline_nbytes > 0) != (proto == "spdz2pc"):
+            fail(f"11a {tag}: offline bytes {led.offline_nbytes}")
+        # the fused phase folds the sacrifice and MAC-check opens into
+        # its flights; their dealer records stay by name
+        if proto == "spdz2pc" and not ({"offline.sacrifice_triple",
+                                        "offline.sacrifice_matmul_triple",
+                                        "offline.mac_key"} <= ops_):
+            fail(f"11a {tag}: no sacrifice or MAC-check records ({ops_})")
+        if counts["rmm"]["kernel"] <= 0 or counts["smm"]["kernel"]:
+            fail(f"11a {tag}: ring_matmul {counts['rmm']}, secure_matmul "
+                 f"{counts['smm']}")
+        if _plain(counts):
+            fail(f"11a {tag}: a plain version ran ({_plain(counts)})")
+        if not torch.isfinite(vals).all():
+            fail(f"11a {tag}: non-finite scores")
+        rmm += counts["rmm"]["kernel"]
+        info = {"wall_s": wall, "device_makespan_s": rep.device_makespan_s,
+                "rounds": led.rounds, "lat_rounds": led.lat_rounds,
+                "bw_rounds": led.bw_rounds, "online_gb": led.nbytes / 1e9,
+                "offline_gb": led.offline_nbytes / 1e9,
+                "per_batch": {"rounds": mirror.rounds,
+                              "online_gb": mirror.nbytes / 1e9,
+                              "offline_gb": mirror.offline_nbytes / 1e9,
+                              "records": len(mirror.records)},
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "launches": {n: c["kernel"] for n, c in counts.items()
+                             if c["kernel"]},
+                "max_abs_mpc_minus_clear": float(
+                    (vals - clear).abs().max())}
+        log(f"[11a] {tag} <{spec.n_layers},{spec.n_heads},{spec.mlp_dim}>, "
+            f"{len(pool)} candidates ({smi}): " + json.dumps(info))
+        out[tag] = info
+    out["launches"] = {"ring_matmul": rmm}
+    return out
+
+
+def _small_protocol_forward(seed: int, proto: str, ring):
+    """11b's one row at depth CPU_LAYERS and seq VAR_SEQ (BERT-base
+    widths), shared under `proto` on the CPU: (proxy shares, input
+    share, engine key, spec)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.paper_targets import BERT
+    from repro_torch.core.proxy import ProxySpec, random_proxy, share_proxy
+    from repro_torch.mpc import prng
+    from repro_torch.mpc.sharing import share
+    spec = ProxySpec(CPU_LAYERS, *PHASES[1][1:])
+    pp = random_proxy(torch.Generator().manual_seed(seed + 111), BERT, spec,
+                      VAR_SEQ, CLASSES, device="cpu")
+    emb = pp.pop("embed")
+    tok = np.random.default_rng(seed + 112).integers(0, BERT.vocab_size,
+                                                     (1, VAR_SEQ))
+    x = emb[torch.as_tensor(tok)] * float(np.float32(BERT.d_model ** 0.5))
+    key = prng.key(seed + 113)
+    return (share_proxy(prng.fold_in(key, 1), pp, ring, proto),
+            share(prng.fold_in(key, 2), x, ring, proto),
+            prng.fold_in(key, 3), spec)
+
+
+def phase_protocols_card_vs_cpu(seed: int) -> None:
+    """11b: each (protocol, ring) of 11a, one row at depth CPU_LAYERS
+    and seq VAR_SEQ, on the card and on the CPU with the same keys:
+    shares bitwise equal."""
+    import torch
+    from repro_torch.configs.paper_targets import BERT
+    from repro_torch.engine import MPCEngine, proxy_entropy
+    from repro_torch.mpc.ring import RING32, RING64
+    for proto, bits in PROTO_PAIRS:
+        ring = RING32 if bits == 32 else RING64
+        pp_sh, x_sh, k, spec = _small_protocol_forward(seed, proto, ring)
+        got = {}
+        for dev in (DEVICE, "cpu"):
+            d = torch.device(dev)
+            eng = MPCEngine(ring, protocol=proto).with_key(k.to(d))
+            t0 = time.time()
+            ent = proxy_entropy(eng, _on(pp_sh, d), BERT,
+                                x_sh.with_sh(x_sh.sh.to(d)), spec)
+            got[dev] = (ent.sh.cpu(), time.time() - t0)
+        if not torch.equal(got[DEVICE][0], got["cpu"][0]):
+            fail(f"11b {proto} {ring.name}: card and CPU shares differ")
+        log(f"[11b] {proto} {ring.name}: card == CPU, bitwise, "
+            f"{tuple(got['cpu'][0].shape)} (card {got[DEVICE][1]:.2f} s, "
+            f"CPU {got['cpu'][1]:.2f} s)")
+
+
+def phase_malicious(seed: int, proxies, smi: str) -> dict:
+    """11c: the malicious tier on the card. One eager `proxy_entropy`
+    over MPCEngine(RING64, "spdz2pc") of one batch of BATCH at 11a's
+    width and depth, inside `mac_scope` and not under vmap: it must pass
+    the boundary MAC check with obligations opened and none unread.
+    Then 11b's small forward under `tamper_scope`, one bit of row 0
+    flipped at the first partial open: it must raise MacCheckError at
+    `MPCEngine.entropy_head`."""
+    import traceback
+    import numpy as np
+    import torch
+    from repro_torch.configs.paper_targets import BERT
+    from repro_torch.core.proxy import share_proxy
+    from repro_torch.engine import MPCEngine, proxy_entropy
+    from repro_torch.mpc import prng
+    from repro_torch.mpc.protocols.spdz2pc import (MacCheckError, mac_scope,
+                                                   tamper_scope)
+    from repro_torch.mpc.ring import RING64
+    from repro_torch.mpc.sharing import share
+    cfg, specs, pps = proxies
+    spec, pp = specs[1], pps[1]
+    key = prng.key(seed + 114, device=DEVICE)
+    pp_sh = share_proxy(prng.fold_in(key, 1), pp, RING64, "spdz2pc")
+    tok = torch.as_tensor(np.random.default_rng(seed + 115).integers(
+        0, cfg.vocab_size, (BATCH, SEQ)), device=DEVICE)
+    x = pp["embed"][tok] * float(np.float32(cfg.d_model ** 0.5))
+    x_sh = share(prng.fold_in(key, 2), x, RING64, "spdz2pc")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    t0 = time.time()
+    with mac_scope() as st:
+        ent = proxy_entropy(MPCEngine(RING64, protocol="spdz2pc").with_key(
+            prng.fold_in(key, 3)), pp_sh, cfg, x_sh, spec)
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = _counters()
+    if st.n_opened <= 0 or st.n_traced or st.flags:
+        fail(f"11c: honest forward: {st.n_opened} opened, {st.n_traced} "
+             f"unread, {len(st.flags)} unchecked")
+    if tuple(ent.sh.shape) != (4, BATCH) or counts["rmm"]["kernel"] <= 0 \
+            or _plain(counts):
+        fail(f"11c: shares {tuple(ent.sh.shape)}, launches {counts}")
+    info = {"wall_s": wall, "n_opened": st.n_opened,
+            "n_traced": st.n_traced,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "ring_matmul": counts["rmm"]["kernel"]}
+
+    def flip(sh):
+        sh = sh.clone()
+        sh.view(sh.shape[0], -1)[0, 0] ^= 1 << 5
+        return sh
+
+    pp_s, x_s, k, sspec = _small_protocol_forward(seed, "spdz2pc", RING64)
+    dev = torch.device(DEVICE)
+    where = None
+    with mac_scope() as st2:
+        try:
+            with tamper_scope(flip):
+                proxy_entropy(MPCEngine(RING64, protocol="spdz2pc")
+                              .with_key(k.to(dev)), _on(pp_s, dev), BERT,
+                              x_s.with_sh(x_s.sh.to(dev)), sspec)
+        except MacCheckError as e:
+            where = [f.name for f in traceback.extract_tb(e.__traceback__)]
+            info["tamper_error"] = str(e)
+    if where is None or "entropy_head" not in where:
+        fail(f"11c: the tampered forward did not abort at entropy_head "
+             f"({where})")
+    info["tamper_opened"] = st2.n_opened
+    log(f"[11c] spdz2pc RING64 at <{spec.n_layers},{spec.n_heads},"
+        f"{spec.mlp_dim}>, one eager batch of {BATCH} ({smi}): "
+        + json.dumps(info))
+    return {"11c": info, "launches": {"ring_matmul":
+                                      counts["rmm"]["kernel"]}}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2958,6 +3236,15 @@ def main(argv=None) -> int:
     t0 = time.time()
     service = phase_service(args.seed, smi, pipeline)
     log(f"[10] appraisal service: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    protos = phase_protocols(args.seed, proxies, smi)
+    log(f"[11a] protocol backends: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    phase_protocols_card_vs_cpu(args.seed)
+    log(f"[11b] card vs CPU: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    mal = phase_malicious(args.seed, proxies, smi)
+    log(f"[11c] malicious tier: {time.time() - t0:.1f} s")
 
     dl, l8, l10 = selected["launches"], pipeline["launches"], \
         service["launches"]
@@ -2966,6 +3253,8 @@ def main(argv=None) -> int:
                       "10": l10[short]}
                for name, short in (("ring_matmul", "rmm"),
                                    ("secure_matmul", "smm"))}
+    by_path["ring_matmul"]["11"] = protos["launches"]["ring_matmul"] \
+        + mal["launches"]["ring_matmul"]
     kernels = []
     for name, tpu in (("ring_matmul", RING_MATMUL_TPU),
                       ("secure_matmul", SECURE_MATMUL_TPU)):

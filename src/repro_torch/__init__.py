@@ -7,8 +7,10 @@ points run on the card (`device="cuda"`) unless the caller passes
 
   * the private sieve's serving path — `core/executor.WaveExecutor.
     score_phase` over `engine/forward.proxy_entropy` interpreted by
-    `engine/mpc.MPCEngine` on the additive 2PC backend (RING32 and
-    RING64), then `mpc/quickselect.top_k_indices` — with its integer
+    `engine/mpc.MPCEngine` on any of the four protocol backends
+    (`mpc/protocols/`: additive 2PC, replicated 3PC, ABY3's exact
+    truncation and the MAC'd malicious SPDZ tier; RING32 and RING64),
+    then `mpc/quickselect.top_k_indices` — with its integer
     products on the hand-written ring kernels of `kernels/`;
   * the clear scoring paths — the target classifier's forward
     (`core/target`: Oracle entropy and accuracy, attention on the

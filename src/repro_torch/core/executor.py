@@ -69,7 +69,10 @@ class ExecConfig:
     batch: int = 64               # candidates per batch
     flops_per_s: float = 10e12
     ring: RingSpec = RING64
-    protocol: str = "2pc"         # only the additive 2PC backend is ported
+    # secret-sharing protocol backend (mpc/protocols/): "2pc" additive
+    # with trusted-dealer triples, "3pc" replicated 2-of-3, dealer-free,
+    # "spdz2pc" MAC'd malicious 2PC, "aby3trunc" 3pc with exact trunc2
+    protocol: str = "2pc"
     # round compression (mpc/fusion.py): run each batch's forward under
     # a flight_scope so independent openings share flights
     fuse: bool = True

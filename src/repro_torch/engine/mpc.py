@@ -186,9 +186,9 @@ class MPCEngine:
         else:
             out = nonlinear.entropy_from_logits(logits, self._k())
         out = mops.force(out, self._k())
-        # Malicious backends verify every partial opening of the forward
-        # with ONE batched MAC check at this boundary. Semi-honest
-        # backends (every ported one) have no hook; nothing fires.
+        # Malicious backends (spdz2pc) verify every partial opening of
+        # the forward with ONE batched MAC check at this boundary.
+        # Semi-honest backends have no hook; nothing fires.
         check = getattr(self.backend, "mac_check_flight", None)
         if check is not None:
             check(self.ring)

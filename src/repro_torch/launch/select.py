@@ -19,7 +19,12 @@ of the executable share-level path, evaluated at the paper's geometry.
 
 --mode mpc runs Stage 2 through the wave executor (core/executor.py)
 with an MPCEngine interpreting the unified proxy forward; --ring 32
-switches the same code path onto the RING32 ring. --wave/--no-coalesce/
+switches the same code path onto the RING32 ring and
+--protocol {2pc,3pc,spdz2pc,aby3trunc} picks the secret-sharing backend
+(2pc: additive + trusted-dealer Beaver triples, offline bytes reported
+separately; 3pc: replicated 2-of-3, dealer-free — zero offline bytes;
+spdz2pc: the malicious tier, MAC'd shares that abort on tamper;
+aby3trunc: 3pc with ABY3's exact 2-round truncation). --wave/--no-coalesce/
 --no-overlap select among Fig 7's four schedule variants at runtime;
 openings are round-compressed into fused flights by default
 (mpc/fusion.py) — --eager disables the batcher. The output includes
@@ -32,8 +37,7 @@ choice) is dropped: the RING32 combine is the secure_matmul CUDA kernel
 on the card and its plain version on the CPU. The flags the port cannot
 serve yet stay in the parser and raise NotImplementedError: `--wire`,
 `--chaos-seed`, `--chaos-plan`, `--degraded` and `--net` other than wan
-(ROADMAP Queue 1, item 12), `--mesh` (item 14), and `--protocol` other
-than 2pc (item 11).
+(ROADMAP Queue 1, item 12) and `--mesh` (item 14).
 """
 from __future__ import annotations
 
@@ -54,7 +58,7 @@ from repro_torch.core.proxy import ProxySpec
 from repro_torch.core.selection import SelectionConfig, run_selection
 from repro_torch.data.tasks import make_classification_task
 from repro_torch.engine import ClearEngine, MPCEngine
-from repro_torch.mpc import costs, prng
+from repro_torch.mpc import costs, prng, protocols
 from repro_torch.mpc.comm import WAN, POD_DCN
 from repro_torch.mpc.ring import RING32, RING64
 
@@ -69,6 +73,9 @@ def checkpoint_dir() -> str:
 
 def _refuse_unported(protocol: str, wire: str, chaos_seed, degraded: bool,
                      mesh: str, chaos_plan=None, net: str = "wan") -> None:
+    """Raise for the flags the port cannot serve yet; every `protocol`
+    of the registry is served (an unknown one raises ValueError)."""
+    protocols.get(protocol)
     if wire != "none" or chaos_seed is not None or degraded \
             or chaos_plan is not None or net != "wan":
         raise NotImplementedError(
@@ -78,10 +85,6 @@ def _refuse_unported(protocol: str, wire: str, chaos_seed, degraded: bool,
     if mesh != "none":
         raise NotImplementedError("--mesh is not ported yet (ROADMAP Queue "
                                   "1, item 14)")
-    if protocol != "2pc":
-        raise NotImplementedError(
-            f"--protocol {protocol} is not ported yet: only 2pc is "
-            "(ROADMAP Queue 1, item 11)")
 
 
 def paper_scale_delay(n_pool: int, budget_frac: float, *, seq: int = 128,
@@ -209,8 +212,10 @@ def parser() -> argparse.ArgumentParser:
                     choices=["2pc", "3pc", "spdz2pc", "aby3trunc"],
                     default="2pc",
                     help="secret-sharing backend: 2pc (additive + "
-                         "trusted-dealer Beaver); the others are not "
-                         "ported yet and raise")
+                         "trusted-dealer Beaver), 3pc (replicated "
+                         "2-of-3, dealer-free), spdz2pc (malicious: "
+                         "MAC'd shares, aborts on tamper) or aby3trunc "
+                         "(3pc with exact ABY3 truncation)")
     ap.add_argument("--no-resume", action="store_true",
                     help="ignore existing phase checkpoints")
     ap.add_argument("--wire", choices=["none", "local", "socket"],

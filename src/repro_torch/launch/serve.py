@@ -21,8 +21,9 @@ Two serving modes share this entry point:
       across sessions, pipelines the offline dealer (drawn on the
       card), and serves fingerprint-identical phases from the
       cross-session cache. Writes SERVE_report.json whose per-phase
-      dicts are PhaseReport.as_dict. Only the 2pc protocol is ported
-      (ROADMAP Queue 1, item 11).
+      dicts are PhaseReport.as_dict. `--protocol` picks any of the four
+      backends (2pc, 3pc, spdz2pc, aby3trunc); the dealer-free ones
+      (3pc, aby3trunc) place no dealer order.
 """
 from __future__ import annotations
 
@@ -143,7 +144,7 @@ def appraise(n_sessions: int = 3, n_pool: int = 96, protocol: str = "2pc",
     from repro_torch.mpc.ring import RING32, RING64
     from repro_torch.serve import AppraisalServer, SessionSpec
 
-    protocols.get(protocol)          # raises for the unported backends
+    protocols.get(protocol)          # raises for an unknown name
     dev = resolve_device(device)
     ring = RING32 if ring_bits == 32 else RING64
 
@@ -210,8 +211,7 @@ def main(argv=None) -> None:
                     help="candidate pool size per session (--appraise)")
     ap.add_argument("--protocol",
                     choices=["2pc", "3pc", "spdz2pc", "aby3trunc"],
-                    default="2pc", help="MPC backend (--appraise; only 2pc "
-                                        "is ported)")
+                    default="2pc", help="MPC backend (--appraise)")
     ap.add_argument("--ring", type=int, choices=[64, 32], default=64,
                     help="MPC ring width (--appraise)")
     ap.add_argument("--out", default="SERVE_report.json",

@@ -3,7 +3,9 @@
   prng.py        threefry-2x32, bitwise equal to jax.random's key stream
   ring.py        fixed-point ring specs (int64/f16, int32/f12)
   sharing.py     protocol-generic Share container (stacked party axis)
-  protocols/     the additive2pc backend (CrypTen-style dealer Beaver)
+  protocols/     the four sharing backends: additive2pc (CrypTen-style
+                 dealer Beaver), replicated3pc (dealer-free), spdz2pc
+                 (MAC'd, malicious) and aby3trunc (exact trunc2)
   beaver.py      re-export of the 2pc dealer
   ops.py         linear algebra over shares: add/sub/mul/matmul/trunc
   compare.py     secure comparison (ideal-functionality semantics,

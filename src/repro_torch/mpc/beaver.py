@@ -5,4 +5,4 @@ that trust model. Dealer-shipped bytes are recorded into the ambient
 ledger's offline channel (`tag="offline"`) at generation time.
 """
 from repro_torch.mpc.protocols.additive2pc import (  # noqa: F401
-    matmul_triple, mul_triple, trunc_pair)
+    matmul_triple, mul_triple, triple_bytes, trunc_pair)

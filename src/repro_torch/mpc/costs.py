@@ -38,10 +38,9 @@ mirror the chosen backend's records exactly:
             truncation is one exact `trunc2` subprotocol: rounds=2
             (a batcher barrier), 6 components of wire.
 
-The four protocols' formulas are kept whole. Only the 2pc backend is
-registered in the port (mpc/protocols/), so `proxy_exec_cost`, which
-asks the backend whether its truncation is exact, raises for the other
-three until they are ported; the primitive formulas take any of them.
+`proxy_exec_cost` asks the registered backend (mpc/protocols/) whether
+its truncation is exact, so it takes any of the four names and raises
+ValueError for an unknown one.
 """
 from __future__ import annotations
 

@@ -28,8 +28,17 @@ Cost accounting notes (all recorded into the ambient Ledger):
   add/sub/neg/sum/lifts/pow2 folds ......... local, 0 rounds
   mul / matmul, 2pc (Beaver) ............... 1 round: open(eps)+open(delta)
                                              + offline dealer bytes
+  mul / matmul, 3pc, aby3trunc ............. 1 round: resharing flight,
+                                             no dealer, no offline bytes
+  mul / matmul, spdz2pc .................... 2 rounds: sacrifice + MAC'd
+                                             Beaver open, doubled offline
   force, 2pc RING64 ........................ 0 rounds (local shift)
   force, 2pc RING32 ........................ 1 round + offline trunc pair
+  force, 3pc both rings .................... local shift + re-replication
+                                             bytes on the next resharing
+                                             flight (0 rounds)
+  force, aby3trunc both rings .............. one exact trunc2: 2 rounds
+  force, spdz2pc both rings ................ 1 round + MAC'd trunc pair
 
 Under an ambient `fusion.flight_scope` every 1-round opening/resharing
 is deferred into the current fused flight instead of paying its own
@@ -43,6 +52,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import ops as kops
 from repro_torch.mpc.sharing import Share
 from repro_torch.mpc import prng, scale
 
@@ -175,6 +185,26 @@ def mul_public(x: Share, v, *, key: torch.Tensor | None = None) -> Share:
     return x.with_scale(x.sh * enc, out_fb)
 
 
+def mul_public_int(x: Share, v: int) -> Share:
+    """Multiply by a public *integer* — exact, scale-preserving."""
+    return x.with_sh(x.sh * int(v))
+
+
+def matmul_public(x: Share, w, *, key: torch.Tensor | None = None,
+                  w_encoded: torch.Tensor | None = None) -> Share:
+    """x @ w with public (already known to all parties) w; emits at
+    fb+f like `mul_public` — consumers force. The integer product is a
+    `ring_matmul` launch on the card."""
+    px, _, _ = scale.mul_plan(x.fb, x.ring.frac_bits, x.ring.frac_bits,
+                              _headroom_bits(x))
+    if px:
+        x = force(x, key, to=x.fb - px)
+    enc = w_encoded if w_encoded is not None else x.ring.encode(
+        torch.as_tensor(w, device=x.sh.device))
+    z = kops.ring_matmul(x.sh, enc)
+    return x.with_scale(z, x.fb + x.ring.frac_bits)
+
+
 def sum_(x: Share, axis=None, keepdims=False) -> Share:
     ax = axis
     if ax is not None:
@@ -217,6 +247,10 @@ def trunc(x: Share, *, key: torch.Tensor | None = None,
 
     2pc RING64: local arithmetic shifts (CrypTen's choice).
     2pc RING32: dealer-assisted pair — exact, one opening round.
+    3pc:        probabilistic local shift, both rings — no dealer; the
+                re-replication message is priced on the resharing flight.
+    aby3trunc:  exact two-round trunc2, both rings, no dealer.
+    spdz2pc:    MAC'd dealer pair, both rings; raises without a key.
     """
     return x.backend.trunc(x, key, shift=shift)
 

@@ -99,6 +99,14 @@ def trunc_pair(key: torch.Tensor, shape, ring: RingSpec,
             Share(_share_raw(k2, r_t, ring), ring))
 
 
+def triple_bytes(a_shape, b_shape, c_shape, ring: RingSpec) -> int:
+    """Offline bytes the dealer ships for one triple (both parties)."""
+    n = 0
+    for s in (a_shape, b_shape, c_shape):
+        n += numel(s)
+    return 2 * ring.elem_bytes * n
+
+
 # ---------------------------------------------------------------------------
 # the backend
 # ---------------------------------------------------------------------------

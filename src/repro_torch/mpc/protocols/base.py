@@ -25,13 +25,20 @@ def numel(shape) -> int:
 
 class BackendDefaults:
     """Default affine share transforms: reconstruction is the plain sum
-    over the leading axis, and a public constant lands on component 0."""
+    over the leading axis, and a public constant lands on component 0.
+    Schemes whose leading axis carries non-value rows — the MAC
+    components of spdz2pc — override both.
+
+    `n_wire_parties` is the number of physical parties on the wire. It
+    equals `n_parties` for plain schemes but not for MAC'd ones (spdz2pc
+    stacks 4 share rows across 2 parties)."""
 
     n_wire_parties = 2
 
     # True when `trunc(shift=)` is EXACT at any shift and any carried
-    # exponent. Probabilistic local truncation (additive2pc's RING64
-    # shift) wraps a share with probability ~ encoded/2**bits per
+    # exponent (dealer pair / trunc2 subprotocol). Probabilistic local
+    # truncation (additive2pc's RING64 shift, replicated3pc's
+    # regrouping) wraps a share with probability ~ encoded/2**bits per
     # element, so only exact-trunc backends may defer under the
     # ring-wide 3f headroom cap (ops._headroom_bits).
     exact_trunc = False
@@ -85,6 +92,11 @@ class ProtocolBackend(Protocol):
     bytes) into the ambient ledger; `trunc` implements the scheme's
     fixed-point truncation. Everything linear is protocol-generic and
     lives in `mpc/ops`.
+
+    Backends targeting malicious security may also expose
+    `mac_check_flight(ring)`: the engine calls it once at the forward's
+    public boundary (`MPCEngine.entropy_head`) to price — and, when a
+    verification scope is ambient, run — the batched MAC check.
     """
 
     name: str                     # registry key, also Share.proto

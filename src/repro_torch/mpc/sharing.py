@@ -1,8 +1,9 @@
 """Protocol-generic secret shares.
 
 A `Share` stacks every party's share component on a leading axis whose
-size the protocol backend decides (`mpc/protocols/`); the additive 2PC
-backend, the only one ported so far, keeps `sh[0] + sh[1] = value`.
+size the protocol backend decides (`mpc/protocols/`): 2 for additive
+2PC (`sh[0] + sh[1] = value`), 3 for replicated 3PC and aby3trunc, 4
+for spdz2pc (two value rows and two MAC rows).
 
 The container carries the ring, the protocol name, AND the fixed-point
 scale it is currently encoded at (`fb`, the carried frac-bits exponent

@@ -1,10 +1,11 @@
 """Pipelined offline dealer — pre-generates correlated randomness; the
 port of repro/serve/dealer.py.
 
-The additive-2pc backend consumes dealer material (Beaver triples,
-truncation pairs) whose bytes land on the ledger's OFFLINE channel:
-priced separately from the online wire precisely because a crypto
-provider can stream them AHEAD of the phase. Standalone runs leave that
+The additive-2pc and spdz2pc backends consume dealer material (Beaver
+triples, sacrifice triples, truncation pairs, MAC keys) whose bytes land
+on the ledger's OFFLINE channel (the dealer-free 3pc and aby3trunc
+place no order): priced separately from the online wire precisely
+because a crypto provider can stream them AHEAD of the phase. Standalone runs leave that
 pipelining implicit; the appraisal server makes it real. At session
 admission the server sizes each phase's demand from its TraceEngine
 probe (`Ledger.offline_by_op` x the wave fan-out) and `stage()`s

@@ -13,7 +13,9 @@ package's `repro.serve`, piece by piece and without a JAX forward:
      throughput equal JAX's, as floats, on PhaseReports built from the
      same integer ledgers.
   4. GUARDS and the launcher — sessions reject wire/mesh modes; the
-     `--appraise` launcher's report has JAX's keys (less `wire`).
+     `--appraise` launcher's report has JAX's keys (less `wire`), and it
+     serves the other protocols (3pc places no dealer order, spdz2pc
+     does).
 
 The server's end-to-end parity is test_torch_appraisal32.py / 64.py.
 """
@@ -321,11 +323,29 @@ class TestGuards:
             srv.submit(_session_spec())
 
     def test_protocols_other_than_2pc_raise(self):
-        for name in ("3pc", "spdz2pc", "aby3trunc"):
-            with pytest.raises(NotImplementedError,
-                               match="Queue 1, item 11"):
-                launch_serve.appraise(protocol=name, device="cpu",
-                                      out_path=None)
+        """Once refused, now served: one small session (a pool of 48)
+        under the dealer-free 3pc stages no dealer order, under spdz2pc
+        it stages and consumes its MAC'd material; aby3trunc's probe
+        orders nothing either. Every ledger agrees."""
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            reps = {name: launch_serve.appraise(
+                n_sessions=1, n_pool=48, protocol=name, device="cpu",
+                out_path=None) for name in ("3pc", "spdz2pc")}
+        finally:
+            torch.set_num_threads(threads)
+        assert all(r["ledger_agrees"] is True for r in reps.values())
+        assert reps["3pc"]["dealer"]["staged_elems"] == 0
+        d = reps["spdz2pc"]["dealer"]
+        assert d["staged_elems"] > 0
+        assert d["consumed_elems"] == d["staged_elems"]
+        cfg = dataclasses.replace(TINY_TARGET, vocab_size=64)
+        pb = cached_probe(cfg, ProxySpec(1, 1, 2), batch=4, seq=8,
+                          classes=2, ring=RING64, protocol="aby3trunc",
+                          fused=True)
+        assert pb.records and serve.phase_orders(pb, 3, RING64,
+                                                 "aby3trunc") == []
 
 
 def _jax_report_keys():

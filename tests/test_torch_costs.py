@@ -8,8 +8,9 @@ package's, and against the port's own meta probe.
     forward (engine/trace.py), eager and fused, on both rings, at
     tests/test_engine.py's geometry and at BERT-base width (d_model 768,
     12 heads of 64, seq 512, batch 4, the two chip_smoke.py proxies);
-  * `proxy_exec_cost` for a protocol the port has no backend for raises
-    through the registry, while the primitive formulas price it.
+  * `proxy_exec_cost` for each of the other three protocols (3pc,
+    spdz2pc, aby3trunc), now registered, equal to the JAX package's
+    record for record, eager and fused.
 """
 import dataclasses
 import itertools
@@ -165,9 +166,15 @@ def test_proxy_exec_cost_equals_meta_probe(cfg, spec, batch, seq, classes,
 
 @pytest.mark.parametrize("protocol", ["3pc", "spdz2pc", "aby3trunc"])
 def test_unported_protocols_raise_in_the_mirror(protocol):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        costs.proxy_exec_cost(6, 8, 32, 2, 2, 16, 4, 3, 1,
-                              protocol=protocol)
-    # the JAX package prices them; the port keeps their formulas whole
-    assert j_costs.proxy_exec_cost(6, 8, 32, 2, 2, 16, 4, 3, 1,
-                                   protocol=protocol).records
+    """Once refused, now ported: the mirror of each backend equals the
+    JAX package's record for record, on both rings, eager and fused."""
+    for ring in sorted(RINGS):
+        jr, tr = RINGS[ring]
+        for fused in (False, True):
+            want = j_costs.proxy_exec_cost(6, 8, 32, 2, 2, 16, 4, 3, 1,
+                                           ring=jr, protocol=protocol,
+                                           fused=fused)
+            got = costs.proxy_exec_cost(6, 8, 32, 2, 2, 16, 4, 3, 1,
+                                        ring=tr, protocol=protocol,
+                                        fused=fused)
+            assert want.records and recs(got) == recs(want), (ring, fused)

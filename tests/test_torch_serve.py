@@ -269,11 +269,25 @@ def test_server_on_the_cpu_takes_the_plain_versions():
     assert kops.fa_stats() == {"kernel": 0, "ref": 0}         # CPU: plain
 
 
-def test_main_runs_and_appraise_is_not_ported(capsys):
+def test_main_runs_and_appraise_is_not_ported(capsys, monkeypatch):
     serve.main(["--arch", "recurrentgemma_2b", "--device", "cpu",
                 "--requests", "3", "--max-len", "24", "--max-new", "2"])
     assert "3 requests, 3 tokens" in capsys.readouterr().out
-    # the appraisal service runs (tests/test_torch_appraisal.py); its
-    # protocols other than 2pc are not ported
-    with pytest.raises(NotImplementedError, match="not ported"):
-        serve.main(["--appraise", "--protocol", "3pc", "--device", "cpu"])
+    # the appraisal service runs (tests/test_torch_appraisal.py), now
+    # under every protocol: `--appraise --protocol 3pc` parses and
+    # reaches `appraise` with it (stubbed here: the service's own runs
+    # are in test_torch_appraisal.py)
+    seen = {}
+
+    def appraise(**kw):
+        seen.update(kw)
+        return {"throughput": {"n_sessions": 3,
+                               "serve_appraisals_per_hour": 2.0,
+                               "sequential_appraisals_per_hour": 1.0,
+                               "speedup": 2.0},
+                "cache": {"hits": 1, "misses": 5},
+                "dealer": {"dealer_stall_s": 0.0}, "ledger_agrees": True}
+    monkeypatch.setattr(serve, "appraise", appraise)
+    serve.main(["--appraise", "--protocol", "3pc", "--device", "cpu"])
+    assert seen["protocol"] == "3pc" and seen["device"] == "cpu"
+    assert "ledger_agrees=True" in capsys.readouterr().out

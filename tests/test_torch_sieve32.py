@@ -225,6 +225,16 @@ def test_exec_config_refuses_missing_card_and_unported_modes():
     for kw in ({"wire": "local"}, {"mesh": "host"}):
         with pytest.raises(NotImplementedError):
             WaveExecutor(ExecConfig(device="cpu", **kw))
-    with pytest.raises(NotImplementedError):
-        WaveExecutor(ExecConfig(device="cpu", protocol="3pc")) \
+    # the other protocol backends are ported (ROADMAP Queue 1 item 11):
+    # a 3pc phase runs (three share rows, its ledger agrees); only an
+    # unknown protocol name raises, from the registry
+    pp = proxy.random_proxy(torch.Generator().manual_seed(0), CFG, SPEC,
+                            SEQ, CLASSES, device="cpu")
+    ex = WaveExecutor(ExecConfig(device="cpu", protocol="3pc", batch=BATCH,
+                                 wave=WAVE))
+    ent = ex.score_phase(prng.key(0), pp, CFG, np.zeros((BATCH, SEQ),
+                                                         np.int64), SPEC)
+    assert tuple(ent.sh.shape) == (3, BATCH) and ex.reports[-1].agrees()
+    with pytest.raises(ValueError, match="unknown protocol"):
+        WaveExecutor(ExecConfig(device="cpu", protocol="4pc")) \
             .score_phase(prng.key(0), {}, CFG, np.zeros((1, SEQ)), SPEC)
