@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Run the PyTorch/CUDA port on one NVIDIA GPU: the private sieve, the
 clear scoring paths, token serving, the selection pipeline, the
-exact-op MPC baselines, the appraisal service and the other protocol
-backends.
+exact-op MPC baselines, the appraisal service, the other protocol
+backends and the real wire.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -165,8 +165,8 @@ result line):
      |decoded MPC - ClearEngine with the same variant| are printed (not
      gated: RING32's exp and the NR reciprocal may wrap). (9b) Each
      exact-op variant's forward on the card and the CPU with the same
-     keys, one row at depth 1 and seq 128, both rings: shares bitwise
-     equal. (9c) `costs.proxy_exec_cost` against the meta probe record for
+     keys, one row at depth 1 and seq 128, on one ring (VAR_CPU_RING,
+     the rings alternating): shares bitwise equal. (9c) `costs.proxy_exec_cost` against the meta probe record for
      record for phase 3's two proxies, eager and fused, both rings, and
      `schedule_search.grid_search(42000)`'s Pareto frontier. (9d)
      `launch.select.run(mode="mpc", ring_bits=32)` at its defaults: its
@@ -203,13 +203,40 @@ result line):
      and MAC-check records, ring_matmul launched and secure_matmul did
      not, no plain version ran and the scores are finite; wall,
      makespan, rounds, bytes, peak memory, launches and max |decoded MPC
-     - ClearEngine| are printed. (11b) Each pair's forward on the card
-     and the CPU with the same keys, one row at depth 1 and seq 128:
-     shares bitwise equal. (11c) One eager spdz2pc RING64 forward of a
+     - ClearEngine| are printed. (11b) One pair a backend
+     (PROTO_CPU_PAIRS: 3pc RING64, aby3trunc RING32, spdz2pc RING64),
+     its forward on the card and the CPU with the same keys, one row at
+     depth 1 and seq 128: shares bitwise equal. (11c) One eager spdz2pc RING64 forward of a
      batch of 4 at 11a's width inside `mac_scope` passes the boundary
      MAC check (every obligation read), and 11b's small forward with
      one bit of a partial open flipped raises MacCheckError at
      `MPCEngine.entropy_head`.
+ 12. the real wire and recovery, one batch of 4 at seq 512 and BERT-base
+     width (one wave), each proxy cut to depth 1 (WIRE_LAYERS), every
+     wired phase beside the same phase unwired (`wire="none",
+     coalesce=False`). (12a) phase 3's phase-2 proxy <1,12,16>, RING32
+     2pc, fused, `wire="local"`: fatal unless the scores are bitwise the
+     unwired run's, the ledger agrees, the per-batch ledger equals
+     `costs.proxy_exec_cost` record for record, the replay's goodput
+     equals the ledger's online bytes (0.871 GB) and every payload
+     digest matches, and secure_matmul launched with no plain version;
+     the tape's GB and flights, `wire_makespan_s`, the cost of capture
+     (wired minus unwired score wall) and the peak device GB are
+     printed. (12b) the same phase over `wire="socket"` at wan (one
+     spawned process a party, paced localhost TCP), held to 12a's gates
+     and scores; its `wire_makespan_s` beside the model's
+     `makespan(WAN)` and their ratio (printed, not gated). (12c) phase
+     3's phase-1 proxy <1,1,2>, RING32 2pc, socket at pod_dcn under
+     `chaos_seed=123`: bitwise scores, bytes and digests, faults injected
+     and retried, one respawn that recovered, `FaultPlan.from_tape` the
+     same JSON twice; the plan and the RETRANS channel are printed.
+     (12d) <1,1,2> under 3pc RING64, local, chaos and `degraded`: the
+     report names one dead party, the bytes match the filtered tape, the
+     scores are bitwise the unwired 3pc run's, ring_matmul launched with
+     no plain version. (12e) 12c's forward at depth 1 and seq 128, one
+     row, 2pc on both rings, captured on the card and the CPU with the
+     same keys: the tapes equal message for message, `expected_digests`
+     agree and the tape carries share bytes, not filler only.
 
 The last lines are the card's `nvidia-smi` name and power limit, one
 `{"kernels": [...]}` JSON line, and the result line
@@ -1397,11 +1424,12 @@ def phase_scan_kernels(seed: int) -> dict:
 
 PHASES = ((1, 1, 2), (3, 12, 16))
 CPU_LAYERS = 1                 # phase-2 depth of the card-vs-CPU check
-# its rows: cut from BATCH = 4 so that the script, phase 10 included,
-# stays well inside its time limit on the slowest hosts (at 4 rows the
-# host CPU's forwards took 146 s of a 1,067 s run beside an H100,
-# PERF.md §6)
-CPU_ROWS = 2
+# its rows: cut from BATCH = 4 so that the script, phases 10-12
+# included, stays well inside its time limit on the slowest hosts (at 4
+# rows the host CPU's forwards took 146 s of a 1,067 s run beside an
+# H100; cut to 2, then to 1 when phase 12 took a slow host's script to
+# 1,074 s, PERF.md §6)
+CPU_ROWS = 1
 POOL, KEEPS, BATCH, SEQ, CLASSES, WAVE = 64, (24, 8), 4, 512, 2, 4
 
 
@@ -2534,6 +2562,11 @@ VAR_BATCHES = 2
 # width, to pay for phase 11 (9a took 144-151 s at depth 3, PERF.md §5)
 VAR_LAYERS = 1
 VAR_SEQ = 128                  # 9b's cut sequence (one row, depth 1)
+# 9b's rows: each exact-op variant on one ring, the rings alternating
+# (cut from both rings for time when phase 12 came, PERF.md §6; the ring
+# kernels are held bitwise on both rings in phase 2)
+VAR_CPU_RING = {"no-sm": 32, "no-ln": 64, "no-se": 32, "quad_sm": 64,
+                "poly_sm": 32}
 SELECT_POOL, SELECT_BUDGET = 800, 0.2      # launch/select.run's defaults
 
 
@@ -2649,8 +2682,9 @@ def phase_variants_card_vs_cpu(seed: int) -> None:
     """9b: each exact-op variant's forward on the card and on the CPU
     with the same keys, one row at depth CPU_LAYERS and seq VAR_SEQ (a
     proxy of that seq, random from --seed; widths stay BERT-base's), on
-    both rings: shares bitwise equal. The cut bounds the CPU's time; the
-    ring kernels are held bitwise at the path's shapes in phase 2."""
+    its ring of VAR_CPU_RING: shares bitwise equal. The cuts bound the
+    CPU's time; the ring kernels are held bitwise at the path's shapes
+    in phase 2."""
     import numpy as np
     import torch
     from repro_torch.configs.paper_targets import BERT
@@ -2670,7 +2704,7 @@ def phase_variants_card_vs_cpu(seed: int) -> None:
         key = prng.key(seed + 93)
         pp_sh = share_proxy(prng.fold_in(key, 1), pp, ring)
         x_sh = share(prng.fold_in(key, 2), x, ring)
-        for name in EXACT:
+        for name in (n for n in EXACT if VAR_CPU_RING[n] == ring.bits):
             got = {}
             for dev in (DEVICE, "cpu"):
                 d = torch.device(dev)
@@ -2936,6 +2970,9 @@ def phase_service(seed: int, smi: str, pipeline: dict) -> dict:
 # (tests/test_malicious.py), which is why aby3trunc exists
 PROTO_PAIRS = (("3pc", 64), ("aby3trunc", 32), ("aby3trunc", 64),
                ("spdz2pc", 32), ("spdz2pc", 64))
+# 11b's rows: one pair a backend (cut from all five for time when phase
+# 12 came, PERF.md §6)
+PROTO_CPU_PAIRS = (("3pc", 64), ("aby3trunc", 32), ("spdz2pc", 64))
 # share rows of each backend: replicated 3 components; SPDZ 2 value rows
 # and 2 MAC rows
 PROTO_ROWS = {"3pc": 3, "aby3trunc": 3, "spdz2pc": 4}
@@ -3037,17 +3074,18 @@ def phase_protocols(seed: int, proxies, smi: str) -> dict:
     return out
 
 
-def _small_protocol_forward(seed: int, proto: str, ring):
+def _small_protocol_forward(seed: int, proto: str, ring, phase: int = 1):
     """11b's one row at depth CPU_LAYERS and seq VAR_SEQ (BERT-base
-    widths), shared under `proto` on the CPU: (proxy shares, input
-    share, engine key, spec)."""
+    widths) of phase 3's proxy `phase` (heads and MLP width), shared
+    under `proto` on the CPU: (proxy shares, input share, engine key,
+    spec)."""
     import numpy as np
     import torch
     from repro_torch.configs.paper_targets import BERT
     from repro_torch.core.proxy import ProxySpec, random_proxy, share_proxy
     from repro_torch.mpc import prng
     from repro_torch.mpc.sharing import share
-    spec = ProxySpec(CPU_LAYERS, *PHASES[1][1:])
+    spec = ProxySpec(CPU_LAYERS, *PHASES[phase][1:])
     pp = random_proxy(torch.Generator().manual_seed(seed + 111), BERT, spec,
                       VAR_SEQ, CLASSES, device="cpu")
     emb = pp.pop("embed")
@@ -3061,14 +3099,14 @@ def _small_protocol_forward(seed: int, proto: str, ring):
 
 
 def phase_protocols_card_vs_cpu(seed: int) -> None:
-    """11b: each (protocol, ring) of 11a, one row at depth CPU_LAYERS
-    and seq VAR_SEQ, on the card and on the CPU with the same keys:
-    shares bitwise equal."""
+    """11b: each (protocol, ring) of PROTO_CPU_PAIRS, one row at depth
+    CPU_LAYERS and seq VAR_SEQ, on the card and on the CPU with the same
+    keys: shares bitwise equal."""
     import torch
     from repro_torch.configs.paper_targets import BERT
     from repro_torch.engine import MPCEngine, proxy_entropy
     from repro_torch.mpc.ring import RING32, RING64
-    for proto, bits in PROTO_PAIRS:
+    for proto, bits in PROTO_CPU_PAIRS:
         ring = RING32 if bits == 32 else RING64
         pp_sh, x_sh, k, spec = _small_protocol_forward(seed, proto, ring)
         got = {}
@@ -3162,6 +3200,251 @@ def phase_malicious(seed: int, proxies, smi: str) -> dict:
                                       counts["rmm"]["kernel"]}}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the real wire
+# ---------------------------------------------------------------------------
+
+CHAOS_SEED = 123
+# 12's depth: every wired phase runs a depth-1 proxy (a tape is host
+# bytes, and the socket wire paces wan at 100 MB/s a link), one batch of
+# BATCH at SEQ: <1,12,16> is 0.871 GB online on RING32 2pc, <1,1,2> 0.316
+WIRE_LAYERS = 1
+
+
+def _wired(seed, cfg, spec, pp, pool, ring, proto="2pc", **kw):
+    """One executed phase through `WaveExecutor`'s config checks and a
+    `PhaseRun` (kept for its tape), with the launch counters reset just
+    before it and read just after: (scores, report, tape, counts, wall
+    with the wire's replay, peak device GB). The report's `wall_s` stops
+    before the replay."""
+    import torch
+    from repro_torch.core.executor import ExecConfig, PhaseRun, WaveExecutor
+    from repro_torch.mpc import prng
+    ex = WaveExecutor(ExecConfig(wave=WAVE, overlap=True, fuse=True,
+                                 batch=BATCH, ring=ring, protocol=proto,
+                                 device=DEVICE, **kw))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    t0 = time.time()
+    run = PhaseRun(ex.cfg, prng.key(seed + 120, device=DEVICE), pp, cfg,
+                   pool, spec)
+    for wi in range(run.n_waves):
+        run.dispatch(wi)
+    run.drain()
+    ent, rep = run.finish()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    return (ent.sh.cpu(), rep, run.tape, _counters(), wall,
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def _wire_gates(tag, rep, counts, kernel, scores, ref) -> None:
+    """What every wired phase of 12a-12d must show."""
+    import torch
+    w = rep.wire
+    if not torch.equal(scores, ref):
+        fail(f"{tag}: wired scores differ from the unwired run's")
+    if not rep.agrees():
+        fail(f"{tag}: ledger does not agree with the schedule")
+    if not (w.bytes_match and w.digests_ok):
+        fail(f"{tag}: wire {w.wire_nbytes} B against the tape's "
+             f"{w.tape_nbytes}, digests_ok {w.digests_ok}")
+    if counts[kernel]["kernel"] <= 0 or _plain(counts):
+        fail(f"{tag}: {kernel} {counts[kernel]}, plain {_plain(counts)}")
+
+
+def _wire_info(rep, wall, peak) -> dict:
+    w = rep.wire
+    return {"tape_gb": w.tape_nbytes / 1e9, "flights": w.n_flights,
+            "msgs": w.n_msgs, "wire_gb": w.wire_nbytes / 1e9,
+            "wire_makespan_s": w.wire_makespan_s,
+            "per_party_s": w.per_party_s, "score_wall_s": rep.wall_s,
+            "wall_with_replay_s": wall, "peak_mem_gb": peak}
+
+
+def phase_wire(seed: int, proxies, smi: str) -> dict:
+    """12a-12d: the executor's real wire at BERT-base width, one batch of
+    BATCH at SEQ (one wave), each wired phase against the same phase
+    unwired (`wire="none", coalesce=False`, the schedule a wire forces).
+    (12a) phase 3's phase-2 proxy cut to WIRE_LAYERS (<1,12,16>), RING32
+    2pc, fused, `wire="local"`: bitwise scores, agreement, the per-batch
+    ledger equal to `costs.proxy_exec_cost` record for record, bytes and
+    digests, goodput equal to the ledger's online bytes, secure_matmul
+    launched and no plain version. (12b) the same over `wire="socket"`
+    at wan (one spawned process a party, paced localhost TCP): 12a's
+    gates and 12a's scores; the measured wire_makespan_s beside the
+    model's `makespan(WAN)` of the same stream (printed, not gated).
+    (12c) phase 3's phase-1 proxy <1,1,2>, RING32 2pc, socket at pod_dcn
+    under `chaos_seed=CHAOS_SEED`: bitwise, bytes and digests, faults
+    injected and retried, one respawn that recovered, the plan the same
+    JSON twice. (12d) <1,1,2> under 3pc RING64, local, chaos and
+    `degraded`: 2-of-3 after a crash at the boundary, bytes against the
+    filtered tape, bitwise scores, ring_matmul with no plain version."""
+    import numpy as np
+    from repro_torch import net
+    from repro_torch.mpc import costs
+    from repro_torch.mpc.comm import WAN
+    from repro_torch.mpc.ring import RING32, RING64
+    from repro_torch.net import faults
+    cfg, specs, pps = proxies
+    pool = np.random.default_rng(seed + 12).integers(0, cfg.vocab_size,
+                                                     (BATCH, SEQ))
+    out = {}
+    launches = {"ring_matmul": 0, "secure_matmul": 0}
+
+    def count(counts):
+        launches["ring_matmul"] += counts["rmm"]["kernel"]
+        launches["secure_matmul"] += counts["smm"]["kernel"]
+
+    # 12a: the local wire at <1,12,16>
+    spec, pp = _cut_proxy(specs[1], pps[1], WIRE_LAYERS)
+    ref, rep0, _, c0, _, _ = _wired(seed, cfg, spec, pp, pool, RING32,
+                                    wire="none", coalesce=False)
+    count(c0)
+    got, rep, tape, counts, wall, peak = _wired(
+        seed, cfg, spec, pp, pool, RING32, wire="local")
+    count(counts)
+    _wire_gates("12a", rep, counts, "smm", got, ref)
+    mirror = costs.proxy_exec_cost(
+        BATCH, SEQ, cfg.d_model, spec.n_heads, cfg.n_kv_heads, cfg.d_head,
+        spec.mlp_dim, CLASSES, spec.n_layers, ring=RING32, fused=True)
+    if _mirror_stream(rep.per_batch) != _mirror_stream(mirror):
+        fail("12a: the per-batch ledger differs from costs.proxy_exec_cost")
+    if rep.wire.wire_nbytes != rep.ledger.nbytes:
+        fail(f"12a: wire {rep.wire.wire_nbytes} B, ledger "
+             f"{rep.ledger.nbytes} B")
+    info = _wire_info(rep, wall, peak)
+    info.update(unwired_score_wall_s=rep0.wall_s,
+                capture_cost_s=rep.wall_s - rep0.wall_s,
+                largest_flight_gb=max(f.nbytes for f in tape.flights) / 1e9,
+                secure_matmul=counts["smm"]["kernel"],
+                ring_matmul=counts["rmm"]["kernel"])
+    out["12a"] = info
+    log(f"[12a] local wire, RING32 2pc <{spec.n_layers},{spec.n_heads},"
+        f"{spec.mlp_dim}>, one batch of {BATCH} ({smi}): "
+        + json.dumps(info))
+
+    # 12b: the same phase over sockets at wan
+    got, rep, _, counts, wall, peak = _wired(
+        seed, cfg, spec, pp, pool, RING32, wire="socket", net="wan")
+    count(counts)
+    _wire_gates("12b", rep, counts, "smm", got, ref)
+    if rep.wire.wire_nbytes != rep.ledger.nbytes or rep.wire.mode != "socket":
+        fail(f"12b: {rep.wire.mode} wire {rep.wire.wire_nbytes} B, ledger "
+             f"{rep.ledger.nbytes} B")
+    info = _wire_info(rep, wall, peak)
+    model = rep.makespan(WAN)
+    info.update(model_makespan_wan_s=model,
+                measured_over_model=rep.wire.wire_makespan_s / model,
+                secure_matmul=counts["smm"]["kernel"])
+    out["12b"] = info
+    log(f"[12b] socket wire at wan, same phase ({smi}): "
+        + json.dumps(info))
+
+    # 12c: chaos over sockets at <1,1,2>
+    spec, pp = _cut_proxy(specs[0], pps[0], WIRE_LAYERS)
+    ref, _, _, c0, _, _ = _wired(seed, cfg, spec, pp, pool, RING32,
+                                 wire="none", coalesce=False)
+    count(c0)
+    got, rep, tape, counts, wall, peak = _wired(
+        seed, cfg, spec, pp, pool, RING32, wire="socket", net="pod_dcn",
+        chaos_seed=CHAOS_SEED)
+    count(counts)
+    _wire_gates("12c", rep, counts, "smm", got, ref)
+    w = rep.wire
+    plan = faults.FaultPlan.from_tape(CHAOS_SEED, tape).to_json()
+    if plan != faults.FaultPlan.from_tape(CHAOS_SEED, tape).to_json() \
+            or plan != w.fault_plan:
+        fail("12c: FaultPlan.from_tape is not deterministic")
+    if not (w.faults_injected > 0 and w.retries > 0 and w.respawns == 1
+            and w.recovery_time_s > 0):
+        fail(f"12c: faults {w.faults_injected}, retries {w.retries}, "
+             f"respawns {w.respawns}, recovery {w.recovery_time_s} s")
+    info = _wire_info(rep, wall, peak)
+    info.update({k: getattr(w, k) for k in (
+        "faults_injected", "retries", "respawns", "recovery_time_s",
+        "retrans_bytes", "ack_bytes", "dup_frames", "reconnects")})
+    info["plan"] = json.loads(plan)
+    out["12c"] = info
+    log(f"[12c] chaos over sockets at pod_dcn, RING32 2pc <{spec.n_layers},"
+        f"{spec.n_heads},{spec.mlp_dim}> ({smi}): " + json.dumps(info))
+
+    # 12d: degraded 2-of-3 under 3pc
+    ref, _, _, c0, _, _ = _wired(seed, cfg, spec, pp, pool, RING64,
+                                 "3pc", wire="none", coalesce=False)
+    count(c0)
+    got, rep, tape, counts, wall, peak = _wired(
+        seed, cfg, spec, pp, pool, RING64, "3pc", wire="local",
+        chaos_seed=CHAOS_SEED, degraded=True)
+    count(counts)
+    _wire_gates("12d", rep, counts, "rmm", got, ref)
+    w = rep.wire
+    if not w.degraded or len(w.dead_parties) != 1:
+        fail(f"12d: degraded {w.degraded}, dead {w.dead_parties}")
+    filtered = net.filter_tape(tape, w.dead_parties[0])
+    if w.tape_nbytes != filtered.nbytes or w.wire_nbytes != filtered.nbytes:
+        fail(f"12d: wire {w.wire_nbytes} B, filtered tape "
+             f"{filtered.nbytes} B")
+    info = _wire_info(rep, wall, peak)
+    info.update(dead_parties=w.dead_parties, full_tape_gb=tape.nbytes / 1e9,
+                faults_injected=w.faults_injected, retries=w.retries,
+                ring_matmul=counts["rmm"]["kernel"])
+    out["12d"] = info
+    log(f"[12d] degraded 2-of-3, RING64 3pc <{spec.n_layers},"
+        f"{spec.n_heads},{spec.mlp_dim}> ({smi}): " + json.dumps(info))
+    out["launches"] = launches
+    return out
+
+
+def phase_wire_card_vs_cpu(seed: int) -> None:
+    """12e: 12c's forward (phase 3's phase-1 proxy) at depth CPU_LAYERS
+    and seq VAR_SEQ, one row, 2pc on RING32 and RING64, fused, captured
+    into a wire tape on the card and on the CPU with the same keys: the
+    tapes must be equal message for message and `expected_digests`
+    agree, and the tape must carry share bytes (not all filler)."""
+    import torch
+    from repro_torch import net
+    from repro_torch.configs.paper_targets import BERT
+    from repro_torch.engine import MPCEngine, proxy_entropy
+    from repro_torch.mpc import comm, fusion
+    from repro_torch.mpc.ring import RING32, RING64
+    for ring in (RING32, RING64):
+        pp_sh, x_sh, k, spec = _small_protocol_forward(seed + 12, "2pc",
+                                                       ring, phase=0)
+        tapes = {}
+        for dev in (DEVICE, "cpu"):
+            d = torch.device(dev)
+            tape = comm.WireTape(2)
+            t0 = time.time()
+            with comm.ledger_scope(), comm.wire_tape_scope(tape), \
+                    fusion.flight_scope():
+                proxy_entropy(MPCEngine(ring).with_key(k.to(d)),
+                              _on(pp_sh, d), BERT,
+                              x_sh.with_sh(x_sh.sh.to(d)), spec)
+            tapes[dev] = (tape, time.time() - t0)
+        card, cpu = tapes[DEVICE][0], tapes["cpu"][0]
+        msgs = [[(m.src, m.dst, m.rnd, m.data) for m in f.msgs]
+                for f in card.flights]
+        if [(f.op, f.rounds, f.nbytes, f.tag) for f in card.flights] != \
+                [(f.op, f.rounds, f.nbytes, f.tag) for f in cpu.flights] \
+                or msgs != [[(m.src, m.dst, m.rnd, m.data) for m in f.msgs]
+                            for f in cpu.flights]:
+            fail(f"12e {ring.name}: card and CPU tapes differ")
+        if net.expected_digests(card, 2) != net.expected_digests(cpu, 2):
+            fail(f"12e {ring.name}: card and CPU digests differ")
+        share_bytes = sum(len(m.data) for f in card.flights for m in f.msgs
+                          if m.data.count(0) < len(m.data))
+        if share_bytes <= 0:
+            fail(f"12e {ring.name}: the tape carries filler only")
+        log(f"[12e] {ring.name} 2pc <{spec.n_layers},{spec.n_heads},"
+            f"{spec.mlp_dim}> seq {VAR_SEQ}: card tape == CPU tape, "
+            f"{len(card.flights)} flights, {card.nbytes / 1e6:.1f} MB, "
+            f"{share_bytes / card.nbytes:.3f} of it in messages that are "
+            f"not all zero (card {tapes[DEVICE][1]:.2f} s, CPU "
+            f"{tapes['cpu'][1]:.2f} s)")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3245,6 +3528,12 @@ def main(argv=None) -> int:
     t0 = time.time()
     mal = phase_malicious(args.seed, proxies, smi)
     log(f"[11c] malicious tier: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    wire = phase_wire(args.seed, proxies, smi)
+    log(f"[12a-d] real wire: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    phase_wire_card_vs_cpu(args.seed)
+    log(f"[12e] card vs CPU tapes: {time.time() - t0:.1f} s")
 
     dl, l8, l10 = selected["launches"], pipeline["launches"], \
         service["launches"]
@@ -3255,6 +3544,8 @@ def main(argv=None) -> int:
                                    ("secure_matmul", "smm"))}
     by_path["ring_matmul"]["11"] = protos["launches"]["ring_matmul"] \
         + mal["launches"]["ring_matmul"]
+    for name in by_path:
+        by_path[name]["12"] = wire["launches"][name]
     kernels = []
     for name, tpu in (("ring_matmul", RING_MATMUL_TPU),
                       ("secure_matmul", SECURE_MATMUL_TPU)):

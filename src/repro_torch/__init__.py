@@ -31,5 +31,10 @@ points run on the card (`device="cuda"`) unless the caller passes
     the round-robin wave interleaver, the offline dealer drawing its
     material on the card, the cross-session phase cache, the throughput
     report) and `launch/serve --appraise` — with `checkpoint/`, the
-    manifest-verified checkpoints the cache persists through.
+    manifest-verified checkpoints the cache persists through;
+  * the real wire and its recovery — `net/` (transports, seeded fault
+    injection, `PartyRuntime` replaying a phase's captured flights as
+    threads or spawned processes) and `runtime/ft` — under the
+    executor's `wire=` and `launch/select --wire`. These two packages
+    import neither torch nor anything of the port that does.
 """

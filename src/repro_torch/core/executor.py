@@ -1,7 +1,7 @@
 """Wave-pipelined MPC executor — the §4.4 schedule, executable.
 
-The port of repro/core/executor.py on one device (`mesh="none"`,
-`wire="none"`). The Stage-2 sieve's candidate batches are grouped into
+The port of repro/core/executor.py on one device (`mesh="none"`). The
+Stage-2 sieve's candidate batches are grouped into
 waves of W:
 
   COALESCE   the share-level proxy forward is `torch.func.vmap`ped across
@@ -25,6 +25,16 @@ the JAX package's for the same key.
 `run_variants` executes Fig 7's four (coalesce, overlap) points on one
 pool and holds them to that contract.
 
+WIRE       with `ExecConfig.wire` "local" or "socket", every executed
+           flight's actual messages are captured into a `comm.WireTape`
+           (coalescing is forced off: a vmapped lane's payloads are
+           abstract) and `finish` replays the tape as real parties
+           (net/runtime.PartyRuntime): bytes reconciled against the
+           phase ledger, payload digests checked, `wire_makespan_s`
+           measured. `chaos_seed` derives a deterministic FaultPlan from
+           the tape; `degraded` places its crash at the phase boundary
+           for a 2-of-3 finish.
+
 The executor runs on the card (`ExecConfig.device="cuda"`) unless the
 caller asks for the CPU, as the tests do; asking for CUDA where there is
 no card raises.
@@ -44,8 +54,10 @@ from repro_torch.core.proxy import ProxySpec
 from repro_torch.engine import MPCEngine, cached_probe, proxy_entropy
 from repro_torch.engine.base import FULL_VARIANT
 from repro_torch.kernels import ops as kops
+from repro_torch import net
 from repro_torch.mpc import comm, fusion, prng, protocols
-from repro_torch.mpc.comm import DeviceReport, Ledger, WaveTiming
+from repro_torch.mpc.comm import DeviceReport, Ledger, NetProfile, WaveTiming
+from repro_torch.net import faults
 from repro_torch.mpc.ring import RING64, RingSpec
 from repro_torch.mpc.sharing import Share, share
 
@@ -76,7 +88,24 @@ class ExecConfig:
     # round compression (mpc/fusion.py): run each batch's forward under
     # a flight_scope so independent openings share flights
     fuse: bool = True
-    wire: str = "none"            # real-wire execution: not ported yet
+    # real-wire execution (net/): "none" keeps flights modeled; "local"
+    # replays the captured flight tape as one thread per party over
+    # in-process queues; "socket" spawns one PROCESS per party over paced
+    # localhost TCP emulating `net`'s profile and measures wall-clock
+    # (PhaseReport.wire). Wire capture needs concrete message tensors,
+    # so the executor forces coalesce=False under wire modes — scores
+    # are schedule-invariant (run_variants proves it bitwise).
+    wire: str = "none"
+    # which comm.PROFILES entry prices the model AND paces the socket
+    net: str = "wan"
+    # chaos (net/faults.py): with a seed, derive a deterministic
+    # FaultPlan from the captured tape and replay under injected faults
+    # (reliable delivery + crash recovery engage automatically); scores
+    # must stay bitwise identical and goodput must still reconcile.
+    chaos_seed: int | None = None
+    # degraded 2-of-3: a 3PC party that dies at a phase boundary is
+    # dropped and the survivors finish the opens (replicated sharing)
+    degraded: bool = False
     mesh: str = "none"            # device mesh: not ported yet
     device: str = "cuda"
 
@@ -99,6 +128,10 @@ class PhaseReport:
     ring: RingSpec = RING64
     protocol: str = "2pc"
     fused: bool = True
+    # real-wire outcome (net.WireReport) when the phase ran with
+    # ExecConfig.wire != "none": measured wire_makespan_s, reconciled
+    # byte counts, payload digests
+    wire: net.WireReport | None = None
     # device-side outcome: per-wave dispatch/ready stamps and the
     # kernel launch counters for the phase
     device: DeviceReport | None = None
@@ -114,16 +147,17 @@ class PhaseReport:
         return iosched.ledger_agrees(self.ledger, self.per_batch,
                                      self.n_batches, self.sched)
 
-    def makespan(self, net: comm.NetProfile) -> float:
+    def makespan(self, net: NetProfile) -> float:
         """Modeled end-to-end delay of this phase's measured op stream."""
         return iosched.makespan(self.per_batch, self.n_batches, net,
                                 self.sched)
 
-    def as_dict(self) -> dict:
-        """The per-phase report dict, in the JAX package's shape less its
-        `wire` entry (real-wire execution is not ported): `makespan_wan_s`
-        prices the measured stream under the WAN profile."""
-        return {
+    def as_dict(self, net: NetProfile | None = None) -> dict:
+        """The per-phase report dict, in the JAX package's shape:
+        `makespan_wan_s` prices the measured stream under the WAN
+        profile; pass `net` to price it under another comm.PROFILES
+        entry too (adds `net` and `net_makespan_s`)."""
+        d = {
             "n_batches": self.n_batches, "n_waves": self.n_waves,
             "protocol": self.protocol,
             "lat_rounds": self.ledger.lat_rounds,
@@ -135,17 +169,31 @@ class PhaseReport:
             "device_makespan_s": self.device_makespan_s,
             "device": self.device.as_dict() if self.device is not None
                       else None,
+            "wire": self.wire.as_dict() if self.wire is not None else None,
         }
+        if net is not None and net.name != "wan":
+            d["net"] = net.name
+            d["net_makespan_s"] = self.makespan(net)
+        return d
 
 
 class WaveExecutor:
     """Runs the Stage-2 multiphase sieve through the §4.4 schedule."""
 
     def __init__(self, cfg: ExecConfig):
-        if cfg.wire != "none":
-            raise NotImplementedError(f"wire={cfg.wire!r} is not ported yet")
+        if cfg.wire not in ("none", "local", "socket"):
+            raise ValueError(f"unknown wire mode {cfg.wire!r}")
         if cfg.mesh != "none":
             raise NotImplementedError(f"mesh={cfg.mesh!r} is not ported yet")
+        if cfg.chaos_seed is not None and cfg.wire == "none":
+            raise ValueError("chaos_seed needs a real wire "
+                             "(wire='local' or 'socket')")
+        if cfg.wire != "none" and cfg.coalesce:
+            # capturing real message tensors requires the eager per-lane
+            # path (vmap abstracts the payloads away); the schedule is
+            # score-invariant, so this changes WHEN flights happen, not
+            # what they carry
+            cfg = dataclasses.replace(cfg, coalesce=False)
         resolve_device(cfg.device)
         self.cfg = cfg
         self.reports: list[PhaseReport] = []
@@ -179,7 +227,8 @@ class PhaseRun:
                     ledger scope, then wait for the PREVIOUS pending wave
                     (double-buffer discipline)
       drain()       wait for the tail pending wave
-      finish()      concat scores, return (Share, PhaseReport)
+      finish()      concat scores, reconcile + replay the wire tape,
+                    return (Share, PhaseReport)
 
     `WaveExecutor.score_phase` drives one run sequentially; the serve/
     appraisal server drives several at once, dispatching one session's
@@ -221,6 +270,11 @@ class PhaseRun:
         # time
         self.outer = comm.get_ledger() if outer is None else outer
         self.phase_led = Ledger()
+        # --wire: capture every executed flight's actual messages; the
+        # tape is sized by the WIRE party count (spdz2pc stacks 4 share
+        # rows but runs 2 parties)
+        self.tape = (comm.WireTape(protocols.get(proto).n_wire_parties)
+                     if cfg.wire != "none" else None)
         self.scale = float(np.float32(arch_cfg.d_model ** 0.5))
         # the ring kernels' launches of this run's dispatches, summed
         self.launches = {n: dict.fromkeys(c, 0)
@@ -284,7 +338,8 @@ class PhaseRun:
         w_start = time.time() - self.t0
         keys = self.batch_keys[b0:b1]
 
-        with comm.ledger_scope() as wave_led:
+        with comm.ledger_scope() as wave_led, \
+                comm.wire_tape_scope(self.tape):
             if cfg.coalesce:
                 vf = torch.func.vmap(self._fwd, in_dims=(1, 0), out_dims=1)
                 with comm.wave_scope(lanes):
@@ -321,8 +376,9 @@ class PhaseRun:
             self.pending, self.pending_wi = None, -1
 
     def finish(self) -> tuple[Share, PhaseReport]:
-        """Concatenate scores and seal the PhaseReport. Call after every
-        wave is dispatched and drain()."""
+        """Concatenate scores, reconcile/replay the wire tape, and seal
+        the PhaseReport. Call after every wave is dispatched and
+        drain()."""
         cfg = self.cfg
         out = torch.cat(self.results, dim=1)[:, :self.n]
         wall_s = time.time() - self.t0
@@ -333,11 +389,28 @@ class PhaseRun:
         dev.combine_padded = smm["padded"]
         dev.matmul_kernel = rmm["kernel"]
         dev.matmul_ref = rmm["ref"]
+        wire_rep = None
+        if self.tape is not None:
+            # replay the captured flight plan as real parties: reconcile
+            # record-for-record against the phase ledger, then measure
+            net.reconcile(self.phase_led, self.tape)
+            fault_plan = None
+            if cfg.chaos_seed is not None:
+                fault_plan = faults.FaultPlan.from_tape(
+                    cfg.chaos_seed, self.tape,
+                    crash_at_boundary=cfg.degraded)
+            wire_rep = net.PartyRuntime(
+                self.tape, mode=cfg.wire,
+                profile=(comm.PROFILES[cfg.net] if cfg.wire == "socket"
+                         else None),
+                fault_plan=fault_plan,
+                recover=fault_plan is not None and not cfg.degraded,
+                degraded=cfg.degraded).execute()
         rep = PhaseReport(
             ledger=self.phase_led, per_batch=self.per_batch,
             n_batches=self.n_batches, n_waves=self.n_waves, wall_s=wall_s,
             sched=cfg.sched(), ring=self.ring, protocol=self.proto,
-            fused=cfg.fuse, device=dev)
+            fused=cfg.fuse, wire=wire_rep, device=dev)
         return Share(out, self.ring, self.proto), rep
 
 

@@ -32,12 +32,20 @@ each phase's realized flight ledger plus its exact agreement with the
 makespan model. Re-runs resume from phase checkpoints (--no-resume
 disables), kept in a directory of the port's own.
 
+--wire local|socket replays each executed phase's captured flights as
+real parties (net/: threads over in-process queues, or one spawned
+process a party over localhost TCP paced and delayed as `--net`'s
+profile), reconciling bytes and payload digests against the phase ledger
+and measuring wire_makespan_s; --chaos-seed injects a deterministic
+FaultPlan (drops, a latency spike, a reset, one crash) that the reliable
+transport and the supervisor recover, --chaos-plan writes each phase's
+plan as JSON and --degraded finishes a 3-party phase 2-of-3 after a
+crash at its boundary.
+
 The JAX launcher's `--combine` (the Pallas combine's compile mode, a TPU
 choice) is dropped: the RING32 combine is the secure_matmul CUDA kernel
-on the card and its plain version on the CPU. The flags the port cannot
-serve yet stay in the parser and raise NotImplementedError: `--wire`,
-`--chaos-seed`, `--chaos-plan`, `--degraded` and `--net` other than wan
-(ROADMAP Queue 1, item 12) and `--mesh` (item 14).
+on the card and its plain version on the CPU. `--mesh` stays in the
+parser and raises NotImplementedError (ROADMAP Queue 1, item 14).
 """
 from __future__ import annotations
 
@@ -71,17 +79,10 @@ def checkpoint_dir() -> str:
                         f"selectformer_torch_phases_{getpass.getuser()}")
 
 
-def _refuse_unported(protocol: str, wire: str, chaos_seed, degraded: bool,
-                     mesh: str, chaos_plan=None, net: str = "wan") -> None:
-    """Raise for the flags the port cannot serve yet; every `protocol`
+def _refuse_unported(protocol: str, mesh: str) -> None:
+    """Raise for the flag the port cannot serve yet; every `protocol`
     of the registry is served (an unknown one raises ValueError)."""
     protocols.get(protocol)
-    if wire != "none" or chaos_seed is not None or degraded \
-            or chaos_plan is not None or net != "wan":
-        raise NotImplementedError(
-            "--wire, --chaos-seed, --chaos-plan, --degraded and --net (the "
-            "real wire, the profile it emulates and fault injection) are "
-            "not ported yet (ROADMAP Queue 1, item 12)")
     if mesh != "none":
         raise NotImplementedError("--mesh is not ported yet (ROADMAP Queue "
                                   "1, item 14)")
@@ -125,11 +126,12 @@ def run(seed: int = 0, n_pool: int = 800, budget: float = 0.2,
         wave: int = 8, coalesce: bool = True, overlap: bool = True,
         fuse: bool = True, score_batch: int = 64, ring_bits: int = 64,
         protocol: str = "2pc", resume: bool = True,
-        wire: str = "none", chaos_seed: int | None = None, degraded: bool = False,
+        wire: str = "none", net: str = "wan",
+        chaos_seed: int | None = None, degraded: bool = False,
         mesh: str = "none", device: str = "cuda") -> dict:
     """The whole pipeline on `device` (the card unless the caller asks
     for the CPU)."""
-    _refuse_unported(protocol, wire, chaos_seed, degraded, mesh)
+    _refuse_unported(protocol, mesh)
     dev = resolve_device(device)
     task = make_classification_task(seed, n_pool=n_pool, n_test=400,
                                     seq=16, vocab=256, n_classes=4)
@@ -148,7 +150,9 @@ def run(seed: int = 0, n_pool: int = 800, budget: float = 0.2,
         score_batch=score_batch,
         checkpoint_dir=checkpoint_dir(), resume=resume,
         executor=ExecConfig(wave=wave, coalesce=coalesce, overlap=overlap,
-                            fuse=fuse, protocol=protocol, device=str(dev)))
+                            fuse=fuse, protocol=protocol, wire=wire,
+                            net=net, chaos_seed=chaos_seed,
+                            degraded=degraded, device=str(dev)))
     t0 = time.time()
     res = run_selection(key, params0, cfg, task.pool_tokens, sel,
                         n_classes=task.n_classes,
@@ -221,20 +225,29 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--wire", choices=["none", "local", "socket"],
                     default="none",
                     help="execute MPC flights over a real transport "
-                         "(not ported yet: anything but 'none' raises)")
+                         "(net/): 'local' = party threads over in-process "
+                         "queues, 'socket' = party processes over paced "
+                         "localhost TCP; each phase report gains a "
+                         "measured wire_makespan_s (mode=mpc)")
     ap.add_argument("--net", choices=["wan", "pod_dcn", "ici"],
                     default="wan",
-                    help="NetProfile a real wire would emulate (not "
-                         "ported yet: anything but 'wan' raises)")
+                    help="NetProfile the socket transport emulates "
+                         "(pacing + injected latency)")
     ap.add_argument("--chaos-seed", type=int, default=None,
-                    help="inject a deterministic FaultPlan (needs --wire; "
-                         "not ported yet, raises)")
+                    help="inject a deterministic FaultPlan derived from "
+                         "each phase's tape with this seed (drops, "
+                         "latency spikes, resets, one crash); requires "
+                         "--wire local|socket. Scores stay bitwise "
+                         "identical and goodput still reconciles.")
     ap.add_argument("--chaos-plan", type=str, default=None,
-                    help="write each wired phase's FaultPlan as JSON (not "
-                         "ported yet, raises)")
+                    help="write each wired phase's injected FaultPlan "
+                         "as JSON to this path (phase index appended) "
+                         "for exact replay")
     ap.add_argument("--degraded", action="store_true",
-                    help="complete 2-of-3 after a crash (not ported yet, "
-                         "raises)")
+                    help="with --chaos-seed on an honest-majority "
+                         "protocol (3pc/aby3trunc): place the crash at "
+                         "a phase boundary and complete 2-of-3 with "
+                         "the survivors instead of respawning")
     ap.add_argument("--mesh", choices=["none", "host", "shardmap"],
                     default="none",
                     help="device mesh for the wave executor (not ported "
@@ -246,14 +259,15 @@ def parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> None:
     args = parser().parse_args(argv)
-    _refuse_unported(args.protocol, args.wire, args.chaos_seed,
-                     args.degraded, args.mesh, args.chaos_plan, args.net)
+    _refuse_unported(args.protocol, args.mesh)
     out = run(args.seed, args.pool, args.budget, args.mode,
               wave=args.wave, coalesce=not args.no_coalesce,
               overlap=not args.no_overlap, fuse=not args.eager,
               score_batch=args.score_batch,
               ring_bits=args.ring, protocol=args.protocol,
-              resume=not args.no_resume, device=args.device)
+              resume=not args.no_resume, wire=args.wire, net=args.net,
+              chaos_seed=args.chaos_seed, degraded=args.degraded,
+              device=args.device)
     if out["executed"] is not None:
         ex = out["executed"]
         ph = ex["phases"]
@@ -268,6 +282,27 @@ def main(argv=None) -> None:
                   + "; measured device makespan "
                   + ", ".join(f"{p['device_makespan_s']:.3f}s"
                               for p in ph))
+        wired = [p["wire"] for p in ph if p.get("wire")]
+        if wired:
+            print("[select] real wire (" + wired[0]["mode"] + "): measured "
+                  + ", ".join(f"{w['wire_makespan_s']:.3f}s" for w in wired)
+                  + f"; bytes reconciled={all(w['bytes_match'] for w in wired)}")
+        chaotic = [w for w in wired if w.get("faults_injected")]
+        if chaotic:
+            print("[select] chaos: "
+                  f"{sum(w['faults_injected'] for w in chaotic)} faults, "
+                  f"{sum(w['retries'] for w in chaotic)} retries, "
+                  f"{sum(w['respawns'] for w in chaotic)} respawns, "
+                  f"{sum(w['retrans_bytes'] for w in chaotic)} retrans B, "
+                  "recovery "
+                  f"{sum(w['recovery_time_s'] for w in chaotic):.3f}s")
+            if args.chaos_plan:
+                for i, w in enumerate(chaotic):
+                    if w.get("fault_plan"):
+                        path = f"{args.chaos_plan}.phase{i}.json"
+                        with open(path, "w") as f:
+                            f.write(w["fault_plan"])
+                        print(f"[select] chaos plan -> {path}")
     d = out["paper_scale_delay"]["wan"]
     print(f"[select] ours={out['acc_ours']:.3f} "
           f"random={out['acc_random']:.3f} (+{out['gain']:.3f}); modeled "

@@ -234,13 +234,15 @@ class WireFlight:
 def _data_bytes(x) -> bytes | None:
     """Serialize one payload entry; None when the value is abstract
     (a batched tensor under vmap, a meta tensor of the probe) — the
-    caller falls back to synthesized filler of the recorded size."""
+    caller falls back to synthesized filler of the recorded size. Any
+    other tensor is read, and a failure to read it raises: filler in
+    place of a concrete share would ship zeros that still reconcile."""
     if isinstance(x, (bytes, bytearray, memoryview)):
         return bytes(x)
-    try:
-        return x.detach().cpu().numpy().tobytes()
-    except Exception:
+    import torch
+    if x.is_meta or torch._C._functorch.is_batchedtensor(x):
         return None
+    return x.detach().cpu().numpy().tobytes()
 
 
 def synth_msgs(nbytes: int, rounds: int, n_parties: int) -> tuple[WireMsg, ...]:

@@ -13,7 +13,7 @@ package's `repro.serve`, piece by piece and without a JAX forward:
      throughput equal JAX's, as floats, on PhaseReports built from the
      same integer ledgers.
   4. GUARDS and the launcher — sessions reject wire/mesh modes; the
-     `--appraise` launcher's report has JAX's keys (less `wire`), and it
+     `--appraise` launcher's report has JAX's keys, and it
      serves the other protocols (3pc places no dealer order, spdz2pc
      does).
 
@@ -373,8 +373,7 @@ def test_launcher_report_has_jax_keys(tmp_path, capsys):
     """`python -m repro_torch.launch.serve --appraise` on the CPU at a
     small pool: it prints JAX's `[serve] N appraisals` line and writes
     the report; the report's keys, each block's, each session's and each
-    phase dict's are JAX's (the phase dicts less `wire`: real-wire
-    execution is not ported); the twin's phases come from the cache and
+    phase dict's are JAX's; the twin's phases come from the cache and
     every ledger agrees."""
     out = tmp_path / "SERVE_report.json"
     threads = torch.get_num_threads()
@@ -396,7 +395,7 @@ def test_launcher_report_has_jax_keys(tmp_path, capsys):
     for s in rep["sessions"]:
         assert s.keys() == jsess.keys()
         for ph in s["phases"]:
-            assert ph.keys() == jphase.keys() - {"wire"}
+            assert ph.keys() == jphase.keys()
     assert rep["ledger_agrees"] is True
     assert rep["cache"]["hits"] + rep["cache"]["coalesced_waits"] > 0
     assert rep["sessions"][1]["cached_phases"] == [0, 1]

@@ -7,13 +7,15 @@ package's.
     training steps cut to 3 for time (the card runs the defaults):
     `ledger_agrees`, `n_selected` equal to the budget, and the result's
     keys, its `executed` block's and each phase dict's equal to the JAX
-    launcher's, less the phase dict's `wire` (real-wire execution is not
-    ported) (its run is driven with its heavy stages stubbed: only the
+    launcher's (its run is driven with its heavy stages stubbed: only the
     dict's shape is compared, numbers differ because the target is
     random from a torch.Generator);
-  * `main()` parses the JAX launcher's flags but `--combine`, the flags the
-    port cannot serve raise NotImplementedError, every `--protocol`
-    passes the refusal check, and a CPU run prints its report;
+  * the same run on a real wire (`wire="local"`, `chaos_seed=0`): every
+    executed phase's `wire` entry reconciles and recovered its faults;
+  * `main()` parses the JAX launcher's flags but `--combine`, `--mesh`
+    raises NotImplementedError, every `--protocol` and the wire flags
+    (`--wire`, `--net`, `--chaos-seed`, `--chaos-plan`, `--degraded`)
+    reach `run()`, and a CPU run prints its report;
   * the phase checkpoints go to a directory of the port's own.
 """
 import argparse
@@ -116,7 +118,8 @@ def test_mpc_run_on_the_cpu(port_run, jax_shape):
     assert set(out) == set(want)
     assert set(out["executed"]) == set(want["executed"])
     assert set(out["executed"]["phases"][0]) == \
-        set(want["executed"]["phases"][0]) - {"wire"}
+        set(want["executed"]["phases"][0])
+    assert out["executed"]["phases"][0]["wire"] is None
     assert out["paper_scale_delay"] == want["paper_scale_delay"]
 
 
@@ -156,30 +159,77 @@ def test_parser_keeps_the_jax_flags(monkeypatch):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--wire", "local"], "item 12"), (["--chaos-seed", "3"], "item 12"),
-    (["--chaos-plan", "plan"], "item 12"), (["--degraded"], "item 12"),
-    (["--net", "pod_dcn"], "item 12"), (["--net", "ici"], "item 12"),
+    (["--wire", "local"], None),
+    (["--wire", "socket", "--chaos-seed", "3"], None),
+    (["--wire", "local", "--chaos-seed", "3", "--chaos-plan", "PLAN"], None),
+    (["--wire", "local", "--chaos-seed", "3", "--degraded", "--protocol",
+      "3pc"], None),
+    (["--wire", "socket", "--net", "pod_dcn"], None), (["--net", "ici"], None),
     (["--mesh", "host"], "item 14"), (["--protocol", "3pc"], None),
     (["--protocol", "spdz2pc"], None)])
-def test_unported_flags_raise(argv, item, monkeypatch):
-    if item is None:
-        # the protocol backends are ported (item 11): the refusal check
-        # passes them and main() hands them on to run(), stubbed here
-        # (the whole launcher is not run on the CPU)
-        seen = {}
-
-        def run(*a, **kw):
-            seen.update(kw)
-            return {"executed": None, "acc_ours": 0.5, "acc_random": 0.5,
-                    "gain": 0.0, "paper_scale_delay": {"wan": {
-                        "ours_hours": 1.0, "oracle_hours": 2.0,
-                        "speedup": 2.0}}}
-        monkeypatch.setattr(select, "run", run)
-        select.main(argv + ["--device", "cpu", "--mode", "mpc"])
-        assert seen["protocol"] == argv[1]
+def test_unported_flags_raise(argv, item, monkeypatch, tmp_path, capsys):
+    """Only `--mesh` is refused. The protocol backends (item 11) and the
+    wire flags (item 12) pass the refusal check and main() hands them
+    on to run(), stubbed here (the whole launcher is not run on the
+    CPU): main() prints the wire and chaos lines of a wired run and
+    writes each chaotic phase's plan to `--chaos-plan`."""
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=item):
+            select.main(argv + ["--device", "cpu", "--mode", "mpc"])
         return
-    with pytest.raises(NotImplementedError, match=item):
-        select.main(argv + ["--device", "cpu", "--mode", "mpc"])
+    argv = [str(tmp_path / "plan") if a == "PLAN" else a for a in argv]
+    want = vars(select.parser().parse_args(argv))
+    seen = {}
+
+    def run(*a, **kw):
+        seen.update(kw)
+        chaos = kw["chaos_seed"] is not None
+        wire = None if kw["wire"] == "none" else {
+            "mode": kw["wire"], "wire_makespan_s": 0.5, "bytes_match": True,
+            "faults_injected": 4 if chaos else 0, "retries": 2,
+            "respawns": 1, "retrans_bytes": 10, "recovery_time_s": 0.25,
+            "fault_plan": '{"seed": 3}' if chaos else None}
+        return {"executed": {"phases": [{"makespan_wan_s": 1.0,
+                                         "device_makespan_s": 0.1,
+                                         "wire": wire}],
+                             "ledger_agrees": True, "resumed_phases": 0},
+                "acc_ours": 0.5, "acc_random": 0.5, "gain": 0.0,
+                "paper_scale_delay": {"wan": {
+                    "ours_hours": 1.0, "oracle_hours": 2.0,
+                    "speedup": 2.0}}}
+    monkeypatch.setattr(select, "run", run)
+    select.main(argv + ["--device", "cpu", "--mode", "mpc"])
+    for k in ("protocol", "wire", "net", "chaos_seed", "degraded"):
+        assert seen[k] == want[k], k
+    out = capsys.readouterr().out
+    assert ("[select] real wire (" in out) == (want["wire"] != "none")
+    assert ("[select] chaos: 4 faults" in out) == \
+        (want["chaos_seed"] is not None)
+    if want["chaos_plan"]:
+        path = tmp_path / "plan.phase0.json"
+        assert path.read_text() == '{"seed": 3}' and str(path) in out
+
+
+def test_mpc_run_on_a_real_wire(tmp_path):
+    """`run(mode="mpc", ring_bits=32, wire="local", chaos_seed=0)` on the
+    CPU: each executed phase replays its tape under faults and
+    reconciles (goodput equals the phase's online bytes, digests match,
+    a crash recovered), and the ledgers agree."""
+    with pytest.MonkeyPatch.context() as mp, _one_thread():
+        mp.setattr(select, "checkpoint_dir", lambda: str(tmp_path))
+        mp.setattr(select, "SelectionConfig", _cut_steps)
+        out = select.run(0, n_pool=POOL, mode="mpc", ring_bits=32,
+                         finetune_steps=3, wave=2, score_batch=16,
+                         resume=False, wire="local", chaos_seed=0,
+                         device="cpu")
+    ex = out["executed"]
+    assert ex["ledger_agrees"] is True and len(ex["phases"]) == 2
+    for ph in ex["phases"]:
+        w = ph["wire"]
+        assert w["mode"] == "local" and w["bytes_match"] and w["digests_ok"]
+        assert w["wire_nbytes"] == w["tape_nbytes"] == ph["nbytes"]
+        assert w["faults_injected"] > 0 and w["respawns"] == 1
+    assert out["n_selected"] == int(0.2 * POOL)
 
 
 def test_cuda_without_a_card_raises():

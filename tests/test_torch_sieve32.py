@@ -222,9 +222,15 @@ def test_exec_config_refuses_missing_card_and_unported_modes():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             WaveExecutor(ExecConfig())
-    for kw in ({"wire": "local"}, {"mesh": "host"}):
-        with pytest.raises(NotImplementedError):
-            WaveExecutor(ExecConfig(device="cpu", **kw))
+    with pytest.raises(NotImplementedError):
+        WaveExecutor(ExecConfig(device="cpu", mesh="host"))
+    # the real wire is ported (ROADMAP Queue 1 item 12): a wire mode is
+    # accepted and forces the eager per-lane schedule; an unknown one
+    # raises
+    ex = WaveExecutor(ExecConfig(device="cpu", wire="local"))
+    assert ex.cfg.wire == "local" and not ex.cfg.coalesce
+    with pytest.raises(ValueError, match="unknown wire mode"):
+        WaveExecutor(ExecConfig(device="cpu", wire="carrier-pigeon"))
     # the other protocol backends are ported (ROADMAP Queue 1 item 11):
     # a 3pc phase runs (three share rows, its ledger agrees); only an
     # unknown protocol name raises, from the registry
