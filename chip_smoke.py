@@ -120,6 +120,26 @@ result line):
      or one block pattern, float32) within 1e-4 of max |CPU|. Phase 2
      also checks and times ssd (with its final state), rg_lru and
      flash_attn at Dh 256;
+  7b. the rest of the model zoo's serving path at full width and depth,
+     random weights from --seed on the card: qwen2_0_5b (dense) and
+     granite_moe_3b (moe, 40 experts top-8) through `Server`, 4 requests
+     of 512-token prompts on 4 slots, 8 new tokens; qwen2_0_5b again
+     with an int8 KV cache, prefill and 4 teacher-forced decode steps
+     held to the JAX package's own gate against the bf16 teacher-forced
+     logits (correlation > 0.99, max |diff| < 0.2); paligemma_3b (vlm: 4
+     rows of 256 stub patches + 512 tokens, the prefix mask) and
+     whisper_small (encdec: 4 rows of 1,500 stub frames and a 64-token
+     prompt) through `T.prefill` and 7 greedy `T.decode_step`s. Each run
+     launches flash_attn once an attention layer (whisper: encoder,
+     decoder and cross-attention) and no plain version, gives finite
+     logits and tokens inside the vocabulary; tok/s, walls, peak memory,
+     one profiled prefill batch and decode step; the card against the
+     CPU on one row (depth 1, float32, prefill and 4 decode steps) within
+     1e-4 of max |CPU|. Phase 2 also checks flash_attn's prefix mask
+     (PaliGemma's (32, 768, 256), group 8, prefix 256, timed, and prefixes
+     of 0, 1, = S and past a key tile) and the cross case (Whisper's 48 x
+     64 queries over 1,500 keys, timed, and float32), each timed beside
+     SDPA with an explicit boolean mask;
   8. the paper's pipeline from `run_selection` down: a BERT-base target (full
      depth and width, random from --seed), a pool of 64 at seq 512 (8
      bootstrap rows, a budget of 13), `two_phase_default(12)`. (8a)
@@ -743,9 +763,16 @@ def phase_float_kernels(seed: int) -> dict:
     # covers the prompt; its float32 twin is checked, not timed. The
     # windowed cases are prompts longer than their window; scale 3 gives
     # scores of ~30, where one tf32 pass would miss the float32 limit
+    # Then the prefix mask and cross-attention (phase 7b): PaliGemma's
+    # prefill batch (32, 768, 256), group 8 (4 rows x 8 heads over one kv
+    # head), prefix 256 (its image tokens), bf16, timed, with the ragged
+    # and small prefixes (0, 1, = S, past a key tile at an S that is not a
+    # tile multiple); Whisper's cross-attention, 48 x 64 queries (4 rows x
+    # 12 heads) over 1,500 encoder keys, bidir, bf16, timed, and float32.
+    # The last element of a case, where present, is its prefix.
     res = out["flash_attn"] = {}
-    for (label, bh, sq, skv, dh, group, dt, causal, window, scale,
-         timed) in (
+    for (label, bh, sq, skv, dh, group, dt, causal, window, scale, timed,
+         *prefix) in (
             ("path (Oracle batch)", 192, 512, 512, 64, 1, f32, False, 0, 1,
              True),
             ("48 heads", 48, 512, 512, 64, 1, f32, False, 0, 1, False),
@@ -772,38 +799,69 @@ def phase_float_kernels(seed: int) -> dict:
              False),
             ("ragged window 100", 20, 300, 300, 256, 10, bf16, True, 100, 1,
              False),
-            ("window 50", 48, 512, 512, 64, 1, f32, True, 50, 1, False)):
+            ("window 50", 48, 512, 512, 64, 1, f32, True, 50, 1, False),
+            ("path (PaliGemma prefill)", 32, 768, 768, 256, 8, bf16, True,
+             0, 1, True, 256),
+            ("prefix f32", 32, 768, 768, 256, 8, f32, True, 0, 1, False,
+             256),
+            ("prefix 0", 8, 300, 300, 256, 8, bf16, True, 0, 1, False, 0),
+            ("prefix 1", 8, 300, 300, 256, 8, bf16, True, 0, 1, False, 1),
+            ("prefix = S", 8, 300, 300, 256, 8, f32, True, 0, 1, False,
+             300),
+            ("prefix past a tile", 8, 300, 300, 256, 8, f32, True, 0, 1,
+             False, 70),
+            ("prefix ragged Dh 64", 12, 130, 130, 64, 1, f32, True, 0, 1,
+             False, 65),
+            ("path (Whisper cross-attention)", 48, 64, 1500, 64, 1, bf16,
+             False, 0, 1, True),
+            ("cross f32", 48, 64, 1500, 64, 1, f32, False, 0, 1, False)):
+        prefix = prefix[0] if prefix else 0
         q = randn((bh, sq, dh), dt, scale)
         k = randn((bh // group, skv, dh), dt, scale)
         v = randn((bh // group, skv, dh), dt)
         tag = str(dt).replace("torch.", "")
         check("flash_attn", f"{label} ({bh},{sq},{dh}) Skv {skv} group "
-              f"{group} {tag}{f' window {window}' if window else ''}",
-              fa.launch(q, k, v, causal, window),
-              ref.flash_attn(q, k, v, causal=causal, window=window),
+              f"{group} {tag}{f' window {window}' if window else ''}"
+              f"{f' prefix {prefix}' if prefix else ''}",
+              fa.launch(q, k, v, causal, window, prefix),
+              ref.flash_attn(q, k, v, causal=causal, window=window,
+                             prefix_len=prefix),
               TOL if dt == f32 else BF16_TOL, res)
         if not timed:
             continue
-        t = {"ms": cuda_ms(fa.launch, q, k, v, causal, window, reps=50),
+        t = {"ms": cuda_ms(fa.launch, q, k, v, causal, window, prefix,
+                           reps=50),
              "plain_ms": cuda_ms(lambda *a: ref.flash_attn(
-                 *a, causal=causal, window=window), q, k, v)}
+                 *a, causal=causal, window=window, prefix_len=prefix),
+                 q, k, v)}
         # SDPA on the same (B, heads, S, Dh) problem in the same dtype, kv
         # heads shared (the timed windows cover S, so its causal mask is
-        # the same function); each also timed queued, the device alone
+        # the same function; the prefix and cross cases pass the mask as
+        # an explicit boolean attn_mask); each also timed queued, the
+        # device alone
         qs, ks, vs = (x.reshape(-1, g, x.shape[1], dh)
                       for x, g in ((q, group), (k, 1), (v, 1)))
+        mask = None
+        if label.startswith(("path (PaliGemma", "path (Whisper")):
+            mask = torch.ones((sq, skv), dtype=torch.bool, device="cuda")
+            if causal:
+                mask = mask.tril()
+                mask[:, :prefix] = True
 
         def sdpa(*a):
             return F.scaled_dot_product_attention(
-                *a, is_causal=causal, enable_gqa=group > 1)
+                *a, attn_mask=mask, is_causal=causal and mask is None,
+                enable_gqa=group > 1)
         t["library_ms"] = cuda_ms(sdpa, qs, ks, vs, reps=50)
-        t["device_ms"] = cuda_ms(fa.launch, q, k, v, causal, window,
+        t["device_ms"] = cuda_ms(fa.launch, q, k, v, causal, window, prefix,
                                  reps=50, queued=True)
         t["library_device_ms"] = cuda_ms(sdpa, qs, ks, vs, reps=50,
                                          queued=True)
         lib_err = _max_err(sdpa(qs, ks, vs).reshape(bh, sq, dh),
-            ref.flash_attn(q, k, v, causal=causal, window=window))
-        ops, nbytes = fa.work(q.shape, k.shape[0], dt, causal, window, skv)
+            ref.flash_attn(q, k, v, causal=causal, window=window,
+                           prefix_len=prefix))
+        ops, nbytes = fa.work(q.shape, k.shape[0], dt, causal, window, skv,
+                              prefix)
         # one bound per dtype: bf16 products at the tensor cores' bf16
         # rate; float32 at 3xTF32's (three tf32 products for each), with
         # the CUDA cores' float32 bound beside it
@@ -812,9 +870,14 @@ def phase_float_kernels(seed: int) -> dict:
         if dt == f32:
             t["cuda_core_bound_ms"] = _bound_ms(nbytes, ops)[0]
         t["bound_share"] = t["bound_ms"] / t["ms"]
-        t["shape"] = (f"({bh},{sq},{dh}) group {group} {tag} "
-                      f"{'causal' if causal else 'non-causal'}")
-        if dh == 256:
+        t["shape"] = (f"({bh},{sq},{dh}) Skv {skv} group {group} {tag} "
+                      f"{'causal' if causal else 'non-causal'}"
+                      f"{f' prefix {prefix}' if prefix else ''}")
+        if label.startswith("path (PaliGemma"):
+            res["prefix"] = t
+        elif label.startswith("path (Whisper"):
+            res["cross"] = t
+        elif dh == 256:
             res["dh256"] = t
         else:
             res.update(t)
@@ -1874,15 +1937,23 @@ CPU_DECODE_STEPS = 4           # decode steps of the card-vs-CPU check
 
 
 def _cut_depth(params, cfg):
-    """The first layer (ssm) or the first block pattern (hybrid) of a
-    full-width model, in float32: the depth the CPU side can afford."""
+    """The first layer (ssm, dense, moe, vlm; the encdec family's first
+    encoder and first decoder layer) or the first block pattern (hybrid)
+    of a full-width model, in float32: the depth the CPU side can
+    afford."""
     import dataclasses
     from repro_torch.models.transformer import layer_slice
     out = {k: v for k, v in params.items()
-           if k not in ("layers", "rec_layers", "attn_layers")}
-    if cfg.family == "ssm":
+           if k not in ("layers", "enc_layers", "rec_layers",
+                        "attn_layers")}
+    if cfg.family != "hybrid":
         out["layers"] = layer_slice(params["layers"], slice(0, 1))
-        return out, dataclasses.replace(cfg, n_layers=1, dtype="float32")
+        if cfg.family == "encdec":
+            out["enc_layers"] = layer_slice(params["enc_layers"],
+                                            slice(0, 1))
+        return out, dataclasses.replace(
+            cfg, n_layers=1, n_enc_layers=min(cfg.n_enc_layers, 1),
+            dtype="float32")
     pat = cfg.block_pattern
     out["rec_layers"] = layer_slice(params["rec_layers"],
                                     slice(0, pat.count("rec")))
@@ -2022,6 +2093,255 @@ def phase_serve(seed: int, smi: str) -> dict:
         torch.cuda.empty_cache()
         log(f"[7] {arch} phase: {time.time() - t_arch:.1f} s")
     return results
+
+
+# ---------------------------------------------------------------------------
+# phase 7b: the rest of the model zoo's serving path at full width
+# ---------------------------------------------------------------------------
+
+ZOO_REQUESTS = ZOO_SLOTS = 4   # one prefill batch of 4 x ZOO_PROMPT
+ZOO_PROMPT, ZOO_NEW = 512, 8
+ZOO_INT8_STEPS = 4             # int8 decode steps held to the JAX gate
+WHISPER_FRAMES = 1500          # openai/whisper-small max_source_positions
+WHISPER_PROMPT = 64
+
+
+def _zoo_batch(cfg, rng, rows: int, prompt: int) -> dict:
+    """Tokens, and the stub image patches (vlm) or audio frames (encdec)
+    the families take beside them, drawn from `rng` (numpy)."""
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (rows, prompt))}
+    if cfg.family == "vlm":
+        batch["patches"] = rng.standard_normal(
+            (rows, cfg.n_prefix_tokens, cfg.d_model)).astype("float32")
+    if cfg.family == "encdec":
+        batch["frames"] = rng.standard_normal(
+            (rows, WHISPER_FRAMES, cfg.d_model)).astype("float32")
+    return batch
+
+
+def _zoo_attn_layers(cfg) -> int:
+    """flash_attn launches of one prefill batch: one a self-attention
+    layer, and for encdec one an encoder layer and one a cross-attention
+    layer."""
+    if cfg.family == "encdec":
+        return cfg.n_enc_layers + 2 * cfg.n_layers
+    return cfg.n_layers
+
+
+def phase_zoo_serve(seed: int, smi: str) -> dict:
+    """The zoo's other families at full width and depth, random weights
+    from --seed drawn on the card: qwen2_0_5b (dense) and granite_moe_3b
+    (moe) through the port's Server, 4 requests of 512-token prompts on 4
+    slots, 8 new tokens (one prefill batch, 7 decode steps); qwen2_0_5b
+    again with an int8 KV cache, prefill and 4 teacher-forced decode
+    steps held to the JAX package's own gate against its bf16
+    teacher-forced logits (correlation > 0.99, max |diff| < 0.2,
+    tests/test_models.py); paligemma_3b (vlm, 256 stub patches + 512
+    tokens, the prefix mask) and whisper_small (encdec, 1,500 stub
+    frames, a 64-token prompt) through T.prefill and 7 greedy
+    T.decode_steps on 4 rows. Each main-path run must launch flash_attn
+    once an attention layer (whisper: encoder, decoder and cross) and
+    take no plain version, give finite logits and tokens inside the
+    vocabulary; one prefill batch and one decode step are profiled; and
+    the card is held against the CPU on one row, depth cut to one layer,
+    float32, prefill and 4 decode steps, within TOL of max |CPU|."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import load_arch
+    from repro_torch.core import tree
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch.serve import Request, ServeConfig, Server
+    from repro_torch.models import transformer as T
+    results = {}
+
+    def gate_launches(arch, cfg, batches):
+        launches = kops.fa_stats()
+        want = _zoo_attn_layers(cfg) * batches
+        if launches != {"kernel": want, "ref": 0}:
+            fail(f"{arch}: flash_attn {launches}, want {want} kernel "
+                 "launches and no plain call")
+        return launches["kernel"]
+
+    def gate_outputs(arch, cfg, outs):
+        if (len(outs) != ZOO_REQUESTS
+                or any(len(o) != ZOO_NEW or min(o) < 0
+                       or max(o) >= cfg.vocab_size for o in outs)):
+            fail(f"{arch}: outputs {outs}")
+
+    def finite(arch, what, lg):
+        if not torch.isfinite(lg.float()).all():
+            fail(f"{arch}: non-finite {what} logits")
+
+    for arch in ("qwen2_0_5b", "granite_moe_3b", "paligemma_3b",
+                 "whisper_small"):
+        t_arch = time.time()
+        cfg = load_arch(arch)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        params = T.init_params(
+            torch.Generator(device=DEVICE).manual_seed(seed), cfg, DEVICE)
+        torch.cuda.synchronize()
+        n_params = sum(x.numel() for x in tree.tree_leaves(params))
+        info = {"params_b": n_params / 1e9, "init_s": time.time() - t0}
+        log(f"[7b] {arch}: {n_params / 1e9:.3f} B parameters "
+            f"({n_params * 4 / 1e9:.1f} GB float32) drawn on the card in "
+            f"{info['init_s']:.2f} s")
+        rng = np.random.default_rng(seed)
+        prompt = WHISPER_PROMPT if cfg.family == "encdec" else ZOO_PROMPT
+        batch = _zoo_batch(cfg, rng, ZOO_REQUESTS, prompt)
+        prefix = cfg.n_prefix_tokens if cfg.family == "vlm" else 0
+        max_len = prefix + prompt + ZOO_NEW
+        kops.reset_fa_stats()
+        if cfg.family in ("dense", "moe"):
+            sc = ServeConfig(arch=arch, smoke=False, slots=ZOO_SLOTS,
+                             max_len=max_len, max_new=ZOO_NEW, seed=seed)
+            out = Server(sc, device=DEVICE, params=params).run(
+                [Request(i, p) for i, p in enumerate(batch["tokens"])])
+            info.update({k: out[k] for k in ("requests", "tokens",
+                                             "tok_per_s", "wall_s",
+                                             "prefill_s", "decode_s")})
+            outs = [out["outputs"][i] for i in range(ZOO_REQUESTS)]
+        else:
+            # the JAX Server feeds only tokens: these families run through
+            # the entry points, greedy, as the Server would
+            with torch.no_grad():
+                t1 = time.time()
+                lg, cache = T.prefill(params, cfg, batch, max_len=max_len)
+                step = lg.argmax(-1)[:, None]
+                toks = [step[:, 0].tolist()]
+                torch.cuda.synchronize()
+                t2 = time.time()
+                for j in range(ZOO_NEW - 1):
+                    lg, cache = T.decode_step(params, cfg, cache,
+                                              {"tokens": step},
+                                              prefix + prompt + j)
+                    step = lg.argmax(-1)[:, None]
+                    toks.append(step[:, 0].tolist())
+                torch.cuda.synchronize()
+                t3 = time.time()
+            finite(arch, "decode", lg)
+            outs = [list(r) for r in zip(*toks)]
+            tokens = (ZOO_NEW - 1) * ZOO_REQUESTS
+            info.update(requests=ZOO_REQUESTS, tokens=tokens,
+                        tok_per_s=tokens / (t3 - t1), wall_s=t3 - t1,
+                        prefill_s=t2 - t1, decode_s=t3 - t2)
+        info["launches"] = {"flash_attn": gate_launches(arch, cfg, 1)}
+        gate_outputs(arch, cfg, outs)
+        info["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        log(f"[7b] {arch} serve ({smi}): " + json.dumps(info))
+        log(f"[7b] {arch} first row's tokens: {outs[0]}")
+
+        def prefill_once():
+            with torch.no_grad():
+                return T.prefill(params, cfg, batch, max_len=max_len)
+        (lg, cache), wall, kernel_ms, ours = profiled(prefill_once)
+        finite(arch, "prefill", lg)
+        info["profile"] = _report(
+            "7b", f"{arch} one prefill batch ({ZOO_REQUESTS} x {prompt}"
+            f"{f' + {prefix} patches' if prefix else ''}"
+            f"{f' + {WHISPER_FRAMES} frames' if cfg.family == 'encdec' else ''})",
+            wall, kernel_ms, ours, smi)
+        step = {"tokens": lg.argmax(-1)[:, None]}
+
+        def decode_once():
+            with torch.no_grad():
+                return T.decode_step(params, cfg, cache, step,
+                                     prefix + prompt)
+        (lg, _), wall, kernel_ms, ours = profiled(decode_once)
+        finite(arch, "decode", lg)
+        info["decode_profile"] = _report(
+            "7b", f"{arch} one decode step ({ZOO_REQUESTS} rows)", wall,
+            kernel_ms, ours, smi)
+        del cache
+
+        if arch == "qwen2_0_5b":
+            info["int8"] = _zoo_int8_gate(params, cfg, batch, smi)
+
+        # the card against the CPU on one row, depth cut, float32
+        cut, cut_cfg = _cut_depth(params, cfg)
+        one = {k: v[:1] for k, v in batch.items()}
+        tok = rng.integers(0, cfg.vocab_size, (1, CPU_DECODE_STEPS))
+        got = {}
+        for dev, p in ((DEVICE, cut), ("cpu", tree.to_device(cut, "cpu"))):
+            t0 = time.time()
+            with torch.no_grad():
+                lg, cache = T.prefill(p, cut_cfg, one, max_len=max_len)
+                logits = [lg]
+                for j in range(CPU_DECODE_STEPS):
+                    lg, cache = T.decode_step(p, cut_cfg, cache,
+                                              {"tokens": tok[:, j:j + 1]},
+                                              prefix + prompt + j)
+                    logits.append(lg)
+            got[dev] = torch.stack(logits).float().cpu()
+            log(f"[7b] {arch} depth 1 float32 prefill + {CPU_DECODE_STEPS} "
+                f"decode steps on {dev}: {time.time() - t0:.1f} s")
+        err, _ = _rel_err(got[DEVICE], got["cpu"])
+        rel = err / float(got["cpu"].abs().max())
+        log(f"[7b] {arch} card vs CPU: max err {err:.3g} ({rel:.3g} of max "
+            f"|CPU|, limit {TOL})")
+        if not rel <= TOL:
+            fail(f"{arch}: card and CPU logits differ by {err} ({rel} of "
+                 f"max |CPU|, limit {TOL})")
+        info["card_vs_cpu_max_err"] = err
+        results[arch] = info
+        del params, cut, got, lg, cache
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[7b] {arch} phase: {time.time() - t_arch:.1f} s")
+    results["launches"] = sum(r["launches"]["flash_attn"]
+                              for r in results.values())
+    return results
+
+
+def _zoo_int8_gate(params, cfg, batch, smi) -> dict:
+    """qwen2_0_5b with an int8 KV cache on the card: prefill on the 4 x
+    512 prompts, then ZOO_INT8_STEPS teacher-forced decode steps, each
+    step's logits against the bf16 config's teacher-forced ones (the
+    JAX package's gate: correlation > 0.99, max |diff| < 0.2); the cache
+    must be int8 with its scales."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer as T
+    cfg8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    rng = np.random.default_rng(1)
+    tok = np.concatenate([batch["tokens"], rng.integers(
+        0, cfg.vocab_size, (ZOO_REQUESTS, ZOO_INT8_STEPS))], axis=1)
+    with torch.no_grad():
+        t0 = time.time()
+        _, cache = T.prefill(params, cfg8, {"tokens": tok[:, :ZOO_PROMPT]},
+                             max_len=ZOO_PROMPT + ZOO_NEW)
+        if cache["k"].dtype != torch.int8 or "ks" not in cache:
+            fail(f"int8 KV: cache {cache['k'].dtype}, keys {sorted(cache)}")
+        steps = []
+        for j in range(ZOO_INT8_STEPS):
+            pos = ZOO_PROMPT + j
+            lg, cache = T.decode_step(params, cfg8, cache,
+                                      {"tokens": tok[:, pos:pos + 1]}, pos)
+            steps.append(lg.float())
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        tf, _ = T.forward_logits(params, cfg, {"tokens": tok})
+    info = {"wall_s": wall, "corr": [], "max_abs_diff": []}
+    for j, lg in enumerate(steps):
+        want = tf[:, ZOO_PROMPT + j].float()
+        corr = float(torch.corrcoef(torch.stack([lg.ravel(),
+                                                 want.ravel()]))[0, 1])
+        diff = float((lg - want).abs().max())
+        info["corr"].append(corr)
+        info["max_abs_diff"].append(diff)
+        if not (corr > 0.99 and diff < 0.2):
+            fail(f"int8 KV decode step {j}: correlation {corr}, max |diff| "
+                 f"{diff} against the bf16 teacher-forced logits (gate "
+                 "> 0.99, < 0.2)")
+    info["cache_bytes"] = sum(cache[k].numel() * cache[k].element_size()
+                              for k in cache)
+    log(f"[7b] qwen2_0_5b int8 KV prefill + {ZOO_INT8_STEPS} decode steps "
+        f"({smi}): " + json.dumps(info))
+    return info
 
 
 # ---------------------------------------------------------------------------
@@ -3502,6 +3822,9 @@ def main(argv=None) -> int:
     serving = phase_serve(args.seed, smi)
     log(f"[7] token serving phase: {time.time() - t0:.1f} s")
     t0 = time.time()
+    zoo = phase_zoo_serve(args.seed, smi)
+    log(f"[7b] zoo serving phase: {time.time() - t0:.1f} s")
+    t0 = time.time()
     pipeline = phase_selection(args.seed, smi)
     log(f"[8] run_selection phase: {time.time() - t0:.1f} s")
     t0 = time.time()
@@ -3577,6 +3900,7 @@ def main(argv=None) -> int:
     fwd_by_path = {
         "flash_attn": {"6a": tgt["launches"]["flash_attn"]["kernel"],
                        "7 recurrentgemma_2b": rg["flash_attn"]["kernel"],
+                       "7b": zoo["launches"],
                        "8": l8["fa"], "9d": dl["fa"], "10": l10["fa"]},
         "entropy_head": {"6a": tgt["launches"]["entropy_head"]["kernel"],
                          "8": l8["eh"], "9d": dl["eh"], "10": l10["eh"]},
@@ -3613,6 +3937,7 @@ def main(argv=None) -> int:
                 name, "no single torch call computes this function"),
             "shape": k["shape"],
             **{x: k[x] for x in ("bf16_max_abs_err", "vocab", "dh256",
+                                 "prefix", "cross",
                                  "f32", "cuda_core_bound_ms",
                                  "bound_share", "device_ms",
                                  "library_device_ms", "device_bound_share",

@@ -1,10 +1,11 @@
 """Architecture config schema — the port of repro/configs/base.py's
 `ArchConfig` (framework-free, copied as it is) and its registry
-(`ARCH_IDS`, `load_arch`). The port carries the paper's own targets
-(configs/paper_targets.py) and, of the model zoo, the two families the
-token server runs so far: mamba2_2_7b (ssm) and recurrentgemma_2b
-(hybrid): `ARCH_IDS` lists only those. The zoo's other ids raise until
-their configs are ported (ROADMAP Queue 1, item 13).
+(`ARCH_IDS`, `load_arch`). Every architecture of the model zoo is an
+ArchConfig in its own module (repro_torch/configs/<id>.py, a copy of the
+JAX package's) exposing CONFIG (full) and SMOKE (reduced, same family);
+the paper's own targets are in configs/paper_targets.py. The shape
+registry (`ShapeSpec`, `SHAPES`, `cell_is_applicable`) belongs to the
+dry-run launcher and is not ported yet.
 """
 from __future__ import annotations
 
@@ -136,14 +137,16 @@ class ArchConfig:
 # registry
 # ---------------------------------------------------------------------------
 
-# the ids of the JAX package's zoo whose configs are ported, in its order;
-# the others wait for ROADMAP Queue 1, item 13
-ARCH_IDS = ["recurrentgemma_2b", "mamba2_2_7b"]
+# the JAX package's zoo, in its order
+ARCH_IDS = [
+    "qwen2_0_5b", "qwen2_5_32b", "starcoder2_3b", "glm4_9b",
+    "recurrentgemma_2b", "granite_moe_3b", "phi3_5_moe", "whisper_small",
+    "mamba2_2_7b", "paligemma_3b",
+]
 
 
 def load_arch(arch_id: str, smoke: bool = False) -> ArchConfig:
     if arch_id not in ARCH_IDS:
-        raise ValueError(f"arch {arch_id!r} is unknown or not ported yet "
-                         f"(ROADMAP Queue 1, item 13); ported: {ARCH_IDS}")
+        raise ValueError(f"arch {arch_id!r} is unknown; the zoo: {ARCH_IDS}")
     mod = importlib.import_module(f"repro_torch.configs.{arch_id}")
     return mod.SMOKE if smoke else mod.CONFIG

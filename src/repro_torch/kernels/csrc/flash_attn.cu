@@ -56,10 +56,15 @@
 //   diagonal, and a causal `window` w > 0 (the "local" mask of
 //   repro/models/common.py: key k attends query q when q - w < k <= q;
 //   the port's addition, the Pallas kernel has none) starts at the first
-//   tile inside the first row's window. A masked score is -inf; a row
-//   whose every key so far is masked keeps m = -inf and uses 0 in its
-//   place, so its terms are exp2(-inf) = 0, and the diagonal key keeps
-//   every causal row non-empty.
+//   tile inside the first row's window. A causal `prefix` P > 0 (the
+//   "prefix" mask of the same file, a VLM's image tokens: key k attends
+//   query q when k <= q or k < P; not with a window) ends the block's
+//   walk at max(its diagonal, P), and a key below P is never masked, so
+//   the edge test and the per-key test each gain one comparison and a
+//   tile wholly below P takes the unmasked path. A masked score is -inf;
+//   a row whose every key so far is masked keeps m = -inf and uses 0 in
+//   its place, so its terms are exp2(-inf) = 0, and the diagonal key
+//   keeps every causal row non-empty.
 // - Rows past the sequence are zero-filled by the copies and masked (keys)
 //   or not stored (queries), so a ragged S needs no padding. Accumulation
 //   is float32 whatever the input type; the output takes the input's type.
@@ -291,7 +296,7 @@ __global__ void __launch_bounds__(Cfg<T, DH>::THREADS, 1)
 flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, T* __restrict__ o, int nbh,
                   int nq, int group, int sq, int skv, int causal,
-                  int window, float scale_log2) {
+                  int window, int prefix, float scale_log2) {
   using C = Cfg<T, DH>;
   constexpr int BK = C::BK;
   extern __shared__ char smem_raw[];
@@ -311,7 +316,8 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int row0 = warp * 16 + lane / 4;     // and row0 + 8
   const int c2 = 2 * (lane % 4);             // and c2 + 1, in each 8
 
-  const int kend = causal ? min(skv, q0 + BQ * C::NWG) : skv;
+  // causal ends at the block's last row, or past it at the prefix
+  const int kend = causal ? min(skv, max(q0 + BQ * C::NWG, prefix)) : skv;
   const int kbeg = window > 0 ? max(0, q0 - window + 1) / BK * BK : 0;
   const int nt = kend > kbeg ? (kend - kbeg + BK - 1) / BK : 0;
 
@@ -372,7 +378,8 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
       // mask, then the online softmax on the fragments: s[4j + e] is row
       // row0 + 8 (e / 2), key k0 + 8 j + c2 + e % 2
-      const bool edge = k0 + BK > skv || (causal && k0 + BK - 1 > qw) ||
+      const bool edge = k0 + BK > skv ||
+                        (causal && k0 + BK - 1 > qw && k0 + BK > prefix) ||
                         (window > 0 && k0 <= qw + BQ - 1 - window);
       if (edge) {
 #pragma unroll
@@ -381,7 +388,7 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
           for (int e = 0; e < 4; ++e) {
             const int key = k0 + 8 * j + c2 + (e & 1);
             const int query = qw + row0 + 8 * (e >> 1);
-            if (key >= skv || (causal && key > query) ||
+            if (key >= skv || (causal && key > query && key >= prefix) ||
                 (window > 0 && key <= query - window))
               s[4 * j + e] = -INFINITY;
           }
@@ -497,8 +504,8 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int DH>
 int run(const void* q, const void* k, const void* v, void* o, int bh,
-        int group, int sq, int skv, int causal, int window, float scale,
-        void* stream) {
+        int group, int sq, int skv, int causal, int window, int prefix,
+        float scale, void* stream) {
   constexpr int bytes = Cfg<T, DH>::BYTES;
   auto kernel = flash_attn_kernel<T, DH>;
   static const int smem_err = static_cast<int>(cudaFuncSetAttribute(
@@ -510,32 +517,33 @@ int run(const void* q, const void* k, const void* v, void* o, int bh,
            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), bh, nq, group, sq, skv,
-      causal, window, scale * 1.4426950408889634f);
+      causal, window, prefix, scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* o, int bh,
            int group, int sq, int skv, int dh, int causal, int window,
-           float scale, void* stream) {
-  if (window > 0 && !causal)
+           int prefix, float scale, void* stream) {
+  if ((window > 0 && !causal) || prefix < 0 ||
+      (prefix > 0 && (!causal || window > 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   switch (dh) {
     case 16:
       return run<T, 16>(q, k, v, o, bh, group, sq, skv, causal, window,
-                        scale, stream);
+                        prefix, scale, stream);
     case 32:
       return run<T, 32>(q, k, v, o, bh, group, sq, skv, causal, window,
-                        scale, stream);
+                        prefix, scale, stream);
     case 64:
       return run<T, 64>(q, k, v, o, bh, group, sq, skv, causal, window,
-                        scale, stream);
+                        prefix, scale, stream);
     case 128:
       return run<T, 128>(q, k, v, o, bh, group, sq, skv, causal, window,
-                         scale, stream);
+                         prefix, scale, stream);
     case 256:
       return run<T, 256>(q, k, v, o, bh, group, sq, skv, causal, window,
-                         scale, stream);
+                         prefix, scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -544,16 +552,16 @@ int launch(const void* q, const void* k, const void* v, void* o, int bh,
 
 extern "C" int flash_attn_f32(const void* q, const void* k, const void* v,
                               void* o, int bh, int group, int sq, int skv,
-                              int dh, int causal, int window, float scale,
-                              void* stream) {
+                              int dh, int causal, int window, int prefix,
+                              float scale, void* stream) {
   return launch<float>(q, k, v, o, bh, group, sq, skv, dh, causal, window,
-                       scale, stream);
+                       prefix, scale, stream);
 }
 
 extern "C" int flash_attn_bf16(const void* q, const void* k, const void* v,
                                void* o, int bh, int group, int sq, int skv,
-                               int dh, int causal, int window, float scale,
-                               void* stream) {
+                               int dh, int causal, int window, int prefix,
+                               float scale, void* stream) {
   return launch<__nv_bfloat16>(q, k, v, o, bh, group, sq, skv, dh, causal,
-                               window, scale, stream);
+                               window, prefix, scale, stream);
 }

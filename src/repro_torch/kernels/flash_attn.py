@@ -5,8 +5,10 @@ products for bfloat16, 3xTF32 for float32). Grouped-query attention
 passes k and v with BH / group rows; the kernel reads kv head bh // group
 and never repeats them. Float32 or bfloat16 in, float32 accumulation,
 q's dtype out. A causal `window` w > 0 also masks keys k <= q - w (the
-"local" mask), an addition of the port. `work` counts what a call must
-do, for its bound on the card: bytes in bfloat16, operations in float32.
+"local" mask), an addition of the port; a causal `prefix_len` P > 0
+keeps every key k < P as well (the "prefix" mask of a VLM's image
+tokens; not with a window). `work` counts what a call must do, for its
+bound on the card: bytes in bfloat16, operations in float32.
 
 Gradients: when grad mode is on and q, k or v requires grad, the call
 goes through a `torch.autograd.Function` whose forward is the kernel and
@@ -15,7 +17,9 @@ whose backward is the backward kernel in csrc/flash_attn_bwd.cu
 forward, in two launches: dq with each row's lse and D, then dk and dv;
 Dh up to 128); on CPU tensors the same Function takes the plain versions
 `ref.flash_attn` and `ref.flash_attn_bwd`. `bwd_work` counts what the
-backward must do: operations in either type, its bound on the card.
+backward must do: operations in either type, its bound on the card. The
+prefix mask has no backward kernel yet: a prefix call under grad raises
+(ROADMAP Queue 2), it never detaches.
 
 Dispatch: a CUDA tensor launches the kernel (or raises); a CPU tensor
 takes the plain version `kernels.ref.flash_attn`.
@@ -53,24 +57,30 @@ def _fn(dtype: torch.dtype):
     f = _fns.get(dtype)
     if f is None:
         f = getattr(build.lib("flash_attn"), _FN[dtype])
-        f.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 \
+        f.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 \
             + [ctypes.c_float, ctypes.c_void_p]
         f.restype = ctypes.c_int
         _fns[dtype] = f
     return f
 
 
-def kept_pairs(sq: int, skv: int, causal: bool, window: int = 0) -> int:
+def kept_pairs(sq: int, skv: int, causal: bool, window: int = 0,
+               prefix_len: int = 0) -> int:
     """(query, key) pairs the mask keeps: all Sq * Skv, or causal key
-    j <= query i (Sq == Skv), and with a window w > 0 also j > i - w."""
+    j <= query i (Sq == Skv), and with a window w > 0 also j > i - w, or
+    with a prefix P > 0 j <= i or j < P: sum over i of max(i + 1, P)."""
     if not causal:
         return sq * skv
+    if prefix_len:
+        p = min(prefix_len, sq)
+        return p * p + sq * (sq + 1) // 2 - p * (p + 1) // 2
     w = window if 0 < window < sq else sq
     return w * (w + 1) // 2 + (sq - w) * w
 
 
 def work(q_shape, kv_heads: int, dtype: torch.dtype, causal: bool,
-         window: int = 0, skv: int | None = None) -> tuple[float, float]:
+         window: int = 0, skv: int | None = None,
+         prefix_len: int = 0) -> tuple[float, float]:
     """(operations, bytes) of one call on q (BH, Sq, Dh) and k/v
     (kv_heads, Skv, Dh), Skv = Sq unless given: two products of Dh
     multiply-adds over each kept (query, key) pair, and q, k, v read and
@@ -78,7 +88,7 @@ def work(q_shape, kv_heads: int, dtype: torch.dtype, causal: bool,
     bh, sq, dh = q_shape
     skv = sq if skv is None else skv
     e = torch.empty((), dtype=dtype).element_size()
-    ops = 4.0 * bh * kept_pairs(sq, skv, causal, window) * dh
+    ops = 4.0 * bh * kept_pairs(sq, skv, causal, window, prefix_len) * dh
     return ops, float((2 * bh * sq + 2 * kv_heads * skv) * dh * e)
 
 
@@ -112,18 +122,22 @@ def check_attention_operands(name: str, q, k, v) -> int:
     return q.shape[0] // k.shape[0]
 
 
-def check_window(causal: bool, window: int) -> None:
+def check_window(causal: bool, window: int, prefix_len: int = 0) -> None:
     if window < 0 or (window and not causal):
         raise ValueError(f"flash_attn: a window ({window}) must be >= 0 "
                          "and needs causal attention")
+    if prefix_len < 0 or (prefix_len and (not causal or window)):
+        raise ValueError(f"flash_attn: a prefix ({prefix_len}) must be >= 0 "
+                         "and needs causal attention without a window")
 
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           causal: bool, window: int = 0) -> torch.Tensor:
+           causal: bool, window: int = 0,
+           prefix_len: int = 0) -> torch.Tensor:
     """Run the kernel on CUDA tensors q (BH, Sq, Dh), k/v (BH / group,
     Skv, Dh)."""
     group = check_attention_operands("flash_attn", q, k, v)
-    check_window(causal, window)
+    check_window(causal, window, prefix_len)
     if causal and q.shape[1] != k.shape[1]:
         raise ValueError("flash_attn kernel: causal attention needs "
                          f"Sq == Skv, got {q.shape[1]} and {k.shape[1]}")
@@ -134,7 +148,7 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return o
     err = _fn(q.dtype)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                        o.data_ptr(), bh, group, sq, k.shape[1], dh,
-                       int(causal), window, dh ** -0.5,
+                       int(causal), window, prefix_len, dh ** -0.5,
                        torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attn kernel launch failed: CUDA error "
@@ -157,9 +171,14 @@ def _bwd_fn(dtype: torch.dtype):
     return f
 
 
-def check_bwd(q, k, causal: bool) -> None:
+def check_bwd(q, k, causal: bool, prefix_len: int = 0) -> None:
     """Refuse what the backward kernel does not take (it never hands back
     a plain gradient instead)."""
+    if prefix_len:
+        raise ValueError(
+            "flash_attn backward kernel: the prefix mask has no backward "
+            "kernel yet (ROADMAP Queue 2, item 3); the prefix forward "
+            "runs only without grad")
     if q.shape[2] not in BWD_HEAD_DIMS or (causal
                                            and q.shape[1] != k.shape[1]):
         raise ValueError(
@@ -233,18 +252,22 @@ class FlashAttn(torch.autograd.Function):
 
 
 def flash_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-               causal: bool = True, window: int = 0) -> torch.Tensor:
+               causal: bool = True, window: int = 0,
+               prefix_len: int = 0) -> torch.Tensor:
     """softmax(q k^T / sqrt(Dh)) v per head; `causal` masks key j > query
-    i and needs Sq == Skv; a `window` w > 0 also masks j <= i - w.
-    Differentiable through the backward kernel (`FlashAttn`)."""
-    check_window(causal, window)
+    i and needs Sq == Skv; a `window` w > 0 also masks j <= i - w; a
+    `prefix_len` P > 0 keeps j < P (no window). Differentiable through the
+    backward kernel (`FlashAttn`), except with a prefix, which raises
+    under grad."""
+    check_window(causal, window, prefix_len)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        check_bwd(q, k, causal)
+        check_bwd(q, k, causal, prefix_len)
         return FlashAttn.apply(q, k, v, causal, window)
     if q.device.type == "cpu":
         _stats["ref"] += 1
-        return ref.flash_attn(q, k, v, causal=causal, window=window)
-    return launch(q, k, v, causal, window)
+        return ref.flash_attn(q, k, v, causal=causal, window=window,
+                              prefix_len=prefix_len)
+    return launch(q, k, v, causal, window, prefix_len)
 
 
 def stats() -> dict:

@@ -77,10 +77,11 @@ def _kv_for(q: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return _up(t).repeat_interleave(q.shape[0] // t.shape[0], dim=0)
 
 
-def flash_attn(q, k, v, *, causal: bool = True,
-               window: int = 0) -> torch.Tensor:
+def flash_attn(q, k, v, *, causal: bool = True, window: int = 0,
+               prefix_len: int = 0) -> torch.Tensor:
     """Exact softmax attention; `causal` needs Sq == Skv (key j <= query
-    i), and a causal `window` w > 0 also needs j > i - w (the "local"
+    i), a causal `window` w > 0 also needs j > i - w (the "local" mask),
+    and a causal `prefix_len` P > 0 also keeps j < P (the "prefix"
     mask)."""
     if causal and q.shape[1] != k.shape[1]:
         raise ValueError(f"causal attention needs Sq == Skv, got "
@@ -91,6 +92,7 @@ def flash_attn(q, k, v, *, causal: bool = True,
         mask = torch.ones((sq, sk), dtype=torch.bool, device=s.device).tril()
         if window:
             mask = mask.triu(1 - window)
+        mask[:, :prefix_len] = True
         s = s.masked_fill(~mask, float("-inf"))
     return (torch.softmax(s, dim=-1) @ _kv_for(q, v)).to(q.dtype)
 

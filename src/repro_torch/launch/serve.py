@@ -1,7 +1,7 @@
 """Serving: batched prefill + decode, and the appraisal service — the
 port of repro/launch/serve.py.
 
-    python -m repro_torch.launch.serve --arch mamba2_2_7b --full
+    python -m repro_torch.launch.serve --arch qwen2_0_5b --full
     python -m repro_torch.launch.serve --appraise [--device cpu]
 
 Two serving modes share this entry point:
@@ -10,11 +10,15 @@ Two serving modes share this entry point:
       to the configured slot count, left-padded, prefilled once, then
       decoded step-locked with greedy (argmax) tokens; finished
       sequences free their slots for the next queued requests
-      (continuous batching at slot granularity). The ssm (mamba2_2_7b)
-      and hybrid (recurrentgemma_2b) families are ported; their prefill
-      runs on the `ssd`, `rg_lru` and `flash_attn` kernels on the card.
-      The JAX package's device mesh and sharding rules are the identity
-      on one card and are dropped.
+      (continuous batching at slot granularity). The dense, moe, ssm
+      and hybrid families are served, as by the JAX server; on the card
+      their prefill runs on the `flash_attn`, `ssd` and `rg_lru`
+      kernels. The vlm and encdec families take stub `patches` /
+      `frames` beside their tokens, which requests do not carry: they
+      are driven through `models.transformer.prefill` / `decode_step`
+      directly, and the Server refuses them. The JAX package's device
+      mesh and sharding rules are the identity on one card and are
+      dropped.
   --appraise                 requests are (data-owner, model-owner)
       APPRAISAL sessions: `repro_torch.serve.AppraisalServer` decomposes
       each into its multiphase MPC schedule, continuously batches waves
@@ -41,7 +45,7 @@ from repro_torch.models import transformer as T
 
 @dataclasses.dataclass
 class ServeConfig:
-    arch: str = "mamba2_2_7b"
+    arch: str = "qwen2_0_5b"
     smoke: bool = True
     slots: int = 4                 # concurrent sequences
     max_len: int = 128
@@ -70,6 +74,12 @@ class Server:
         self.sc = sc
         self.device = torch.device(device)
         self.cfg = load_arch(sc.arch, smoke=sc.smoke)
+        if self.cfg.family in ("vlm", "encdec"):
+            raise ValueError(
+                f"{sc.arch}: the {self.cfg.family} family takes stub "
+                f"{'patches' if self.cfg.family == 'vlm' else 'frames'} "
+                "beside its tokens, which a Request does not carry; drive "
+                "it through models.transformer.prefill / decode_step")
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(sc.seed)
             params = T.init_params(gen, self.cfg, self.device)
@@ -184,7 +194,7 @@ def appraise(n_sessions: int = 3, n_pool: int = 96, protocol: str = "2pc",
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="mamba2_2_7b", choices=ARCH_IDS)
+    ap.add_argument("--arch", default="qwen2_0_5b", choices=ARCH_IDS)
     ap.add_argument("--requests", type=int, default=8,
                     help="synthetic requests to enqueue")
     ap.add_argument("--slots", type=int, default=4,

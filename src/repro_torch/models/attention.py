@@ -4,10 +4,10 @@ repro/models/attention.py.
 
 `attend_full`, `attend_chunked` and `attend_decode` are the plain
 versions, op for op the JAX functions. `attend_flash` is what a CUDA
-tensor takes in a forward or a prefill (`transformer._attn_mix`): the
-exact attention of `attend_full` for the bidir, causal and local
-masks, computed by the hand-written `flash_attn` kernel without the
-S x S scores. The JAX package's comment that its Pallas kernels "take
+tensor takes in a forward or a prefill (`transformer._attn_mix`,
+`_cross_attn`): the exact attention of `attend_full` for the bidir,
+causal, local and prefix masks, computed by the hand-written
+`flash_attn` kernel without the S x S scores. The JAX package's comment that its Pallas kernels "take
 over" on the TPU was never wired; here the card goes through the
 kernel. One-token decode against a cache is `attend_decode` in plain
 torch on either device, as in JAX.
@@ -133,20 +133,23 @@ def attend_decode(q, k_cache, v_cache, cache_len, *, window: int = 0,
     return o.reshape(b, sq, h, dh)
 
 
-def attend_flash(q, k, v, *, mask_kind: str = "causal", window: int = 0):
-    """The kernel front: exact attention for mask_kind "bidir", "causal"
-    (both ignore `window`) or "local" (causal within `window`) through
-    `kernels.ops.flash_attn` — q's heads folded into its batch, k/v read
-    per group, not copied. "prefix" raises: no kernel computes it yet."""
-    if mask_kind not in ("bidir", "causal", "local"):
-        raise NotImplementedError(
-            f"mask_kind {mask_kind!r} has no flash_attn path yet: only "
-            "bidir, causal and local attention are ported to the kernel")
+def attend_flash(q, k, v, *, mask_kind: str = "causal", window: int = 0,
+                 prefix_len: int = 0):
+    """The kernel front: exact attention for mask_kind "bidir" (Sq and
+    Skv may differ: cross-attention), "causal", "local" (causal within
+    `window`) or "prefix" (causal, and every key below `prefix_len`)
+    through `kernels.ops.flash_attn` — q's heads folded into its batch,
+    k/v read per group, not copied. `window` counts only for "local",
+    `prefix_len` only for "prefix"."""
+    if mask_kind not in ("bidir", "causal", "local", "prefix"):
+        raise ValueError(f"mask_kind {mask_kind!r} is not an attention "
+                         "mask (bidir, causal, local, prefix)")
     b, sq, h, dh = q.shape
     skv, n_kv = k.shape[1], k.shape[2]
     qf = q.movedim(2, 1).reshape(b * h, sq, dh)
     kf = k.movedim(2, 1).reshape(b * n_kv, skv, dh)
     vf = v.movedim(2, 1).reshape(b * n_kv, skv, dh)
     o = kops.flash_attn(qf, kf, vf, causal=mask_kind != "bidir",
-                        window=window if mask_kind == "local" else 0)
+                        window=window if mask_kind == "local" else 0,
+                        prefix_len=prefix_len if mask_kind == "prefix" else 0)
     return o.reshape(b, h, sq, dh).movedim(1, 2)

@@ -1,19 +1,25 @@
-"""Model assembly — the port of repro/models/transformer.py for the
-dense family's cache-free forward (the classifier targets) and the
-token-serving path of the ssm (Mamba-2) and hybrid (RecurrentGemma)
-families: parameter init, forward_logits, init_cache, prefill and
-decode_step.
+"""Model assembly — the port of repro/models/transformer.py's forward and
+serving path for the whole model zoo: decoder-only LM (dense), MoE,
+hybrid (RecurrentGemma), SSM (Mamba-2), enc-dec (Whisper) and VLM
+(PaliGemma): parameter init, forward_logits, init_cache, prefill and
+decode_step. `train_loss` is not ported yet (ROADMAP Queue 1).
 
 Layer parameters stay stacked on a leading L axis, as in the JAX
 package; `_scan_uniform` and `_scan_with_cache` are Python loops over
 that axis. Sharding constraints (`parallel/sharding.shard`) are the
 identity on one card and are dropped. Activations run in `cfg.dtype`
 over float32 master weights, cast at each use, as in JAX. On the card
-the attention of a forward or a prefill runs on the `flash_attn`
-kernel, the SSD scan on `ssd` and the RG-LRU recurrence on `rg_lru`;
-decode steps are plain torch, as in JAX. The MoE FFN, int8 KV caches
-and the dense, moe, encdec and vlm serving branches are not ported yet
-(ROADMAP Queue 1): they raise NotImplementedError.
+every attention without a cache (a forward, a prefill, an encoder,
+cross-attention to the encoder) runs on the `flash_attn` kernel, the
+SSD scan on `ssd` and the RG-LRU recurrence on `rg_lru`; decode steps
+are plain torch, as in JAX. The MoE FFN's expert products are plain
+einsums (`models/ffn.py`), as in JAX.
+
+Departures from the JAX package, each tested (ROADMAP Queue 3): a
+hybrid prefill shorter than the window keeps a full ring of w slots
+(`_ring_cache`); a prefill whose filled length (the VLM's image prefix
+plus the prompt) exceeds `max_len` raises instead of cutting the cache,
+and `max_len` defaults to that filled length.
 
 Entry points:
   init_params(gen, cfg, device)                  parameters
@@ -21,6 +27,10 @@ Entry points:
   init_cache(cfg, batch, max_len, device)        decode cache
   prefill(params, cfg, batch, max_len)           last logits + filled cache
   decode_step(params, cfg, cache, batch, pos)    one-token step
+
+batch: {"tokens": (B, S)}, with "patches" (B, P, d) for the vlm family
+(stub image embeddings) and "frames" (B, S_enc, d) for encdec (stub audio
+frame embeddings).
 """
 from __future__ import annotations
 
@@ -37,12 +47,6 @@ FULL_ATTN_MAX = 2048          # above this, the plain path goes chunked
 
 def _cdtype(cfg: ArchConfig):
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
-
-
-def _not_ported(what: str, cfg: ArchConfig):
-    return NotImplementedError(
-        f"{what} of family {cfg.family!r} is not ported yet (ROADMAP "
-        "Queue 1); ported: the dense forward, ssm and hybrid serving")
 
 
 # ===========================================================================
@@ -76,17 +80,17 @@ def _init_norms(cfg: ArchConfig, n: int, names=("ln1", "ln2"), device=None):
 
 def _init_ffn(gen, cfg: ArchConfig, n: int, device=None):
     if cfg.family == "moe":
-        raise NotImplementedError("the MoE FFN is not ported yet")
+        return {"moe": ffn_mod.init_moe(gen, cfg.d_model, cfg.d_expert,
+                                        cfg.n_experts, cfg.act, n,
+                                        cfg.n_shared_experts, device)}
     return {"ffn": ffn_mod.init_dense_ffn(gen, cfg.d_model, cfg.d_ff,
                                           cfg.act, n, device)}
 
 
 def init_params(gen: torch.Generator, cfg: ArchConfig, device=None):
-    """Random parameters with the JAX package's keys, shapes and scales
-    (dense, ssm and hybrid families); drawn on the generator's device,
-    placed on `device` (default: the generator's)."""
-    if cfg.family not in ("dense", "ssm", "hybrid"):
-        raise _not_ported("init_params", cfg)
+    """Random parameters with the JAX package's keys, shapes and scales;
+    drawn on the generator's device, placed on `device` (default: the
+    generator's)."""
     d, v = cfg.d_model, cfg.vocab_size
     params: dict = {"embed": common.embed_init(gen, (v, d), device)}
     dev = params["embed"].device
@@ -115,12 +119,30 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, device=None):
             **_init_ffn(gen, cfg, n_att, device),
             **_init_norms(cfg, n_att, device=dev),
         }
-    else:
+    elif cfg.family == "encdec":
+        params["enc_layers"] = {
+            "attn": _init_attn(gen, cfg, cfg.n_enc_layers, device),
+            **_init_ffn(gen, cfg, cfg.n_enc_layers, device),
+            **_init_norms(cfg, cfg.n_enc_layers, device=dev),
+        }
+        params["layers"] = {
+            "attn": _init_attn(gen, cfg, cfg.n_layers, device),
+            "xattn": _init_attn(gen, cfg, cfg.n_layers, device),
+            **_init_ffn(gen, cfg, cfg.n_layers, device),
+            **_init_norms(cfg, cfg.n_layers, ("ln1", "ln2", "ln3"),
+                          device=dev),
+        }
+        params["enc_norm"] = common.init_norm(d, cfg.norm_type, dev)
+        params["frontend"] = common.dense_init(gen, (d, d), device=device)
+    else:                                   # dense / moe / vlm
         params["layers"] = {
             "attn": _init_attn(gen, cfg, cfg.n_layers, device),
             **_init_ffn(gen, cfg, cfg.n_layers, device),
             **_init_norms(cfg, cfg.n_layers, device=dev),
         }
+        if cfg.family == "vlm":
+            params["frontend"] = common.dense_init(gen, (d, d),
+                                                   device=device)
     return params
 
 
@@ -146,65 +168,120 @@ def _qkv(x, lp, cfg: ArchConfig, positions):
     return q, kk, v
 
 
+def _quant_kv(t):
+    """Per-(batch, head) symmetric int8 quant of K or V along its last
+    (head) axis: (codes, float32 scales)."""
+    t = t.float()
+    scale = (t.abs().amax(-1) / 127.0).clamp(min=1e-8)
+    q = torch.round(t / scale[..., None])
+    return q.clamp(-127, 127).to(torch.int8), scale
+
+
 def _attn_mix(x, lp, cfg: ArchConfig, *, mask_kind, positions, window=0,
               prefix_len=0, cache=None, pos=None):
-    """Attention mixer. cache = (k, v) buffers (bf16 or the config's
-    dtype; int8 KV is not ported). With a cache (one decode token) it is
-    `attention.attend_decode`, plain torch, on either device, as in JAX.
+    """Attention mixer. cache = (k, v[, k_scale, v_scale]) buffers: the
+    config's dtype, or int8 codes with float32 scales. With a cache (one
+    decode token) it is `attention.attend_decode`, plain torch, on
+    either device, as in JAX; an int8 cache is dequantized in bfloat16,
+    as in JAX.
 
     Without one, a CUDA tensor goes through `attention.attend_flash`
-    (the `flash_attn` kernel, windowed for "local") whatever the length;
-    "prefix" raises there, not ported. On the CPU FULL_ATTN_MAX picks the
-    plain branch, as in the JAX package."""
+    (the `flash_attn` kernel) whatever the length and mask; on the CPU
+    FULL_ATTN_MAX picks the plain branch, as in the JAX package."""
     q, k, v = _qkv(x, lp, cfg, positions)
     b, s = x.shape[:2]
     if cache is not None:
-        if len(cache) != 2:
-            raise NotImplementedError("int8 KV caches are not ported yet "
-                                      "(ROADMAP Queue 1)")
-        ck, cv = cache
+        ck, cv = cache[0].clone(), cache[1].clone()  # the caller's stays
         max_len = ck.shape[1]
         slot = pos % max_len if window else min(pos, max_len - 1)
-        ck, cv = ck.clone(), cv.clone()       # the caller's cache stays
-        ck[:, slot] = k[:, 0].to(ck.dtype)
-        cv[:, slot] = v[:, 0].to(cv.dtype)
+        if len(cache) == 4:
+            cks, cvs = cache[2].clone(), cache[3].clone()
+            ck[:, slot], cks[:, slot] = _quant_kv(k[:, 0])
+            cv[:, slot], cvs[:, slot] = _quant_kv(v[:, 0])
+            bf = torch.bfloat16
+            dk = ck.to(bf) * cks[..., None].to(bf)
+            dv = cv.to(bf) * cvs[..., None].to(bf)
+            new_cache = (ck, cv, cks, cvs)
+        else:
+            ck[:, slot] = k[:, 0].to(ck.dtype)
+            cv[:, slot] = v[:, 0].to(cv.dtype)
+            dk, dv = ck, cv
+            new_cache = (ck, cv)
         # a ring buffer: every slot is valid once pos >= window
         o = attention.attend_decode(
-            q, ck, cv, min(pos + 1, max_len) if window else pos + 1)
-        new_cache = (ck, cv)
+            q, dk, dv, min(pos + 1, max_len) if window else pos + 1)
     else:
-        if q.is_cuda:
-            o = attention.attend_flash(q, k, v, mask_kind=mask_kind,
-                                       window=window)
-        elif s <= FULL_ATTN_MAX:
-            o = attention.attend_full(q, k, v, mask_kind=mask_kind,
-                                      window=window, prefix_len=prefix_len)
-        else:
-            o = attention.attend_chunked(q, k, v, mask_kind=mask_kind,
-                                         window=window,
-                                         prefix_len=prefix_len)
+        o = _attend(q, k, v, mask_kind=mask_kind, window=window,
+                    prefix_len=prefix_len)
         new_cache = (k, v)
-    o = o.reshape(b, s, cfg.n_heads * cfg.d_head)
+    # an int8 cache dequantizes in bfloat16: o is promoted to x's dtype
+    # for the projection, as JAX's einsum promotes
+    o = o.reshape(b, s, cfg.n_heads * cfg.d_head).to(x.dtype)
     return torch.einsum("bsh,hd->bsd", o, lp["wo"].to(x.dtype)), new_cache
+
+
+def _attend(q, k, v, *, mask_kind, window=0, prefix_len=0):
+    """Attention without a cache: the kernel on the card, else the JAX
+    package's choice of the plain full or chunked form by key length."""
+    if q.is_cuda:
+        return attention.attend_flash(q, k, v, mask_kind=mask_kind,
+                                      window=window, prefix_len=prefix_len)
+    fn = attention.attend_full if k.shape[1] <= FULL_ATTN_MAX \
+        else attention.attend_chunked
+    return fn(q, k, v, mask_kind=mask_kind, window=window,
+              prefix_len=prefix_len)
 
 
 def _ffn_apply(x, lp, cfg: ArchConfig):
     if cfg.family == "moe":
-        raise NotImplementedError("the MoE FFN is not ported yet")
+        return ffn_mod.moe_ffn(x, lp["moe"], cfg.act, cfg.moe_top_k,
+                               cfg.capacity_factor, cfg.moe_groups)
     return ffn_mod.dense_ffn(x, lp["ffn"], cfg.act), {}
 
 
 def _decoder_layer(x, lp, cfg: ArchConfig, *, mask_kind, positions,
-                   window=0, prefix_len=0, cache=None, pos=None):
-    """One residual block: attention + ffn. Returns (x, cache, aux)."""
+                   window=0, prefix_len=0, cache=None, pos=None, xa=None):
+    """One residual block: attention [+ cross-attention to the encoder
+    states `xa`] + ffn. Returns (x, cache, aux)."""
     h = common.apply_norm(x, lp["ln1"], cfg.norm_type)
     att, new_cache = _attn_mix(h, lp["attn"], cfg, mask_kind=mask_kind,
                                positions=positions, window=window,
                                prefix_len=prefix_len, cache=cache, pos=pos)
     x = x + att
+    if xa is not None:                     # enc-dec cross attention
+        h = common.apply_norm(x, lp["ln3"], cfg.norm_type)
+        x = x + _cross_attn(h, lp["xattn"], cfg, xa)
     h = common.apply_norm(x, lp["ln2"], cfg.norm_type)
     f, aux = _ffn_apply(h, lp, cfg)
     return x + f, new_cache, aux
+
+
+def _cross_kv(enc_out, lp, cfg: ArchConfig, dtype):
+    """Cross-attention keys and values of the encoder states: (B, S_enc,
+    K, Dh) each, no RoPE."""
+    b, se = enc_out.shape[:2]
+    kk = torch.einsum("bsd,dh->bsh", enc_out, lp["wk"].to(dtype))
+    v = torch.einsum("bsd,dh->bsh", enc_out, lp["wv"].to(dtype))
+    return (kk.reshape(b, se, cfg.n_kv_heads, cfg.d_head),
+            v.reshape(b, se, cfg.n_kv_heads, cfg.d_head))
+
+
+def _cross_attn(x, lp, cfg: ArchConfig, enc_out):
+    """Cross-attention to (precomputed) encoder states; no RoPE on keys.
+    On the card bidir `flash_attn` with Skv the encoder length; on the
+    CPU the JAX package's choice (full, chunked, or decode-form for one
+    query over a long encoder)."""
+    b, s, _ = x.shape
+    h, dh = cfg.n_heads, cfg.d_head
+    q = torch.einsum("bsd,dh->bsh", x, lp["wq"].to(x.dtype)) \
+        .reshape(b, s, h, dh)
+    kk, v = _cross_kv(enc_out, lp, cfg, x.dtype)
+    if q.is_cuda or enc_out.shape[1] <= FULL_ATTN_MAX or s > 1:
+        o = _attend(q, kk, v, mask_kind="bidir")
+    else:
+        o = attention.attend_decode(q, kk, v, kk.shape[1])
+    o = o.reshape(b, s, h * dh)
+    return torch.einsum("bsh,hd->bsd", o, lp["wo"].to(x.dtype))
 
 
 def _rec_layer(x, lp, cfg: ArchConfig, *, state=None, decode=False):
@@ -264,17 +341,24 @@ def _scan_with_cache(x, stacked, cache, layer_fn):
 # embedding / head
 # ===========================================================================
 
-def _embed(params, cfg: ArchConfig, batch):
-    """Token embedding, scaled by sqrt(d_model) in the compute dtype.
-    (The vlm patch prefix is not ported.)"""
-    if cfg.family == "vlm":
-        raise _not_ported("the embedding", cfg)
+def _embed(params, cfg: ArchConfig, batch, *, decode=False):
+    """Token (+ stub image) embedding: (x, prefix_len). Tokens are scaled
+    by sqrt(d_model) in the compute dtype; outside decode the vlm family
+    prepends its patches through the frontend projection."""
     dt = _cdtype(cfg)
     emb = params["embed"]
     tokens = torch.as_tensor(batch["tokens"], device=emb.device)
     x = emb[tokens].to(dt)
-    return x * torch.tensor(math.sqrt(cfg.d_model), dtype=dt,
-                            device=x.device)
+    x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dt, device=x.device)
+    prefix_len = 0
+    if cfg.family == "vlm" and not decode:
+        patches = torch.as_tensor(batch["patches"], device=emb.device) \
+            .to(dt)                                       # (B, P, d) stub
+        patches = torch.einsum("bpd,de->bpe", patches,
+                               params["frontend"].to(dt))
+        x = torch.cat([patches, x], dim=1)
+        prefix_len = patches.shape[1]
+    return x, prefix_len
 
 
 def _head(x, params, cfg: ArchConfig):
@@ -288,7 +372,8 @@ def _head(x, params, cfg: ArchConfig):
 # forward passes
 # ===========================================================================
 
-def _run_stack(params, cfg: ArchConfig, x, positions, *, mask_kind):
+def _run_stack(params, cfg: ArchConfig, x, positions, *, mask_kind,
+               prefix_len=0):
     """Training/eval forward through the body (no cache)."""
     if cfg.family == "ssm":
         def fn(x, lp):
@@ -297,13 +382,14 @@ def _run_stack(params, cfg: ArchConfig, x, positions, *, mask_kind):
         return _scan_uniform(x, params["layers"], fn)
     if cfg.family == "hybrid":
         return _run_hybrid(params, cfg, x, positions)
-    if cfg.family != "dense":
-        raise _not_ported("forward_logits", cfg)
+    if cfg.family == "encdec":
+        raise ValueError("use forward_encoder")
 
     def fn(x, lp):
         y, _, aux = _decoder_layer(x, lp, cfg, mask_kind=mask_kind,
                                    positions=positions,
-                                   window=cfg.window_size)
+                                   window=cfg.window_size,
+                                   prefix_len=prefix_len)
         return y, aux
     return _scan_uniform(x, params["layers"], fn)
 
@@ -326,11 +412,44 @@ def _run_hybrid(params, cfg: ArchConfig, x, positions):
     return x, {}
 
 
-def forward_logits(params, cfg: ArchConfig, batch):
-    """Teacher-forced logits over the full sequence: (logits, aux)."""
-    x = _embed(params, cfg, batch)
+def forward_encoder(params, cfg: ArchConfig, batch):
+    """The enc-dec encoder over the stub frames: frontend projection,
+    bidir layers, final norm."""
+    dt = _cdtype(cfg)
+    frontend = params["frontend"]
+    frames = torch.as_tensor(batch["frames"], device=frontend.device) \
+        .to(dt)                                           # (B, S, d) stub
+    x = torch.einsum("bsd,de->bse", frames, frontend.to(dt))
     positions = torch.arange(x.shape[1], device=x.device)
-    x, aux = _run_stack(params, cfg, x, positions, mask_kind="causal")
+
+    def fn(x, lp):
+        y, _, aux = _decoder_layer(x, lp, cfg, mask_kind="bidir",
+                                   positions=positions)
+        return y, aux
+    x, _ = _scan_uniform(x, params["enc_layers"], fn)
+    return common.apply_norm(x, params["enc_norm"], cfg.norm_type)
+
+
+def forward_logits(params, cfg: ArchConfig, batch):
+    """Teacher-forced logits over the full sequence (the vlm family's
+    image prefix included): (logits, aux), aux the MoE load-balance stats
+    summed over the layers ({} for other families)."""
+    if cfg.family == "encdec":
+        enc = forward_encoder(params, cfg, batch)
+        x, _ = _embed(params, cfg, batch)
+        positions = torch.arange(x.shape[1], device=x.device)
+
+        def fn(x, lp):
+            y, _, aux = _decoder_layer(x, lp, cfg, mask_kind="causal",
+                                       positions=positions, xa=enc)
+            return y, aux
+        x, aux = _scan_uniform(x, params["layers"], fn)
+        return _head(x, params, cfg), aux
+    x, prefix_len = _embed(params, cfg, batch)
+    positions = torch.arange(x.shape[1], device=x.device)
+    mask_kind = "prefix" if cfg.family == "vlm" else "causal"
+    x, aux = _run_stack(params, cfg, x, positions, mask_kind=mask_kind,
+                        prefix_len=prefix_len)
     return _head(x, params, cfg), aux
 
 
@@ -338,37 +457,51 @@ def forward_logits(params, cfg: ArchConfig, batch):
 # serving: cache init / prefill / decode
 # ===========================================================================
 
+def _int8_kv(cfg: ArchConfig) -> bool:
+    """int8 KV caches are the dense and vlm families', as in JAX."""
+    return cfg.kv_cache_dtype == "int8" and cfg.family in ("dense", "vlm")
+
+
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, device=None):
     dt = _cdtype(cfg)
     k, dh = cfg.n_kv_heads, cfg.d_head
+
+    def zeros(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=device)
     if cfg.family == "ssm":
         d_in = cfg.ssm_expand * cfg.d_model
         nh = d_in // cfg.ssm_head_dim
         d_xbc = d_in + 2 * cfg.ssm_state
-        return {"conv": torch.zeros((cfg.n_layers, batch, cfg.conv_width - 1,
-                                     d_xbc), dtype=dt, device=device),
-                "ssm": torch.zeros((cfg.n_layers, batch, nh, cfg.ssm_head_dim,
-                                    cfg.ssm_state), dtype=torch.float32,
-                                   device=device)}
+        return {"conv": zeros((cfg.n_layers, batch, cfg.conv_width - 1,
+                               d_xbc), dt),
+                "ssm": zeros((cfg.n_layers, batch, nh, cfg.ssm_head_dim,
+                              cfg.ssm_state), torch.float32)}
     if cfg.family == "hybrid":
         kinds = cfg._layer_kinds()
         n_rec, n_att = kinds.count("rec"), kinds.count("attn")
         w = min(cfg.window_size, max_len)
-        return {"conv": torch.zeros((n_rec, batch, cfg.conv_width - 1,
-                                     cfg.lru_width), dtype=dt, device=device),
-                "h": torch.zeros((n_rec, batch, cfg.lru_width),
-                                 dtype=torch.float32, device=device),
-                "k": torch.zeros((n_att, batch, w, k, dh), dtype=dt,
-                                 device=device),
-                "v": torch.zeros((n_att, batch, w, k, dh), dtype=dt,
-                                 device=device)}
-    raise _not_ported("init_cache", cfg)
+        return {"conv": zeros((n_rec, batch, cfg.conv_width - 1,
+                               cfg.lru_width), dt),
+                "h": zeros((n_rec, batch, cfg.lru_width), torch.float32),
+                "k": zeros((n_att, batch, w, k, dh), dt),
+                "v": zeros((n_att, batch, w, k, dh), dt)}
+    kv_dt = torch.int8 if _int8_kv(cfg) else dt
+    shape = (cfg.n_layers, batch, max_len, k, dh)
+    cache = {"k": zeros(shape, kv_dt), "v": zeros(shape, kv_dt)}
+    if kv_dt == torch.int8:
+        cache["ks"] = zeros(shape[:-1], torch.float32)
+        cache["vs"] = zeros(shape[:-1], torch.float32)
+    if cfg.family == "encdec":
+        cache["xk"] = zeros(shape, dt)
+        cache["xv"] = zeros(shape, dt)
+    return cache
 
 
 def decode_step(params, cfg: ArchConfig, cache, batch, pos: int):
     """One new token against a filled cache. batch: {"tokens": (B, 1)};
-    pos is the token's absolute position. Returns (logits (B, V), cache)."""
-    x = _embed(params, cfg, batch)
+    pos is the token's absolute position (the vlm family's counts its
+    image prefix). Returns (logits (B, V), cache)."""
+    x, _ = _embed(params, cfg, batch, decode=True)
     positions = torch.full((1,), pos, device=x.device)
     if cfg.family == "ssm":
         def fn(x, lp, cache_l):
@@ -378,8 +511,40 @@ def decode_step(params, cfg: ArchConfig, cache, batch, pos: int):
         cache = {"conv": new_cache[0], "ssm": new_cache[1]}
     elif cfg.family == "hybrid":
         x, cache = _decode_hybrid(params, cfg, cache, x, positions, pos)
+    elif cfg.family == "encdec":
+        def fn(x, lp, cache_l):
+            ck, cv, xk, xv = cache_l
+            h = common.apply_norm(x, lp["ln1"], cfg.norm_type)
+            att, (nk, nv) = _attn_mix(h, lp["attn"], cfg, mask_kind="causal",
+                                      positions=positions, cache=(ck, cv),
+                                      pos=pos)
+            x = x + att
+            h = common.apply_norm(x, lp["ln3"], cfg.norm_type)
+            b = x.shape[0]
+            q = torch.einsum("bsd,dh->bsh", h,
+                             lp["xattn"]["wq"].to(h.dtype)) \
+                .reshape(b, 1, cfg.n_heads, cfg.d_head)
+            o = attention.attend_decode(q, xk, xv, xk.shape[1]) \
+                .reshape(b, 1, cfg.n_heads * cfg.d_head)
+            x = x + torch.einsum("bsh,hd->bsd", o,
+                                 lp["xattn"]["wo"].to(h.dtype))
+            h = common.apply_norm(x, lp["ln2"], cfg.norm_type)
+            f, aux = _ffn_apply(h, lp, cfg)
+            return x + f, (nk, nv, xk, xv), aux
+        x, new_cache, _ = _scan_with_cache(
+            x, params["layers"],
+            (cache["k"], cache["v"], cache["xk"], cache["xv"]), fn)
+        cache = dict(zip(("k", "v", "xk", "xv"), new_cache))
     else:
-        raise _not_ported("decode_step", cfg)
+        names = ("k", "v", "ks", "vs") if "ks" in cache else ("k", "v")
+
+        def fn(x, lp, cache_l):
+            return _decoder_layer(x, lp, cfg, mask_kind="causal",
+                                  positions=positions, cache=cache_l,
+                                  pos=pos)
+        x, new_cache, _ = _scan_with_cache(
+            x, params["layers"], tuple(cache[n] for n in names), fn)
+        cache = dict(zip(names, new_cache))
     return _head(x, params, cfg)[:, -1], cache
 
 
@@ -409,10 +574,14 @@ def _decode_hybrid(params, cfg: ArchConfig, cache, x, positions, pos):
 
 
 def prefill(params, cfg: ArchConfig, batch, max_len: int | None = None):
-    """Process the full prompt; return (last-token logits, cache)."""
-    x = _embed(params, cfg, batch)
-    max_len = max_len or x.shape[1]
-    positions = torch.arange(x.shape[1], device=x.device)
+    """Process the full prompt (the vlm family's image prefix and the
+    encdec family's encoder included); return (last-token logits,
+    cache). The cache holds max_len slots (default: the filled length,
+    prefix plus prompt); a filled length past max_len raises."""
+    x, prefix_len = _embed(params, cfg, batch)
+    filled = x.shape[1]
+    max_len = max_len or filled
+    positions = torch.arange(filled, device=x.device)
     if cfg.family == "ssm":
         def fn(x, lp, _c):
             return _ssd_layer(x, lp, cfg, state=None)
@@ -420,11 +589,67 @@ def prefill(params, cfg: ArchConfig, batch, max_len: int | None = None):
         cache = {"conv": states[0], "ssm": states[1]}
     elif cfg.family == "hybrid":
         x, cache = _prefill_hybrid(params, cfg, x, positions, max_len)
+    elif cfg.family == "encdec":
+        x, cache = _prefill_encdec(params, cfg, batch, x, positions,
+                                   max_len)
     else:
-        raise _not_ported("prefill", cfg)
+        mask_kind = "prefix" if cfg.family == "vlm" else "causal"
+
+        def fn(x, lp, _c):
+            return _decoder_layer(x, lp, cfg, mask_kind=mask_kind,
+                                  positions=positions,
+                                  window=cfg.window_size,
+                                  prefix_len=prefix_len)
+        x, (k2, v2), _ = _scan_with_cache(x, params["layers"], None, fn)
+        if _int8_kv(cfg):
+            (kq, ks), (vq, vs) = _quant_kv(k2), _quant_kv(v2)
+            cache = {"k": _pad_cache(kq, max_len),
+                     "v": _pad_cache(vq, max_len),
+                     "ks": _pad_cache(ks, max_len),
+                     "vs": _pad_cache(vs, max_len)}
+        else:
+            cache = {"k": _pad_cache(k2, max_len),
+                     "v": _pad_cache(v2, max_len)}
     # head on the last position only: full (B, S, V) logits would be the
     # dominant memory traffic of prefill
     return _head(x[:, -1:], params, cfg)[:, -1], cache
+
+
+def _prefill_encdec(params, cfg: ArchConfig, batch, x, positions, max_len):
+    """The encoder once, then the decoder over the prompt: self-attention
+    caches padded to max_len, the cross keys and values at the encoder's
+    length."""
+    enc = forward_encoder(params, cfg, batch)
+
+    def fn(x, lp, _c):
+        h = common.apply_norm(x, lp["ln1"], cfg.norm_type)
+        att, (k2, v2) = _attn_mix(h, lp["attn"], cfg, mask_kind="causal",
+                                  positions=positions)
+        x = x + att
+        h = common.apply_norm(x, lp["ln3"], cfg.norm_type)
+        x = x + _cross_attn(h, lp["xattn"], cfg, enc)
+        h = common.apply_norm(x, lp["ln2"], cfg.norm_type)
+        f, aux = _ffn_apply(h, lp, cfg)
+        xk, xv = _cross_kv(enc, lp["xattn"], cfg, x.dtype)
+        return x + f, (k2, v2, xk, xv), aux
+    x, (k2, v2, xk, xv), _ = _scan_with_cache(x, params["layers"], None, fn)
+    return x, {"k": _pad_cache(k2, max_len), "v": _pad_cache(v2, max_len),
+               "xk": xk, "xv": xv}
+
+
+def _pad_cache(c, max_len: int):
+    """(L, B, S, ...) -> (L, B, max_len, ...), zeros after the S filled
+    slots. The JAX package's _pad_cache cuts the cache to max_len when S
+    is longer (its vlm prefill's default max_len, the token count, drops
+    the last P filled slots); here that raises (ROADMAP Queue 3)."""
+    s = c.shape[2]
+    if s > max_len:
+        raise ValueError(f"prefill: the filled length {s} (image prefix "
+                         f"plus prompt) exceeds max_len {max_len}")
+    out = torch.zeros(c.shape[:2] + (max_len,) + tuple(c.shape[3:]),
+                      dtype=c.dtype, device=c.device)
+    out[:, :, :s] = c
+    return out
 
 
 def _ring_cache(t, w: int):

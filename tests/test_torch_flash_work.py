@@ -10,11 +10,12 @@ from repro_torch.kernels import flash_attn as fa
 from repro_torch.kernels import ref
 
 
-def brute_pairs(sq, skv, causal, window):
+def brute_pairs(sq, skv, causal, window, prefix_len=0):
     q = torch.zeros((1, sq, skv), dtype=torch.float64)
     k = torch.randn((1, skv, skv), dtype=torch.float64)
     v = torch.eye(skv, dtype=torch.float64)[None]
-    out = ref.flash_attn(q, k, v, causal=causal, window=window)
+    out = ref.flash_attn(q, k, v, causal=causal, window=window,
+                         prefix_len=prefix_len)
     return int((out > 0).sum())
 
 
@@ -34,6 +35,32 @@ def test_kept_pairs_match_the_plain_mask(case):
     sq, skv, causal, window = case
     assert fa.kept_pairs(sq, skv, causal, window) == \
         brute_pairs(sq, skv, causal, window)
+
+
+PREFIX_CASES = [  # (S, prefix): none, one key, inside, = S, past S, and
+    (50, 0), (50, 1), (50, 20), (37, 37), (37, 60),   # past a key tile
+    (130, 70)]
+
+
+@pytest.mark.parametrize("s,prefix", PREFIX_CASES)
+def test_kept_pairs_with_a_prefix_match_the_plain_mask(s, prefix):
+    """The prefix mask keeps sum over i of max(i + 1, min(P, S)) pairs."""
+    assert fa.kept_pairs(s, s, True, 0, prefix) == \
+        brute_pairs(s, s, True, 0, prefix) == \
+        sum(max(i + 1, min(prefix, s)) for i in range(s))
+
+
+def test_work_at_the_prefix_and_cross_path_shapes():
+    """PaliGemma's prefill (32, 768, 256), group 8, prefix 256 and
+    Whisper's cross-attention, 48 x 64 queries over 1,500 keys, bf16."""
+    ops, nbytes = fa.work((32, 768, 256), 4, torch.bfloat16, True, 0, None,
+                          256)
+    assert ops == 4.0 * 32 * (256 * 256 + 768 * 769 // 2 - 256 * 257 // 2) \
+        * 256
+    assert nbytes == (2 * 32 + 2 * 4) * 768 * 256 * 2
+    ops, nbytes = fa.work((48, 64, 64), 48, torch.bfloat16, False, 0, 1500)
+    assert (ops, nbytes) == (4.0 * 48 * 64 * 1500 * 64,
+                             (2 * 48 * 64 + 2 * 48 * 1500) * 64 * 2.0)
 
 
 @pytest.mark.parametrize("dtype,esize", [(torch.float32, 4),

@@ -4,7 +4,8 @@ bitwise; the float kernels (flash_attn, mlp_softmax_attn, entropy_head)
 with the largest error bounded by tol * max(1, max |plain|), tol 1e-4
 for the attention kernels and 1e-5 for entropy_head in float32, 1e-2 for
 the attention kernels' bfloat16 outputs (one bf16 rounding of the same
-float32 result), flash_attn with and without its causal window; the
+float32 result), flash_attn with and without its causal window and
+with its prefix, and bidir over a longer key sequence; the
 scans (ssd, with its final state, and rg_lru) within 1e-5 in float32
 (the JAX package's tolerance for the same kernels), ssd's bfloat16 y
 within 1e-2; the clear scoring paths and the token server, card against
@@ -286,6 +287,56 @@ def test_flash_attn_hard_cases_match_plain(cuda, case):
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == q.shape
     assert_close(got, ref.flash_attn(q, k, v, causal=causal, window=window),
+                 FLOAT_TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [
+    # (BH, S, Dh, group, prefix): none, one key, inside a tile, = S, past
+    # S, past a key tile at a ragged S, PaliGemma's Dh 256 group 8
+    (4, 100, 64, 2, 0), (4, 100, 64, 2, 1), (4, 100, 64, 2, 30),
+    (3, 77, 32, 1, 77), (3, 77, 32, 1, 90), (2, 200, 128, 1, 130),
+    (16, 300, 256, 8, 128)])
+def test_flash_attn_prefix_matches_plain(cuda, dtype, shape):
+    """The prefix mask (key j kept for query i when j <= i or j < P)
+    against the plain version."""
+    from repro_torch.kernels import flash_attn as fa
+    bh, s, dh, group, prefix = shape
+    g = torch.Generator(device=cuda).manual_seed(12)
+    q = randn(g, (bh, s, dh), dtype)
+    k, v = (randn(g, (bh // group, s, dh), dtype) for _ in range(2))
+    got = fa.launch(q, k, v, True, 0, prefix)
+    torch.cuda.synchronize()
+    assert_close(got, ref.flash_attn(q, k, v, causal=True, prefix_len=prefix),
+                 FLOAT_TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_flash_attn_prefix_refusals(cuda):
+    """A prefix with a window, or without causal attention, is refused
+    before a launch, and under grad it raises (no backward kernel yet)."""
+    from repro_torch.kernels import flash_attn as fa
+    q = torch.zeros((2, 64, 64), device=cuda)
+    for causal, window in ((True, 16), (False, 0)):
+        with pytest.raises(ValueError, match="prefix"):
+            fa.launch(q, q, q, causal, window, 8)
+    with pytest.raises(ValueError, match="ROADMAP"):
+        fa.flash_attn(q.clone().requires_grad_(), q, q, prefix_len=8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attn_cross_attention_matches_plain(cuda, dtype):
+    """Whisper's cross-attention: bidir, 64 decoder queries over 1,500
+    encoder keys (not a key-tile multiple), Dh 64, 12 heads, batch 2."""
+    from repro_torch.kernels import flash_attn as fa
+    g = torch.Generator(device=cuda).manual_seed(13)
+    q = randn(g, (24, 64, 64), dtype)
+    k, v = (randn(g, (24, 1500, 64), dtype) for _ in range(2))
+    got = fa.launch(q, k, v, False)
+    torch.cuda.synchronize()
+    assert_close(got, ref.flash_attn(q, k, v, causal=False),
                  FLOAT_TOL[dtype])
 
 
@@ -699,6 +750,56 @@ def test_serving_on_the_card_runs_the_kernels(cuda, arch):
                                         "ref": 0}
             assert kops.fa_stats() == {"kernel": kinds.count("attn"),
                                        "ref": 0}
+    err = float((out["cuda"] - out["cpu"]).abs().max())
+    assert err <= 1e-4 * float(out["cpu"].abs().max()), err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen2_0_5b", "granite_moe_3b",
+                                  "whisper_small", "paligemma_3b"])
+def test_zoo_serving_on_the_card_runs_the_kernel(cuda, arch):
+    """Prefill and two decode steps of a zoo smoke config on CUDA
+    (float32): flash_attn once an attention layer (the encdec family's
+    encoder, decoder and cross-attention each), prefix-masked for the
+    vlm family, never a plain version, and agreement with the CPU within
+    1e-4 of max |CPU|."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs.base import load_arch
+    from repro_torch.core import tree
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(load_arch(arch, smoke=True), dtype="float32")
+    params = T.init_params(torch.Generator(device=cuda).manual_seed(0), cfg,
+                           cuda)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (3, 16))}
+    prefix = 0
+    if cfg.family == "vlm":
+        prefix = cfg.n_prefix_tokens
+        batch["patches"] = rng.standard_normal(
+            (3, prefix, cfg.d_model)).astype(np.float32)
+    if cfg.family == "encdec":
+        batch["frames"] = rng.standard_normal(
+            (3, 40, cfg.d_model)).astype(np.float32)
+    tok = rng.integers(0, cfg.vocab_size, (3, 2))
+    out = {}
+    for dev, p in (("cuda", params), ("cpu", tree.to_device(params, "cpu"))):
+        kops.reset_fa_stats()
+        lg, cache = T.prefill(p, cfg, batch, max_len=prefix + 24)
+        logits = [lg]
+        for j in range(2):
+            lg, cache = T.decode_step(p, cfg, cache,
+                                      {"tokens": tok[:, j:j + 1]},
+                                      prefix + 16 + j)
+            logits.append(lg)
+        out[dev] = torch.stack(logits).float().cpu()
+        if dev == "cuda":
+            n = cfg.n_layers * (2 if cfg.family == "encdec" else 1) \
+                + cfg.n_enc_layers
+            assert kops.fa_stats() == {"kernel": n, "ref": 0}
     err = float((out["cuda"] - out["cpu"]).abs().max())
     assert err <= 1e-4 * float(out["cpu"].abs().max()), err
 

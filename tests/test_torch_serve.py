@@ -70,15 +70,15 @@ def assert_logits_close(got, want, dtype):
 
 
 def test_configs_match_jax():
-    for arch in ARCHS:
+    """Every id of the JAX package's zoo, in its order, full and smoke;
+    an unknown id raises."""
+    assert base.ARCH_IDS == j_base.ARCH_IDS
+    for arch in base.ARCH_IDS:
         for smoke in (False, True):
             assert dataclasses.asdict(base.load_arch(arch, smoke)) == \
                 dataclasses.asdict(j_base.load_arch(arch, smoke))
-    assert base.ARCH_IDS == [a for a in j_base.ARCH_IDS
-                             if a in base.ARCH_IDS] == \
-        [a for a in j_base.ARCH_IDS if a in ARCHS]
-    with pytest.raises(ValueError, match="ROADMAP"):
-        base.load_arch("qwen2_0_5b")
+    with pytest.raises(ValueError, match="unknown"):
+        base.load_arch("llama_7b")
 
 
 def test_carried_tree_matches_port_init(arch, weights):
@@ -209,12 +209,30 @@ def test_attend_flash_local_matches_jax(sq, window):
 
 
 def test_flash_window_needs_causal_and_prefix_is_not_ported():
+    """A window needs causal attention. The prefix mask is ported now:
+    it runs (keys below the prefix kept, the rest causal), and with a
+    window, without causal attention, or under grad it raises."""
     from repro_torch.models import attention
     q = torch.zeros(1, 8, 16)
     with pytest.raises(ValueError, match="window"):
         kops.flash_attn(q, q, q, causal=False, window=4)
-    with pytest.raises(NotImplementedError, match="prefix"):
-        attention.attend_flash(q[None], q[None], q[None], mask_kind="prefix")
+    # (B, S, H, Dh) with q = 0: every kept key weighs the same, and v = I
+    # reads the weights back
+    q4 = torch.zeros(1, 8, 1, 16)
+    v4 = torch.zeros(1, 8, 1, 16)
+    v4[0, :, 0, :8] = torch.eye(8)
+    o = attention.attend_flash(q4, q4, v4, mask_kind="prefix",
+                               prefix_len=3)[0, :, 0]
+    kept = (o[:, :8] > 0).int()
+    want = (torch.arange(8)[None, :] <= torch.arange(8)[:, None]) \
+        | (torch.arange(8)[None, :] < 3)
+    assert torch.equal(kept, want.int())
+    with pytest.raises(ValueError, match="prefix"):
+        kops.flash_attn(q, q, q, causal=True, window=4, prefix_len=3)
+    with pytest.raises(ValueError, match="prefix"):
+        kops.flash_attn(q, q, q, causal=False, prefix_len=3)
+    with pytest.raises(ValueError, match="ROADMAP"):
+        kops.flash_attn(q.requires_grad_(), q, q, prefix_len=3)
 
 
 def _jax_server(monkeypatch, arch, max_len, max_new):

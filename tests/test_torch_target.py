@@ -179,10 +179,13 @@ def test_attend_flash_front_matches_attend_full(kind, n_kv):
 
 
 def test_attend_flash_refuses_other_masks():
-    """"prefix" has no kernel form ("local" has: the causal window)."""
+    """bidir, causal, local (the causal window) and prefix have a kernel
+    form; any other mask kind raises."""
     q = t(rand(0, (1, 8, 2, 16)))
-    with pytest.raises(NotImplementedError):
-        attention.attend_flash(q, q, q, mask_kind="prefix")
+    with pytest.raises(ValueError, match="mask"):
+        attention.attend_flash(q, q, q, mask_kind="sliding")
+    assert attention.attend_flash(q, q, q, mask_kind="prefix",
+                                  prefix_len=2).shape == q.shape
 
 
 @pytest.mark.parametrize("act", ["gelu", "swiglu"])
