@@ -2,7 +2,7 @@
 """Run the PyTorch/CUDA port on one NVIDIA GPU: the private sieve, the
 clear scoring paths, token serving, the selection pipeline, the
 exact-op MPC baselines, the appraisal service, the other protocol
-backends and the real wire.
+backends, the real wire and the model zoo's training.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -172,6 +172,23 @@ result line):
      of 10, a window whose first key tile is partial and inputs x 3, checks
      a second launch bitwise and times them, flash_attn's beside SDPA's
      forward and backward and its forward alone, in float32 and bf16.
+     The training path's backward kernels too: phase 1 reports the
+     registers, spills and atomics of flash_attn's Dh-256 passes and group
+     sum (CUDA cores: no HGMMA, by design; the bf16 ones must not spill),
+     ssd's per-head pass and head sum and rg_lru's reverse recurrence
+     (none holding an atomic); phase 2 (`phase_train_kernels`) holds them
+     against autograd of the plain versions: flash_attn at
+     RecurrentGemma's (20, 512, 256) bf16 local layer (group 10, window
+     2048) and PaliGemma's (16, 768, 256) bf16 prefix 256 (group 8),
+     prefixes of 0, 1, = S and past a key tile, Dh 256 in float32, the
+     prefix at Dh 64 and 128; ssd at Mamba-2's (2, 512, 80, 64) bf16 and
+     float32 with a forward chunk of 1, no decay, underflowing decays, an
+     initial state x 100 with its gradient, a final state's gradient; and
+     rg_lru at (2, 512, 2560) with T 1 and 129, a = 0, a = 1 and permuted
+     operands; each path case checked bitwise on a second launch and
+     timed host-issued and queued beside its plain backward and its
+     `bwd_work` bound, flash_attn's beside SDPA's backward with the same
+     boolean mask.
   9. the exact-op MPC baselines, the analytic mirror and the launcher.
      (9a) Table 2's ablations (no-sm, no-ln, no-se) and Table 3's
      baselines (quad_sm: MPCFormer 2Quad; poly_sm: Bolt polynomial), each
@@ -257,6 +274,26 @@ result line):
      row, 2pc on both rings, captured on the card and the CPU with the
      same keys: the tapes equal message for message, `expected_digests`
      agree and the tape carries share bytes, not filler only.
+ 13. the model zoo's training. (13a) `launch.train.train` on qwen2_0_5b
+     at full width and depth (24 layers, d_model 896, vocab 151,936,
+     bf16 activations over float32 weights, grads and AdamW state), 16
+     steps of 8 x 128 with remat and a checkpoint at step 16, then a
+     second `train` to step 20: fatal unless the losses are finite, the
+     last of the first run below its first, the second resumes from 16,
+     flash_attn's forward and backward kernels launched and no plain
+     version ran; the step wall, tokens/s, peak GB, the checkpoint's
+     wall and one profiled step (busy share, top kernels, the backward
+     kernel's share); the checkpoint directory is removed. (13b)
+     `make_train_step`, 3 steps each at full width, depth cut
+     (TRAIN_CUT): recurrentgemma_2b one (rec, rec, attn) pattern at 2 x
+     512 (rg_lru's and flash_attn's Dh-256 windowed backward), mamba2_2_7b
+     2 layers at 2 x 512 (ssd's), paligemma_3b 2 layers at 2 rows of 256
+     stub patches + 512 tokens (the prefix backward): finite losses, the
+     backward kernels launched, no plain version. (13c) One step's loss
+     and gradients of each 13b family and qwen2_0_5b, the card against
+     the CPU in float32 at depth 1 (one block pattern for the hybrid),
+     one row of 32 tokens: the loss within 1e-4 of |CPU|, every gradient
+     leaf within 1e-3 of that leaf's max |CPU|, the worst leaf printed.
 
 The last lines are the card's `nvidia-smi` name and power limit, one
 `{"kernels": [...]}` JSON line, and the result line
@@ -378,12 +415,13 @@ def phase_build() -> str:
 
 
 def phase_sass(name: str, entries: dict, no_spill, require: str = None,
-               forbid: tuple = None) -> dict:
+               forbid: tuple = None, exempt: tuple = ()) -> dict:
     """Kernel `name`'s instantiations, from its build: registers and
     spills (-Xptxas -v), fatal for one in `no_spill` that spills; and the
     witness of how it computes, from its SASS (cuobjdump): every
-    instantiation holds opcode `require` (HGMMA, the tensor cores'
-    bf16/tf32 warpgroup product; IGMMA, their u8 one), none holds an
+    instantiation but those labelled in `exempt` holds opcode `require`
+    (HGMMA, the tensor cores' bf16/tf32 warpgroup product; IGMMA, their
+    u8 one), none holds an
     opcode of `forbid` = (label, pattern), and the library holds no other
     kernel of `name` (no kernel left beside them). `entries` maps each
     instantiation's label to its mangled name's template part. ptxas's
@@ -411,7 +449,7 @@ def phase_sass(name: str, entries: dict, no_spill, require: str = None,
             + "".join(f"{n} {key}, " for key, n in out[label].items()
                       if key in counts)
             + f"{p.get('registers')} registers, {spill} bytes spilled")
-        if require and out[label][require] == 0:
+        if require and label not in exempt and out[label][require] == 0:
             fail(f"{name} {label}: no {require} in its SASS")
         if forbid and out[label][forbid[0]]:
             fail(f"{name} {label}: {out[label][forbid[0]]} {forbid[0]} in "
@@ -488,6 +526,26 @@ MSA_BWD_ENTRIES = {f"heads {t} Dh {dh} x{mt}":
                    for mt in sorted({1, max(1, dh // 32)})}
 MSA_BWD_ENTRIES["sum"] = "msa_bwd_sum_kernel"
 MSA_BWD_NO_SPILL = ("heads f32 Dh 64 x1", "heads f32 Dh 64 x2", "sum")
+# the training path's backward kernels: flash_attn's Dh-256 passes (CUDA
+# cores: no HGMMA, the docstring of csrc/flash_attn_bwd.cu says why) and
+# their group sum, ssd's per-head pass and head sum, rg_lru's reverse
+# recurrence, each in float32 and bf16 where it takes both; the path's
+# (bf16) not spilling, none holding an atomic
+FA_BWD256_ENTRIES = {f"{k} {t} Dh 256": f"fa_bwd256_{k}_kernelI{m}E"
+                     for k in ("dq", "dkdv", "sum")
+                     for t, m in (("bf16", "13__nv_bfloat16"), ("f32", "f"))}
+FA_BWD256_NO_SPILL = ("dq bf16 Dh 256", "dkdv bf16 Dh 256", "sum bf16 Dh 256")
+SSD_BWD_ENTRIES = {f"{k} {t}": f"ssd_bwd_{k}_kernelI{m}E"
+                   for k in ("head", "sum")
+                   for t, m in (("bf16", "13__nv_bfloat16"), ("f32", "f"))}
+SSD_BWD_NO_SPILL = ("head bf16", "sum bf16")
+LRU_BWD_ENTRIES = {"f32": "rg_lru_bwd_kernelE"}
+SSD_BWD_REPLACES = ("none: the JAX package has no backward kernel; its "
+                    "training differentiates the chunked scan "
+                    "(src/repro/models/ssd.py:48)")
+RG_LRU_BWD_REPLACES = ("none: the JAX package has no backward kernel; its "
+                       "training differentiates the associative scan "
+                       "(src/repro/models/rglru.py:73)")
 FLASH_ATTN_BWD_REPLACES = ("none: the JAX package has no backward kernel; "
                            "its training differentiates plain attention "
                            "(src/repro/core/target.py:68)")
@@ -1478,6 +1536,254 @@ def phase_scan_kernels(seed: int) -> dict:
             f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
             f"({res['bound_by']}, {100 * res['device_bound_share']:.1f} % "
             f"of it in device time)")
+    return out
+
+
+def phase_train_kernels(seed: int) -> dict:
+    """The training path's backward kernels against autograd of their
+    plain versions on the card, every gradient within TOL (float32) or
+    BF16_TOL of max(1, max |plain|), a second launch bitwise equal at
+    each path case: flash_attn's at Dh 256 (RecurrentGemma's local layer,
+    PaliGemma's prefix, both bf16 at 13b's batch of 2) and with the
+    prefix mask (0, 1, = S, past a key tile; Dh 64 and 128 on the tensor
+    cores), Dh 256 in float32; ssd's at Mamba-2's training batch in bf16
+    and float32 and its hard cases (forward chunk 1, no decay, decays
+    that underflow, an initial state x100 with its gradient, a final
+    state's gradient, P and N off 32); rg_lru's at RecurrentGemma's
+    training batch and its hard cases (T 1 and 129, a = 0, a = 1,
+    permuted operands). The path cases are timed host-issued and queued
+    beside the plain backward versions (`ref.flash_attn_bwd`,
+    `ref.ssd_bwd`, `ref.rg_lru_bwd`), the bounds of `bwd_work` and, for
+    flash_attn, SDPA's backward with the same boolean mask (its forward
+    and backward less its forward; a yardstick, not on the path)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attn as fa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rg_lru as lru_k
+    from repro_torch.kernels import ssd as ssd_k
+    torch.backends.cuda.matmul.allow_tf32 = False
+    f32, bf16 = torch.float32, torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(seed + 400)
+
+    def randn(shape, dtype=f32, scale=1.0, grad=False):
+        x = (torch.randn(shape, generator=gen, device="cuda") * scale) \
+            .to(dtype)
+        return x.requires_grad_() if grad else x
+
+    def check(name, label, got, want, tol, res):
+        torch.cuda.synchronize()
+        worst = max((_rel_err(g, w) for g, w in zip(got, want)),
+                    key=lambda e: e[1])
+        if not worst[1] <= tol:
+            fail(f"{name} {label}: kernel vs autograd of plain error "
+                 f"{worst[0]:.3g} ({worst[1]:.3g} of max |plain|, limit "
+                 f"{tol})")
+        key = "bf16_max_abs_err" if got[0].dtype == bf16 else "max_abs_err"
+        res[key] = max(res.get(key, 0.0), worst[0])
+        log(f"[2] {name} {label}: max err {worst[0]:.3g} ({worst[1]:.3g} "
+            f"of max |plain|, limit {tol})")
+
+    def repeat(name, label, fn, res):
+        first, second = fn(), fn()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(first, second)
+                   if a is not None):
+            fail(f"{name} {label}: two launches differ")
+        res.setdefault("bitwise_repeat", []).append(label)
+        log(f"[2] {name} {label}: two launches bitwise equal")
+
+    def timing(name, res, fn, plain, ops, nbytes, peak, shape, **extra):
+        t = {"ms": cuda_ms(fn, reps=10),
+             "device_ms": cuda_ms(fn, reps=10, queued=True),
+             "plain_ms": cuda_ms(plain, reps=2), "shape": shape, **extra}
+        t["bound_ms"], t["bound_by"] = _bound_ms(nbytes, ops, peak)
+        t["cuda_core_bound_ms"] = _bound_ms(nbytes, ops)[0]
+        t["bound_share"] = t["bound_ms"] / t["device_ms"]
+        res.update(t)
+        lib = (f", SDPA backward {t['library_bwd_device_ms']:.4f} ms "
+               f"(device; forward + backward {t['library_ms']:.4f} "
+               f"host-issued)" if "library_ms" in t else "")
+        log(f"[2] {name} {shape}: {t['ms']:.4f} ms (device "
+            f"{t['device_ms']:.4f}), plain {t['plain_ms']:.4f} ms{lib}, "
+            f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}, "
+            f"{100 * t['bound_share']:.1f} % of it in device time; "
+            f"CUDA-core bound {t['cuda_core_bound_ms']:.4f} ms)")
+
+    out = {}
+    # flash_attn: (label, BH, S, Dh, group, dtype, causal, window, prefix,
+    # timed as); the paths at 13b's batch of 2
+    res = out["flash_attn_bwd_dh256"] = {}
+    for (label, bh, s, dh, group, dt, causal, window, prefix, timed) in (
+            ("path recurrentgemma_2b local", 20, 512, 256, 10, bf16, True,
+             2048, 0, "local"),
+            ("path paligemma_3b prefix", 16, 768, 256, 8, bf16, True, 0,
+             256, "prefix"),
+            ("prefix 0", 8, 300, 256, 2, bf16, True, 0, 0, None),
+            ("prefix 1", 8, 300, 256, 2, f32, True, 0, 1, None),
+            ("prefix = S", 8, 300, 256, 2, f32, True, 0, 300, None),
+            ("prefix past a key tile", 8, 300, 256, 2, f32, True, 0, 97,
+             None),
+            ("Dh 256 f32 causal", 8, 300, 256, 2, f32, True, 0, 0, None),
+            ("Dh 256 f32 bidirectional", 8, 200, 256, 1, f32, False, 0, 0,
+             None),
+            ("Dh 256 f32 window 70", 8, 200, 256, 2, f32, True, 70, 0,
+             None),
+            ("Dh 64 f32 prefix 100", 12, 300, 64, 3, f32, True, 0, 100,
+             None),
+            ("Dh 128 bf16 prefix 65", 4, 300, 128, 1, bf16, True, 0, 65,
+             None)):
+        q = randn((bh, s, dh), dt, grad=True)
+        k, v = (randn((bh // group, s, dh), dt, grad=True) for _ in "kv")
+        do = randn((bh, s, dh), dt)
+        kw = dict(causal=causal, window=window, prefix_len=prefix)
+        got = torch.autograd.grad(fa.flash_attn(q, k, v, **kw), (q, k, v),
+                                  do)
+        want = torch.autograd.grad(ref.flash_attn(q, k, v, **kw), (q, k, v),
+                                   do)
+        tol = TOL if dt == f32 else BF16_TOL
+        check("flash_attn backward", f"{label} ({bh},{s},{dh}) group "
+              f"{group} {str(dt)[6:]}", got, want, tol, res)
+        if not timed:
+            continue
+        q, k, v = q.detach(), k.detach(), v.detach()
+        o = fa.launch(q, k, v, causal, window, prefix)
+        args = (q, k, v, o, do, causal, window, prefix)
+        repeat("flash_attn backward", label, lambda: fa.launch_bwd(*args),
+               res)
+        # SDPA on (B, heads, S, Dh) with k, v repeated to the heads and the
+        # same mask as a boolean (True: kept)
+        b_ = 2
+        qs = q.reshape(b_, bh // b_, s, dh).clone().requires_grad_()
+        ks, vs = (x.reshape(b_, bh // group // b_, s, dh)
+                  .repeat_interleave(group, dim=1).clone().requires_grad_()
+                  for x in (k, v))
+        dos = do.reshape(b_, bh // b_, s, dh)
+        mask = torch.ones((s, s), dtype=torch.bool, device="cuda").tril()
+        if window:
+            mask = mask.triu(1 - window)
+        mask[:, :prefix] = True
+
+        def sdpa_fwd_bwd():
+            return torch.autograd.grad(
+                F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask),
+                (qs, ks, vs), dos)
+
+        def sdpa_fwd():
+            with torch.no_grad():
+                return F.scaled_dot_product_attention(qs, ks, vs,
+                                                      attn_mask=mask)
+        lib = {"library_ms": cuda_ms(sdpa_fwd_bwd, reps=10),
+               "library_device_ms": cuda_ms(sdpa_fwd_bwd, reps=10,
+                                            queued=True),
+               "library_fwd_device_ms": cuda_ms(sdpa_fwd, reps=10,
+                                                queued=True)}
+        lib["library_bwd_device_ms"] = (lib["library_device_ms"]
+                                        - lib["library_fwd_device_ms"])
+        ops, nbytes = fa.bwd_work(q.shape, k.shape[0], dt, causal, window,
+                                  prefix)
+        sub = res[timed] = {}
+        timing("flash_attn backward", sub, lambda: fa.launch_bwd(*args),
+               lambda: ref.flash_attn_bwd(q, k, v, o, do, causal=causal,
+                                          window=window, prefix_len=prefix),
+               ops, nbytes, PEAK_BF16_S,
+               f"({bh},{s},{dh}) group {group} bf16 "
+               + (f"prefix {prefix}" if prefix else f"window {window}"),
+               **lib)
+        del qs, ks, vs, sdpa_fwd_bwd, sdpa_fwd
+
+    # ssd: (label, B, T, H, P, N, dtype, decay, state0, dstate, forward
+    # chunk, timed as); Mamba-2's log decays dt * -exp(a_log) run from
+    # about -0.1 to -11
+    res = out["ssd_bwd"] = {}
+    for (label, bsz, t, h, p, n, dt, decay, s0, dst, chunk, timed) in (
+            ("path (Mamba-2 training)", 2, 512, 80, 64, 128, bf16, "rand",
+             False, False, 128, "path"),
+            ("path f32", 2, 512, 80, 64, 128, f32, "rand", False, False, 128,
+             "f32"),
+            ("forward chunk 1", 1, 70, 4, 64, 128, f32, "rand", False, False,
+             1, None),
+            ("no decay", 1, 150, 4, 64, 128, f32, "none", False, True, 128,
+             None),
+            ("underflowing decays", 1, 150, 4, 64, 128, f32, "underflow",
+             False, True, 128, None),
+            ("state0 x100 with its gradient", 2, 200, 4, 64, 128, f32,
+             "rand", True, True, 128, None),
+            ("final-state gradient bf16", 1, 200, 4, 64, 128, bf16, "rand",
+             True, True, 128, None),
+            ("P, N off 32", 1, 77, 3, 5, 7, f32, "rand", True, True, 128,
+             None)):
+        x = randn((bsz, t, h, p), dt, grad=True)
+        b, c = (randn((bsz, t, n), dt, grad=True) for _ in "bc")
+        u = torch.rand((bsz, t, h), generator=gen, device="cuda")
+        a = {"rand": -0.1 - 2.0 * u, "none": 0.0 * u,
+             "underflow": -50.0 - u}[decay].requires_grad_()
+        st0 = (randn((bsz, h, p, n), scale=100.0, grad=True) if s0
+               else None)
+        ins = [z for z in (x, a, b, c, st0) if z is not None]
+        dy, ds = randn((bsz, t, h, p), dt), randn((bsz, h, p, n))
+
+        def loss(y, st):
+            return (y.float() * dy.float()).sum() \
+                + ((st * ds).sum() if dst else 0)
+        got = torch.autograd.grad(
+            loss(*ssd_k.ssd_chunked(x, a, b, c, chunk=chunk, state0=st0)),
+            ins)
+        want = torch.autograd.grad(loss(*ref.ssd(x, a, b, c, state0=st0)),
+                                   ins)
+        check("ssd backward", f"{label} ({bsz},{t},{h},{p}) N {n} "
+              f"{str(dt)[6:]}", got, want, TOL if dt == f32 else BF16_TOL,
+              res)
+        del got, want
+        if not timed:
+            continue
+        args = [z.detach() for z in (x, a, b, c)] + [dy]
+        repeat("ssd backward", label, lambda: ssd_k.launch_bwd(*args), res)
+        ops, nbytes = ssd_k.bwd_work(bsz, t, h, p, n, dt)
+        sub = res if timed == "path" else res.setdefault(timed, {})
+        timing("ssd backward", sub, lambda: ssd_k.launch_bwd(*args),
+               lambda: ref.ssd_bwd(*args), ops, nbytes,
+               PEAK_BF16_S if dt == bf16 else PEAK_3XTF32_S,
+               f"({bsz},{t},{h},{p}) N {n} {str(dt)[6:]}")
+
+    # rg_lru: (label, B, T, D, fill, timed); the gate range a = exp(-8 r
+    # softplus(Lambda)) of the model
+    res = out["rg_lru_bwd"] = {}
+    for (label, bsz, t, d, fill, timed) in (
+            ("path (RecurrentGemma training)", 2, 512, 2560, "gate", True),
+            ("T 1", 2, 1, 2560, "rand", False),
+            ("T 129", 2, 129, 300, "rand", False),
+            ("a = 0", 2, 100, 70, "zero", False),
+            ("a = 1", 2, 100, 70, "one", False),
+            ("permuted operands", 3, 300, 70, "perm", False)):
+        u = torch.rand((bsz, t, d), generator=gen, device="cuda")
+        if fill == "perm":
+            base = torch.rand((t, bsz, d), generator=gen, device="cuda") \
+                .requires_grad_()
+            a = base.transpose(0, 1)
+            bb = randn((d, t, bsz), grad=True)
+            b = bb.permute(2, 1, 0)
+            ins = (base, bb)
+        else:
+            a = {"rand": u, "zero": 0.0 * u, "one": 1.0 + 0.0 * u,
+                 "gate": torch.exp(-8.0 * u * 0.7)}[fill].requires_grad_()
+            b = randn((bsz, t, d), grad=True)
+            ins = (a, b)
+        dh = randn((bsz, t, d))
+        got = torch.autograd.grad(lru_k.rg_lru_scan(a, b), ins, dh)
+        want = torch.autograd.grad(ref.rg_lru(a, b), ins, dh)
+        check("rg_lru backward", f"{label} ({bsz},{t},{d})", got, want,
+              SCAN_TOL, res)
+        if not timed:
+            continue
+        a, b = a.detach(), b.detach()
+        h = lru_k.launch(a, b)
+        repeat("rg_lru backward", label, lambda: lru_k.launch_bwd(a, h, dh),
+               res)
+        ops, nbytes = lru_k.bwd_work(bsz, t, d)
+        timing("rg_lru backward", res, lambda: lru_k.launch_bwd(a, h, dh),
+               lambda: ref.rg_lru_bwd(a, h, dh), ops, nbytes, PEAK_OPS_S,
+               f"({bsz},{t},{d}) f32")
     return out
 
 
@@ -3765,6 +4071,304 @@ def phase_wire_card_vs_cpu(seed: int) -> None:
             f"{tapes['cpu'][1]:.2f} s)")
 
 
+# ---------------------------------------------------------------------------
+# phase 13: training on the card
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "qwen2_0_5b"
+TRAIN_STEPS, TRAIN_RESUME_STEPS, TRAIN_BATCH, TRAIN_SEQ = 16, 20, 8, 128
+# 13b: arch -> (layers, rows, tokens), full width with depth cut for chip
+# time and memory: one (rec, rec, attn) pattern of RecurrentGemma's 26
+# layers, 2 of Mamba-2's 64 and 2 of PaliGemma's 18 (its rows 256 stub
+# patches + the tokens)
+TRAIN_CUT = {"recurrentgemma_2b": (3, 2, 512), "mamba2_2_7b": (2, 2, 512),
+             "paligemma_3b": (2, 2, 512)}
+TRAIN_CUT_STEPS = 3
+# 13c: one row of this many tokens (the vlm's 256 patches before them),
+# depth 1 (one block pattern for the hybrid family), float32
+TRAIN_CPU_SEQ = 32
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-4, 1e-3
+TRAIN_COUNTERS = ("fa", "fa_bwd", "ssd", "ssd_bwd", "lru", "lru_bwd", "msa",
+                  "msa_bwd", "eh", "rmm", "smm")
+
+
+def _train_counts() -> dict:
+    from repro_torch.kernels import ops as kops
+    return {n: getattr(kops, f"{n}_stats")() for n in TRAIN_COUNTERS}
+
+
+def _train_reset() -> None:
+    from repro_torch.kernels import ops as kops
+    for n in TRAIN_COUNTERS:
+        getattr(kops, f"reset_{n}_stats")()
+
+
+def _train_gates(tag: str, counts: dict, need: tuple, losses) -> None:
+    import math
+    if not losses or not all(math.isfinite(x) for x in losses):
+        fail(f"[13] {tag}: losses not finite: {losses}")
+    plain = {n: c["ref"] for n, c in counts.items() if c["ref"]}
+    if plain:
+        fail(f"[13] {tag}: plain versions ran: {plain}")
+    for n in need:
+        if counts[n]["kernel"] == 0:
+            fail(f"[13] {tag}: kernel {n} never launched ({counts})")
+
+
+def _lm_batch(cfg, seed: int, step: int, rows: int, tokens: int, dev,
+              gen=None) -> dict:
+    """Tokens and labels from the data pipeline's addressing, on `dev`,
+    and the vlm family's stub patches from `gen` (numpy without one)."""
+    import numpy as np
+    import torch
+    from repro_torch.data.pipeline import synth_lm_batch
+    b = {k: torch.as_tensor(v, device=dev) for k, v in synth_lm_batch(
+        seed, step, 0, 1, rows, tokens, cfg.vocab_size).items()}
+    if cfg.family == "vlm":
+        shape = (rows, cfg.n_prefix_tokens, cfg.d_model)
+        b["patches"] = (torch.randn(shape, generator=gen, device=dev)
+                        if gen is not None else torch.as_tensor(
+                            np.random.default_rng(seed).standard_normal(
+                                shape).astype(np.float32), device=dev))
+    return b
+
+
+def phase_train(seed: int, smi: str) -> dict:
+    """Training on the card, the zoo's `launch.train` path. (13a) `train`
+    on qwen2_0_5b at full width and depth for TRAIN_STEPS steps of
+    TRAIN_BATCH x TRAIN_SEQ with remat and a checkpoint at the last,
+    then a second `train` to TRAIN_RESUME_STEPS that must resume from
+    it: finite losses falling from the first to the last, flash_attn's
+    forward and backward kernels launched and no plain version; the step
+    wall, tokens/s, peak memory and checkpoint wall, and one profiled
+    step (busy share, top kernels, the backward kernel's share). (13b)
+    `make_train_step`, TRAIN_CUT_STEPS steps at full width with depth cut
+    (TRAIN_CUT) for recurrentgemma_2b (rg_lru's and flash_attn's Dh-256
+    windowed backward), mamba2_2_7b (ssd's) and paligemma_3b (the prefix
+    backward): finite losses, the backward kernels launched, no plain
+    version. (13c) One train step's loss and gradients, the card against
+    the CPU, float32, depth 1, one row, for those three and qwen2_0_5b:
+    the loss within TRAIN_LOSS_TOL of |CPU|, every gradient leaf within
+    TRAIN_GRAD_TOL of that leaf's max |CPU|."""
+    import dataclasses
+    import shutil
+    import statistics
+    import tempfile
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.base import load_arch
+    from repro_torch.core import tree
+    from repro_torch.launch import train as tr
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.empty_cache()
+    out = {"launches": {}, "walls_s": {}}
+    t13 = time.time()
+
+    def add_launches(counts):
+        for n, c in counts.items():
+            out["launches"][n] = out["launches"].get(n, 0) + c["kernel"]
+
+    # ---- 13a: launch.train, then a resumed run -------------------------
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        _train_reset()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        first = tr.train(tr.TrainConfig(
+            arch=TRAIN_ARCH, smoke=False, steps=TRAIN_STEPS,
+            batch=TRAIN_BATCH, seq=TRAIN_SEQ, ckpt_dir=ckpt,
+            ckpt_every=TRAIN_STEPS, log_every=4, seed=seed, device=DEVICE))
+        wall1 = time.time() - t0
+        t0 = time.time()
+        second = tr.train(tr.TrainConfig(
+            arch=TRAIN_ARCH, smoke=False, steps=TRAIN_RESUME_STEPS,
+            batch=TRAIN_BATCH, seq=TRAIN_SEQ, ckpt_dir=ckpt,
+            ckpt_every=TRAIN_STEPS, log_every=4, seed=seed, device=DEVICE))
+        wall2 = time.time() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        counts = _train_counts()
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    _train_gates("13a", counts, ("fa", "fa_bwd"),
+                 first["losses"] + second["losses"])
+    if not first["losses"][-1] < first["losses"][0]:
+        fail(f"[13a] loss did not fall: {first['losses']}")
+    if second["resumed_from"] != TRAIN_STEPS:
+        fail(f"[13a] the second run resumed from {second['resumed_from']}, "
+             f"not {TRAIN_STEPS}")
+    add_launches(counts)
+    step_s = statistics.median(first["step_s"][1:])
+    a = out["13a"] = {
+        "arch": TRAIN_ARCH, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "losses": first["losses"], "resumed_losses": second["losses"],
+        "step_ms": 1e3 * step_s, "first_step_ms": 1e3 * first["step_s"][0],
+        "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s,
+        "peak_gb": peak, "ckpt_s": first["ckpt_s"],
+        "resumed_ckpt_s": second["ckpt_s"],
+        "restore_s": second["restore_s"], "wall_s": wall1,
+        "resumed_wall_s": wall2,
+        "launches": {n: c["kernel"] for n, c in counts.items()
+                     if c["kernel"]}, "card": smi}
+    log(f"[13a] {TRAIN_ARCH} full width, {TRAIN_STEPS} steps of "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}, remat: loss {first['losses'][0]:.4f}"
+        f" -> {first['losses'][-1]:.4f}; resumed at "
+        f"{second['resumed_from']} -> {second['losses'][-1]:.4f}; step "
+        f"{a['step_ms']:.1f} ms (first {a['first_step_ms']:.0f} ms), "
+        f"{a['tokens_per_s']:.0f} tokens/s, peak {peak:.2f} GB, checkpoint "
+        f"{first['ckpt_s']:.2f} s (resumed run's {second['ckpt_s']:.2f} s, "
+        f"its restore {second['restore_s']:.2f} s), "
+        f"walls {wall1:.1f} + {wall2:.1f} s; launches {a['launches']} "
+        f"({smi})")
+
+    out["walls_s"]["13a"] = time.time() - t13
+
+    # one profiled step of the same model and batch
+    t13 = time.time()
+    cfg = load_arch(TRAIN_ARCH)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    params = T.init_params(gen, cfg, DEVICE)
+    opt = init_opt_state(params)
+    step = tr.make_train_step(cfg, AdamWConfig(total_steps=4,
+                                               warmup_steps=1), True)
+    batch = _lm_batch(cfg, seed, 0, TRAIN_BATCH, TRAIN_SEQ, DEVICE)
+    params, opt, _, _ = step(params, opt, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        params, opt, loss, _ = step(params, opt, batch)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    events = _device_events(prof)
+    busy = sum(_event_ms(e) for e in events)
+    bwd = sum(_event_ms(e) for e in events if "fa_bwd" in e.key)
+    fwd = sum(_event_ms(e) for e in events
+              if re.search(r"\bflash_attn_kernel\b", e.key))
+    top = [(e.key[:80], round(_event_ms(e), 4), e.count) for e in
+           sorted(events, key=_event_ms, reverse=True)[:5]]
+    a["profile"] = {"wall_ms": 1e3 * wall, "kernel_ms": busy,
+                    "busy_share": busy / (1e3 * wall),
+                    "fa_bwd_ms": bwd, "fa_bwd_share": bwd / max(busy, 1e-9),
+                    "fa_ms": fwd, "top": top}
+    log(f"[13a] one profiled step: wall {1e3 * wall:.1f} ms, kernels "
+        f"{busy:.1f} ms (busy {100 * busy / (1e3 * wall):.1f} %), "
+        f"flash_attn backward {bwd:.2f} ms "
+        f"({100 * a['profile']['fa_bwd_share']:.1f} % of kernel time), "
+        f"forward {fwd:.2f} ms; top {top}")
+    del params, opt, step, batch, prof, events
+    torch.cuda.empty_cache()
+    out["walls_s"]["13a profile"] = time.time() - t13
+
+    # ---- 13b: make_train_step at full width, depth cut -----------------
+    need = {"recurrentgemma_2b": ("lru", "lru_bwd", "fa", "fa_bwd"),
+            "mamba2_2_7b": ("ssd", "ssd_bwd"),
+            "paligemma_3b": ("fa", "fa_bwd")}
+    out["13b"] = {}
+    t13 = time.time()
+    for arch, (layers, rows, tokens) in TRAIN_CUT.items():
+        cfg = dataclasses.replace(load_arch(arch), n_layers=layers)
+        gen = torch.Generator(device=DEVICE).manual_seed(seed)
+        params = T.init_params(gen, cfg, DEVICE)
+        opt = init_opt_state(params)
+        step = tr.make_train_step(
+            cfg, AdamWConfig(total_steps=TRAIN_CUT_STEPS, warmup_steps=1),
+            True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _train_reset()
+        losses, walls = [], []
+        for i in range(TRAIN_CUT_STEPS):
+            batch = _lm_batch(cfg, seed, i, rows, tokens, DEVICE, gen)
+            t0 = time.time()
+            params, opt, loss, gn = step(params, opt, batch)
+            losses.append(float(loss))
+            walls.append(time.time() - t0)
+        counts = _train_counts()
+        _train_gates(f"13b {arch}", counts, need[arch], losses)
+        add_launches(counts)
+        r = out["13b"][arch] = {
+            "layers": layers, "rows": rows, "tokens": tokens,
+            "losses": losses, "step_ms": 1e3 * statistics.median(walls[1:]),
+            "first_step_ms": 1e3 * walls[0],
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": {n: c["kernel"] for n, c in counts.items()
+                         if c["kernel"]}}
+        log(f"[13b] {arch} full width, {layers} layers, {rows} x {tokens}"
+            f"{' (+256 patches)' if cfg.family == 'vlm' else ''}: losses "
+            f"{[round(x, 4) for x in losses]}, step {r['step_ms']:.1f} ms "
+            f"(first {r['first_step_ms']:.0f}), peak {r['peak_gb']:.2f} GB; "
+            f"launches {r['launches']}")
+        del params, opt, step, batch
+        torch.cuda.empty_cache()
+
+    out["walls_s"]["13b"] = time.time() - t13
+
+    # ---- 13c: one step's loss and gradients, card against CPU ----------
+    out["13c"] = {}
+    for arch in (TRAIN_ARCH,) + tuple(TRAIN_CUT):
+        t13 = time.time()
+        full = load_arch(arch)
+        layers = len(full.block_pattern) if full.family == "hybrid" else 1
+        cfg = dataclasses.replace(full, n_layers=layers, dtype="float32")
+        # drawn on the card (the CPU's draw of a full-width vocabulary
+        # takes seconds) and copied once to the CPU
+        on_card = T.init_params(
+            torch.Generator(device=DEVICE).manual_seed(seed), cfg, DEVICE)
+        names = ["/".join(k) for k in _leaf_paths(on_card)]
+        res = {}
+        for dev, params in (("cpu", tree.to_device(on_card, "cpu")),
+                            (DEVICE, on_card)):
+            p, leaves = tree.trainable(params)
+            batch = _lm_batch(cfg, seed, 0, 1, TRAIN_CPU_SEQ, dev)
+            _train_reset()
+            loss, _ = T.train_loss(p, cfg, batch, remat=True)
+            g = tree.grads(loss, leaves)
+            res[dev] = (float(loss.detach()), g)
+            if dev == DEVICE:
+                counts = _train_counts()
+                _train_gates(f"13c {arch}", counts,
+                             need.get(arch, ("fa", "fa_bwd")), [res[dev][0]])
+                add_launches(counts)
+            del p, leaves, g, loss, params
+        # each leaf's error taken on the card, the CPU's gradient copied
+        # there
+        (lc, gc), (lg, gg) = res["cpu"], res[DEVICE]
+        worst = (0.0, "")
+        for x, y, n in zip(gg, gc, names):
+            y = y.to(DEVICE)
+            worst = max(worst, (float((x - y).abs().max())
+                                / max(float(y.abs().max()), 1e-30), n))
+        loss_err = abs(lg - lc) / abs(lc)
+        out["13c"][arch] = {"loss_cpu": lc, "loss_card": lg,
+                            "loss_rel_err": loss_err,
+                            "worst_leaf": worst[1],
+                            "worst_leaf_rel_err": worst[0]}
+        log(f"[13c] {arch} depth {layers}, one row of {TRAIN_CPU_SEQ}: loss "
+            f"card {lg:.6f} CPU {lc:.6f} ({loss_err:.2e} of |CPU|, limit "
+            f"{TRAIN_LOSS_TOL}); worst gradient leaf {worst[1]} "
+            f"{worst[0]:.2e} of its max |CPU| (limit {TRAIN_GRAD_TOL})")
+        if not loss_err <= TRAIN_LOSS_TOL:
+            fail(f"[13c] {arch}: loss {lg} on the card, {lc} on the CPU")
+        if not worst[0] <= TRAIN_GRAD_TOL:
+            fail(f"[13c] {arch}: gradient {worst[1]} off by {worst[0]:.3g} "
+                 f"of its max |CPU|")
+        del on_card, res, gc, gg
+        out["walls_s"][f"13c {arch}"] = time.time() - t13
+    torch.cuda.empty_cache()
+    log("[13] walls (s): " + ", ".join(f"{k} {v:.1f}"
+                                       for k, v in out["walls_s"].items()))
+    return out
+
+
+def _leaf_paths(tr_, path=()):
+    """Key paths of a parameter tree in `core.tree.tree_leaves` order."""
+    if isinstance(tr_, dict):
+        return [q for k in sorted(tr_) for q in _leaf_paths(tr_[k],
+                                                            path + (k,))]
+    return [path]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3795,14 +4399,22 @@ def main(argv=None) -> int:
     lru_entries_ = lru_entries()
     lru_build = phase_sass("rg_lru", lru_entries_, lru_entries_,
                            forbid=NO_ATOMICS)
-    fa_bwd_build = phase_sass("flash_attn_bwd", FA_BWD_ENTRIES,
-                              FA_BWD_NO_SPILL, "HGMMA", forbid=NO_ATOMICS)
+    fa_bwd_build = phase_sass("flash_attn_bwd",
+                              {**FA_BWD_ENTRIES, **FA_BWD256_ENTRIES},
+                              FA_BWD_NO_SPILL + FA_BWD256_NO_SPILL, "HGMMA",
+                              forbid=NO_ATOMICS,
+                              exempt=tuple(FA_BWD256_ENTRIES))
+    ssd_bwd_build = phase_sass("ssd_bwd", SSD_BWD_ENTRIES, SSD_BWD_NO_SPILL,
+                               forbid=NO_ATOMICS)
+    lru_bwd_build = phase_sass("rg_lru_bwd", LRU_BWD_ENTRIES,
+                               LRU_BWD_ENTRIES, forbid=NO_ATOMICS)
     msa_bwd_build = phase_sass("mlp_softmax_attn_bwd", MSA_BWD_ENTRIES,
                                MSA_BWD_NO_SPILL, forbid=NO_ATOMICS)
     kern = phase_kernels(args.seed)
     fkern = phase_float_kernels(args.seed)
     bkern = phase_backward_kernels(args.seed)
     skern = phase_scan_kernels(args.seed)
+    tkern = phase_train_kernels(args.seed)
     proxies = build_proxies(args.seed)
     t0 = time.time()
     sieve = phase_sieve(args.seed, proxies)
@@ -3857,6 +4469,10 @@ def main(argv=None) -> int:
     t0 = time.time()
     phase_wire_card_vs_cpu(args.seed)
     log(f"[12e] card vs CPU tapes: {time.time() - t0:.1f} s")
+    t0 = time.time()
+    trained = phase_train(args.seed, smi)
+    log(f"[13] training: {time.time() - t0:.1f} s")
+    tl = trained["launches"]
 
     dl, l8, l10 = selected["launches"], pipeline["launches"], \
         service["launches"]
@@ -3901,7 +4517,8 @@ def main(argv=None) -> int:
         "flash_attn": {"6a": tgt["launches"]["flash_attn"]["kernel"],
                        "7 recurrentgemma_2b": rg["flash_attn"]["kernel"],
                        "7b": zoo["launches"],
-                       "8": l8["fa"], "9d": dl["fa"], "10": l10["fa"]},
+                       "8": l8["fa"], "9d": dl["fa"], "10": l10["fa"],
+                       "13": tl["fa"]},
         "entropy_head": {"6a": tgt["launches"]["entropy_head"]["kernel"],
                          "8": l8["eh"], "9d": dl["eh"], "10": l10["eh"]},
         "mlp_softmax_attn": {
@@ -3972,9 +4589,10 @@ def main(argv=None) -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": f"{CSRC}/{src}",
             "replaces": replaces,
-            "launches": l8[short] + dl[short] + l10[short],
+            "launches": l8[short] + dl[short] + l10[short]
+            + tl.get(short, 0),
             "launches_by_path": {"8": l8[short], "9d": dl[short],
-                                 "10": l10[short]},
+                                 "10": l10[short], "13": tl.get(short, 0)},
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k.get("library_ms"),
@@ -3984,7 +4602,8 @@ def main(argv=None) -> int:
                 "none: no single torch call computes this function"),
             "shape": k["shape"], "build": build_info,
             "launches_note": (
-                "two kernels a backward call (dq, then dk/dv), both counted"
+                "two kernels a backward call (dq, then dk/dv; at Dh 256 "
+                "three, with the group sum), all counted"
                 if name == "flash_attn_bwd" else
                 "two kernels a backward call (head pass, then head sum), "
                 "both counted"),
@@ -3994,6 +4613,30 @@ def main(argv=None) -> int:
                                  "library_bwd_device_ms", "bound_share",
                                  "cuda_core_bound_ms", "bitwise_repeat",
                                  "phase1", "bf16") if x in k}})
+        if name == "flash_attn_bwd":
+            kernels[-1]["dh256"] = tkern["flash_attn_bwd_dh256"]
+    for name, short, replaces, build_info, note in (
+            ("ssd_bwd", "ssd_bwd", SSD_BWD_REPLACES, ssd_bwd_build,
+             "two kernels a backward call (the per-head pass, then the head "
+             "sum), both counted"),
+            ("rg_lru_bwd", "lru_bwd", RG_LRU_BWD_REPLACES, lru_bwd_build,
+             "one kernel a backward call")):
+        k = tkern[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"{CSRC}/{name}.cu",
+            "replaces": replaces, "launches": tl[short],
+            "launches_by_path": {"13": tl[short]},
+            "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"], "library_ms": None,
+            "library_note": "none: no single torch call computes this "
+                            "function",
+            "shape": k["shape"], "build": build_info, "launches_note": note,
+            **{x: k[x] for x in ("bf16_max_abs_err", "device_ms",
+                                 "bound_share", "cuda_core_bound_ms",
+                                 "bitwise_repeat", "f32") if x in k}})
+    summary = {k: trained[k] for k in ("13b", "13c")}
+    log(f"[13] summary: {json.dumps(summary)}")
     log(f"[5] clear-vs-MPC max abs error: {json.dumps(errs)}")
     log(f"total {time.time() - t_all:.1f} s")
     print(smi)

@@ -36,5 +36,9 @@ points run on the card (`device="cuda"`) unless the caller passes
     injection, `PartyRuntime` replaying a phase's captured flights as
     threads or spawned processes) and `runtime/ft` — under the
     executor's `wire=` and `launch/select --wire`. These two packages
-    import neither torch nor anything of the port that does.
+    import neither torch nor anything of the port that does;
+  * the model zoo's training — `launch/train` over `models/transformer.
+    train_loss` (with remat), `optim/` and `data/pipeline` — with the
+    backward kernels of `flash_attn` (every head dim and mask), `ssd`
+    and `rg_lru` on the card.
 """

@@ -17,7 +17,9 @@ tensors. Dtypes numpy lacks (bfloat16, float8) are stored as unsigned
 integer views with their logical dtype in the manifest, as the JAX
 package stores them, and come back through `Tensor.view` (no
 `ml_dtypes`). The manifest's structure string is this package's own;
-neither package reads it on restore.
+neither package reads it on restore. The crc32s are computed on worker
+threads (zlib releases the GIL): beside the shard's write on save, and
+with each thread's share of the leaves read on restore.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ import re
 import shutil
 import threading
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -36,6 +39,7 @@ from repro_torch.core.tree import tree_leaves, tree_rebuild
 _NUMPY_NATIVE = ("float64", "float32", "float16", "int64", "int32", "int16",
                  "int8", "uint64", "uint32", "uint16", "uint8", "bool")
 _UINT_VIEW = {2: torch.int16, 1: torch.int8}  # bf16/fp8: not numpy-native
+_IO_THREADS = min(8, os.cpu_count() or 1)
 
 
 def _structure(tree) -> str:
@@ -57,6 +61,12 @@ def _to_storable(leaf) -> tuple[np.ndarray, str]:
             name)
 
 
+def _crc32(a: np.ndarray) -> int:
+    # over the array's buffer: the same crc as over its bytes, without a
+    # copy of each leaf
+    return zlib.crc32(np.ascontiguousarray(a))
+
+
 def _from_storable(a: np.ndarray, logical: str) -> torch.Tensor:
     t = torch.from_numpy(a)
     if a.dtype.name == logical:
@@ -73,14 +83,17 @@ def save_checkpoint(ckpt_dir: str, step: int, tree, *, host: int = 0,
     os.makedirs(step_dir, exist_ok=True)
     shard = os.path.join(step_dir, f"shard_{host}.npz")
     tmp = shard + ".tmp.npz"          # keep .npz suffix: np.savez appends it
-    np.savez(tmp, **arrays)
+    with ThreadPoolExecutor(_IO_THREADS) as pool:
+        crcs = pool.map(_crc32, arrays.values())
+        np.savez(tmp, **arrays)
+        crcs = list(crcs)
     os.replace(tmp, shard)
     manifest = {
         "step": step,
         "treedef": _structure(tree),
         "leaves": [{"name": f"leaf_{i}", "shape": list(a.shape),
                     "dtype": str(a.dtype), "logical_dtype": logical[i],
-                    "crc32": zlib.crc32(np.ascontiguousarray(a).tobytes())}
+                    "crc32": crcs[i]}
                    for i, a in enumerate(arrays.values())],
     }
     mpath = os.path.join(step_dir, "manifest.json")
@@ -128,13 +141,15 @@ def restore_checkpoint(ckpt_dir: str, tree_like, *, step: int | None = None,
         try:
             with open(os.path.join(step_dir, "manifest.json")) as f:
                 manifest = json.load(f)
-            with np.load(os.path.join(step_dir, f"shard_{host}.npz")) as z:
-                arrays = [z[e["name"]] for e in manifest["leaves"]]
-            for a, e in zip(arrays, manifest["leaves"]):
-                if zlib.crc32(np.ascontiguousarray(a).tobytes()) != e["crc32"]:
-                    raise IOError(f"crc mismatch in {e['name']}")
-            if len(tree_leaves(tree_like)) != len(arrays):
+            entries = manifest["leaves"]
+            if len(tree_leaves(tree_like)) != len(entries):
                 raise IOError("leaf count mismatch")
+            shard = os.path.join(step_dir, f"shard_{host}.npz")
+            k = max(1, min(_IO_THREADS, len(entries)))
+            with ThreadPoolExecutor(k) as pool:
+                parts = list(pool.map(
+                    lambda i: _read_checked(shard, entries[i::k]), range(k)))
+            arrays = [parts[i % k][i // k] for i in range(len(entries))]
             restored = [_from_storable(a, e.get("logical_dtype",
                                                 str(a.dtype)))
                         for a, e in zip(arrays, manifest["leaves"])]
@@ -142,6 +157,17 @@ def restore_checkpoint(ckpt_dir: str, tree_like, *, step: int | None = None,
         except Exception:
             continue          # corrupt step: fall through to older one
     return tree_like, None
+
+
+def _read_checked(shard: str, entries: list) -> list:
+    """The arrays of manifest `entries` from one open of `shard`, each
+    checked against its crc32."""
+    with np.load(shard) as z:
+        arrays = [z[e["name"]] for e in entries]
+    for a, e in zip(arrays, entries):
+        if _crc32(a) != e["crc32"]:
+            raise IOError(f"crc mismatch in {e['name']}")
+    return arrays
 
 
 def _host_copy(leaf):

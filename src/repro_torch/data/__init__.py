@@ -1,2 +1,2 @@
-"""Data for the selection experiments (tasks.py: synthetic classification
-pools, numpy only)."""
+"""Data: synthetic classification pools for the selection experiments
+(tasks.py) and the LM training pipeline (pipeline.py); numpy only."""

@@ -15,15 +15,17 @@
                     (the clear proxy's "sm" variant), with its backward
                     kernel (the proxy's in-vivo finetune)
   ssd.py            the Mamba-2 chunked state-space scan, with its final
-                    state (the ssm family's prefill)
+                    state (the ssm family's prefill), with its backward
+                    kernel (the zoo's training)
   rg_lru.py         the RG-LRU linear recurrence (the hybrid family's
-                    recurrent layers in prefill)
+                    recurrent layers in prefill), with its backward
+                    kernel (the zoo's training)
   ref.py            plain torch versions (the oracles)
   ops.py            dispatch + launch counters
 
-The kernels without a backward (`entropy_head`, `ssd`, `rg_lru`) refuse
-an input that requires grad while grad mode is on (`refuse_grad`): their
-outputs would silently carry no gradient.
+The kernel without a backward (`entropy_head`) refuses an input that
+requires grad while grad mode is on (`refuse_grad`): its output would
+silently carry no gradient.
 """
 
 

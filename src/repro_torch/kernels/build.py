@@ -32,7 +32,9 @@ SOURCES = {"ring_matmul": "ring_matmul.cu",
            "ssd": "ssd.cu",
            "rg_lru": "rg_lru.cu",
            "flash_attn_bwd": "flash_attn_bwd.cu",
-           "mlp_softmax_attn_bwd": "mlp_softmax_attn_bwd.cu"}
+           "mlp_softmax_attn_bwd": "mlp_softmax_attn_bwd.cu",
+           "ssd_bwd": "ssd_bwd.cu",
+           "rg_lru_bwd": "rg_lru_bwd.cu"}
 HEADERS = ("float_tile.cuh", "hopper_tile.cuh", "wgmma_ops.cuh",
            "ring_limbs.cuh")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

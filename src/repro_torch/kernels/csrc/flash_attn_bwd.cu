@@ -1,8 +1,12 @@
 // flash_attn backward: the gradients of o = softmax(q k^T * scale) v with
 // respect to q, k and v, given do, for q (BH, Sq, DH), k / v
-// (BH / group, Skv, DH) and the forward's o; DH in {16, 32, 64, 128},
-// bidirectional or causal (Sq == Skv), a causal window w > 0 also masking
-// keys j <= i - w. float32 or bfloat16 in and out, float32 sums.
+// (BH / group, Skv, DH) and the forward's o; DH in {16, 32, 64, 128,
+// 256}, bidirectional or causal (Sq == Skv), a causal window w > 0 also
+// masking keys j <= i - w, or a causal prefix P > 0 keeping every key
+// j < P (the VLM's image tokens). float32 or bfloat16 in and out, float32
+// sums. Dh up to 128 runs on the tensor cores (below); Dh 256 on the CUDA
+// cores (fa_bwd256_*, at the end: a wgmma accumulator of that width does
+// not fit the registers), with no HGMMA in its SASS.
 //
 // Replaces no Pallas kernel: the JAX package has no backward kernel (no
 // custom_vjp under src/repro/kernels/), and its training differentiates
@@ -78,9 +82,12 @@
 //   step i's softmax and register-A products; the split of tile i + 1
 //   waits for those products, which read the copies it overwrites.
 // - Wholly masked tiles are skipped: the dq pass ends at its last row's
-//   diagonal and starts at the first row's window; the dk/dv pass starts
-//   at its first key's diagonal and ends at the last query whose window
-//   holds its last key. Masked scores are -inf before the exp (P = 0).
+//   diagonal (or at the prefix, where that lies further) and starts at
+//   the first row's window; the dk/dv pass starts at its first key's
+//   diagonal (at query 0 if its block holds a key of the prefix) and
+//   ends at the last query whose window holds its last key. A tile
+//   wholly inside the prefix is kept whole, as one below the diagonal.
+//   Masked scores are -inf before the exp (P = 0).
 //   Rows past S are zero-filled by the copies, masked (columns) and never
 //   stored (rows).
 // Shared memory at float32 Dh 64: the dq pass 224 KB (Q, dO and their lo
@@ -317,6 +324,15 @@ __device__ __forceinline__ void issue_rs(float (&acc)[DH / 2], Frag<C>& f,
   }
 }
 
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
@@ -331,7 +347,7 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ dout, T* __restrict__ dq,
                  float* __restrict__ lse_out, float* __restrict__ dsum_out,
                  int nbh, int nqb, int group, int sq, int skv, int causal,
-                 int window, float scale, float scale_log2) {
+                 int window, int prefix, float scale, float scale_log2) {
   using C = Cfg<T, DH, true>;
   constexpr int BN = C::BN;
   extern __shared__ char smem_raw[];
@@ -352,7 +368,7 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int row0 = warp * 16 + lane / 4;     // and row0 + 8
   const int c2 = 2 * (lane % 4);             // and c2 + 1, in each 8
 
-  const int kend = causal ? min(skv, q0 + ROWS * C::NWG) : skv;
+  const int kend = causal ? min(skv, max(q0 + ROWS * C::NWG, prefix)) : skv;
   const int kbeg = window > 0 ? max(0, q0 - window + 1) / BN * BN : 0;
   const int nt = kend > kbeg ? (kend - kbeg + BN - 1) / BN : 0;
 
@@ -467,7 +483,8 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
       // mask, then the online softmax on the fragments: s[4j + e] is row
       // qw + row0 + 8 (e / 2), key k0 + 8 j + c2 + e % 2
-      const bool edge = k0 + BN > skv || (causal && k0 + BN - 1 > qw) ||
+      const bool edge = k0 + BN > skv ||
+                        (causal && k0 + BN - 1 > qw && k0 + BN > prefix) ||
                         (window > 0 && k0 <= qw + ROWS - 1 - window);
       if (edge) {
 #pragma unroll
@@ -476,7 +493,7 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
           for (int e = 0; e < 4; ++e) {
             const int key = k0 + 8 * j + c2 + (e & 1);
             const int query = qw + row0 + 8 * (e >> 1);
-            if (key >= skv || (causal && key > query) ||
+            if (key >= skv || (causal && key > query && key >= prefix) ||
                 (window > 0 && key <= query - window))
               s[4 * j + e] = -INFINITY;
           }
@@ -551,7 +568,8 @@ fa_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const float* __restrict__ lse_in,
                    const float* __restrict__ dsum_in, T* __restrict__ dk,
                    T* __restrict__ dv, int nkv, int group, int sq, int skv,
-                   int causal, int window, float scale, float scale_log2) {
+                   int causal, int window, int prefix, float scale,
+                   float scale_log2) {
   using C = Cfg<T, DH, false>;
   constexpr int BN = C::BN;
   extern __shared__ char smem_raw[];
@@ -571,10 +589,10 @@ fa_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int c2 = 2 * (lane % 4);
 
   // query tiles holding a query that keeps a key of [k0, klast]: from the
-  // first key's diagonal (causal) to the last query whose window holds the
-  // last key
+  // first key's diagonal (causal; from query 0 if a key lies in the
+  // prefix) to the last query whose window holds the last key
   const int klast = min(skv, k0 + ROWS * C::NWG) - 1;
-  const int qbeg = causal ? k0 / BN * BN : 0;
+  const int qbeg = causal && k0 >= prefix ? k0 / BN * BN : 0;
   const int qend = causal && window > 0 ? min(sq, klast + window) : sq;
   const int nq = qend > qbeg ? (qend - qbeg + BN - 1) / BN : 0;
   const int nt = group * nq;
@@ -693,7 +711,7 @@ fa_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
           reinterpret_cast<const float*>(gsb + C::LD + (it & 1) * 8 * BN);
       const float* ds = ls + BN;
       const bool edge = kw + ROWS > skv || q0 + BN > sq ||
-                        (causal && kw + ROWS - 1 > q0) ||
+                        (causal && kw + ROWS - 1 > q0 && kw + ROWS > prefix) ||
                         (window > 0 && kw <= q0 + BN - 1 - window);
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j)
@@ -703,7 +721,7 @@ fa_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const int key = kw + row0 + 8 * (e >> 1), query = q0 + col;
           const bool keep =
               !edge || (key < skv && query < sq &&
-                        (!causal || (key <= query &&
+                        (!causal || ((key <= query || key < prefix) &&
                                      (window == 0 || key > query - window))));
           const float p =
               keep ? exp2f(__fmul_rn(s[4 * j + e], scale_log2) - ls[col])
@@ -745,7 +763,8 @@ fa_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int DH>
 int run(const T* q, const T* k, const T* v, const T* o, const T* dout, T* dq,
         T* dk, T* dv, float* lse, float* dsum, int bh, int group, int sq,
-        int skv, int causal, int window, float scale, cudaStream_t stream) {
+        int skv, int causal, int window, int prefix, float scale,
+        cudaStream_t stream) {
   using CQ = Cfg<T, DH, true>;
   using CK = Cfg<T, DH, false>;
   auto dq_kernel = fa_bwd_dq_kernel<T, DH>;
@@ -758,23 +777,339 @@ int run(const T* q, const T* k, const T* v, const T* o, const T* dout, T* dq,
   const int nqb = (sq + ROWS * CQ::NWG - 1) / (ROWS * CQ::NWG);
   dq_kernel<<<nqb * bh, CQ::THREADS, CQ::BYTES, stream>>>(
       q, k, v, o, dout, dq, lse, dsum, bh, nqb, group, sq, skv, causal,
-      window, scale, scale_log2);
+      window, prefix, scale, scale_log2);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int nkb = (skv + ROWS * CK::NWG - 1) / (ROWS * CK::NWG);
   dkdv_kernel<<<nkb * (bh / group), CK::THREADS, CK::BYTES, stream>>>(
       q, k, v, dout, lse, dsum, dk, dv, bh / group, group, sq, skv, causal,
-      window, scale, scale_log2);
+      window, prefix, scale, scale_log2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// Dh 256: the same two passes on the CUDA cores, in float32, with a third
+// launch that sums dk and dv over each kv head's group. At Dh 256 a
+// 64-row wgmma accumulator of dq, or of dk and dv, is 128 or 256 float32
+// registers a thread: the tensor-core tiling above does not fit. Here a
+// thread owns one of the 256 columns of its block's 32 rows (32 sums in
+// the dq pass, 64 in the dk/dv pass), and every operand sits in shared
+// memory as float32 (bf16 widened on the load), rows padded by one float
+// so that a warp's walk down a column hits 32 banks:
+// - fa_bwd256_dq_kernel: 32 query rows of one head; each warp owns 4 rows
+//   and its lanes the 32 keys of a tile, so S = Q K^T, dP = dO V^T, the
+//   mask, the online row max and sum and dS~ = P~ (dP - D) close in
+//   shuffles; then every thread adds dS~ K to its column of dq~, rescaled
+//   by the change of the row max. lse (natural log) and D go to the dk/dv
+//   pass, as in the tensor-core passes.
+// - fa_bwd256_dkdv_kernel: 32 keys of one q head of the group (the group
+//   split across blocks, so that a kv head's keys fill the card); each
+//   warp owns 4 keys and its lanes the 32 queries of a tile: P^T =
+//   exp(S^T scale - lse), dS^T = P^T (dP^T - D); then every thread adds
+//   P^T dO and dS^T Q to its column of dv and dk. The head's dk and dv
+//   go to a float32 scratch (BH, Skv, 256) each.
+// - fa_bwd256_sum_kernel: dk and dv of each kv head, the scratch summed
+//   over its group in head order.
+// Masks and the tiles walked are the tensor-core passes'. Every sum has a
+// fixed order and there are no atomics: two launches agree bitwise.
+// Bound: the same five products at the tensor cores' rate; these kernels
+// run at the CUDA cores' (67 TFLOP/s float32), from shared memory.
+// ---------------------------------------------------------------------------
+constexpr int R256 = 32;          // rows a block, columns a tile
+constexpr int D256 = 256;
+constexpr int T256 = 256;         // threads: one a column
+constexpr int LD256 = D256 + 1;   // padded row stride, floats
+constexpr int PT256 = R256 + 1;
+
+__device__ __forceinline__ bool kept(int key, int query, int skv, int causal,
+                                     int window, int prefix) {
+  return key < skv &&
+         (!causal || ((key <= query || key < prefix) &&
+                      (window == 0 || key > query - window)));
+}
+
+__device__ __forceinline__ float wmax(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+__device__ __forceinline__ float wsum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// rows [r0, r0 + 32) of a (rows, 256) array into a padded float tile;
+// rows past `nrows` are 0
+template <typename T>
+__device__ __forceinline__ void load256(float* dst, const T* x, int r0,
+                                        int nrows) {
+  for (int i = threadIdx.x; i < R256 * D256; i += T256) {
+    const int r = i / D256, d = i % D256;
+    dst[r * LD256 + d] =
+        r0 + r < nrows ? ftile::to_f(x[(long long)(r0 + r) * D256 + d]) : 0.f;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(T256, 1)
+fa_bwd256_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ o,
+                    const T* __restrict__ dout, T* __restrict__ dq,
+                    float* __restrict__ lse_out, float* __restrict__ dsum_out,
+                    int nbh, int nqb, int group, int sq, int skv, int causal,
+                    int window, int prefix, float scale) {
+  extern __shared__ float sm256[];
+  float* const Qs = sm256;
+  float* const Os = Qs + R256 * LD256;     // dO
+  float* const Ks = Os + R256 * LD256;
+  float* const Vs = Ks + R256 * LD256;
+  float* const Ps = Vs + R256 * LD256;     // dS~, (32, 33)
+  float* const al = Ps + R256 * PT256;     // each row's rescale
+  float* const ls = al + R256;             // each row's sum at the end
+
+  // heaviest (last) query blocks first, heads innermost
+  const int bh = blockIdx.x % nbh;
+  const int q0 = (nqb - 1 - blockIdx.x / nbh) * R256;
+  const long long qoff = (long long)bh * sq * D256;
+  const T* kb = k + (long long)(bh / group) * skv * D256;
+  const T* vb = v + (long long)(bh / group) * skv * D256;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  load256(Qs, q + qoff, q0, sq);
+  load256(Os, dout + qoff, q0, sq);
+  // D = rowsum(do * o) of the warp's 4 rows, and their online max / sum
+  float dsum[4], m[4], l[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int i = q0 + warp * 4 + r;
+    float acc = 0.f;
+    if (i < sq)
+      for (int d = lane; d < D256; d += 32) {
+        const long long at = qoff + (long long)i * D256 + d;
+        acc = fmaf(ftile::to_f(dout[at]), ftile::to_f(o[at]), acc);
+      }
+    dsum[r] = wsum(acc);
+    m[r] = -INFINITY;
+    l[r] = 0.f;
+  }
+
+  const int kend = causal ? min(skv, max(q0 + R256, prefix)) : skv;
+  const int kbeg = window > 0 ? max(0, q0 - window + 1) / R256 * R256 : 0;
+  float acc[R256];
+#pragma unroll
+  for (int i = 0; i < R256; ++i) acc[i] = 0.f;
+
+  for (int k0 = kbeg; k0 < kend; k0 += R256) {
+    __syncthreads();               // the last tile's K, V and dS~ are read
+    load256(Ks, kb, k0, skv);
+    load256(Vs, vb, k0, skv);
+    __syncthreads();
+    float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int d = 0; d < D256; ++d) {
+      const float kd = Ks[lane * LD256 + d], vd = Vs[lane * LD256 + d];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        s[r] = fmaf(Qs[(warp * 4 + r) * LD256 + d], kd, s[r]);
+        dp[r] = fmaf(Os[(warp * 4 + r) * LD256 + d], vd, dp[r]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = warp * 4 + r, query = q0 + row;
+      const float x = query < sq && kept(k0 + lane, query, skv, causal,
+                                         window, prefix)
+                          ? s[r] * scale : -INFINITY;
+      const float m_new = fmaxf(m[r], wmax(x));
+      const float mu = m_new == -INFINITY ? 0.f : m_new;
+      const float alpha = expf(m[r] - mu);
+      const float pr = expf(x - mu);
+      l[r] = l[r] * alpha + wsum(pr);
+      m[r] = m_new;
+      Ps[row * PT256 + lane] = pr * (dp[r] - dsum[r]);
+      if (lane == 0) al[row] = alpha;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < R256; ++i) acc[i] *= al[i];
+    for (int j = 0; j < R256; ++j) {
+      const float kd = Ks[j * LD256 + tid];
+#pragma unroll
+      for (int i = 0; i < R256; ++i) acc[i] = fmaf(Ps[i * PT256 + j], kd, acc[i]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int row = warp * 4 + r, i = q0 + row;
+    if (lane == 0) {
+      ls[row] = l[r];
+      if (i < sq) {
+        lse_out[(long long)bh * sq + i] = m[r] + logf(l[r]);
+        dsum_out[(long long)bh * sq + i] = dsum[r];
+      }
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < R256; ++r) {
+    const int i = q0 + r;
+    if (i < sq)
+      dq[qoff + (long long)i * D256 + tid] =
+          from_f<T>(acc[r] * (scale / fmaxf(ls[r], 1e-30f)));
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(T256, 1)
+fa_bwd256_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ dout,
+                      const float* __restrict__ lse_in,
+                      const float* __restrict__ dsum_in,
+                      float* __restrict__ dk_part, float* __restrict__ dv_part,
+                      int nbh, int group, int sq, int skv, int causal,
+                      int window, int prefix, float scale) {
+  extern __shared__ float sm256[];
+  float* const Ks = sm256;
+  float* const Vs = Ks + R256 * LD256;
+  float* const Qs = Vs + R256 * LD256;
+  float* const Os = Qs + R256 * LD256;     // dO
+  float* const Pt = Os + R256 * LD256;     // P^T, (32, 33)
+  float* const Dt = Pt + R256 * PT256;     // dS^T
+  float* const lq = Dt + R256 * PT256;     // the tile's lse and D
+  float* const dd = lq + R256;
+
+  // key blocks in order, q heads innermost: head bh reads kv head bh /
+  // group
+  const int bh = blockIdx.x % nbh;
+  const int k0 = blockIdx.x / nbh * R256;
+  const long long koff = (long long)(bh / group) * skv * D256;
+  const long long qoff = (long long)bh * sq * D256;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  load256(Ks, k + koff, k0, skv);
+  load256(Vs, v + koff, k0, skv);
+  const int klast = min(skv, k0 + R256) - 1;
+  const int qbeg = causal && k0 >= prefix ? k0 / R256 * R256 : 0;
+  const int qend = causal && window > 0 ? min(sq, klast + window) : sq;
+
+  float dka[R256], dva[R256];
+#pragma unroll
+  for (int j = 0; j < R256; ++j) dka[j] = dva[j] = 0.f;
+
+  for (int q0 = qbeg; q0 < qend; q0 += R256) {
+    __syncthreads();               // the last tile's Q, dO, P^T, dS^T read
+    load256(Qs, q + qoff, q0, sq);
+    load256(Os, dout + qoff, q0, sq);
+    if (tid < R256) {
+      const bool ok = q0 + tid < sq;
+      lq[tid] = ok ? lse_in[(long long)bh * sq + q0 + tid] : 0.f;
+      dd[tid] = ok ? dsum_in[(long long)bh * sq + q0 + tid] : 0.f;
+    }
+    __syncthreads();
+    float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int d = 0; d < D256; ++d) {
+      const float qd = Qs[lane * LD256 + d], od = Os[lane * LD256 + d];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        s[r] = fmaf(Ks[(warp * 4 + r) * LD256 + d], qd, s[r]);
+        dp[r] = fmaf(Vs[(warp * 4 + r) * LD256 + d], od, dp[r]);
+      }
+    }
+    const int query = q0 + lane;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = warp * 4 + r;
+      const float pr = query < sq && kept(k0 + row, query, skv, causal,
+                                          window, prefix)
+                           ? expf(s[r] * scale - lq[lane]) : 0.f;
+      Pt[row * PT256 + lane] = pr;
+      Dt[row * PT256 + lane] = pr * (dp[r] - dd[lane]);
+    }
+    __syncthreads();
+    for (int i = 0; i < R256; ++i) {
+      const float qd = Qs[i * LD256 + tid], od = Os[i * LD256 + tid];
+#pragma unroll
+      for (int j = 0; j < R256; ++j) {
+        dva[j] = fmaf(Pt[j * PT256 + i], od, dva[j]);
+        dka[j] = fmaf(Dt[j * PT256 + i], qd, dka[j]);
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < R256; ++j) {
+    if (k0 + j < skv) {
+      const long long at = ((long long)bh * skv + k0 + j) * D256 + tid;
+      dk_part[at] = dka[j] * scale;
+      dv_part[at] = dva[j];
+    }
+  }
+}
+
+// dk, dv (BH / group, Skv, 256) = each kv head's group of the per-head
+// scratch summed in head order
+template <typename T>
+__global__ void __launch_bounds__(256)
+fa_bwd256_sum_kernel(const float* __restrict__ dk_part,
+                     const float* __restrict__ dv_part, T* __restrict__ dk,
+                     T* __restrict__ dv, int group, long long per_head,
+                     long long total) {
+  const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (i >= total) return;
+  const long long kvh = i / per_head, r = i - kvh * per_head;
+  float sk = 0.f, sv = 0.f;
+  for (int g = 0; g < group; ++g) {
+    const long long at = (kvh * group + g) * per_head + r;
+    sk += dk_part[at];
+    sv += dv_part[at];
+  }
+  dk[i] = from_f<T>(sk);
+  dv[i] = from_f<T>(sv);
+}
+
+template <typename T>
+int run256(const T* q, const T* k, const T* v, const T* o, const T* dout,
+           T* dq, T* dk, T* dv, float* lse, float* dsum, float* part,
+           int bh, int group, int sq, int skv, int causal, int window,
+           int prefix, float scale, cudaStream_t stream) {
+  if (part == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int DQ_BYTES = (4 * R256 * LD256 + R256 * PT256 + 2 * R256) * 4;
+  constexpr int DKDV_BYTES = (4 * R256 * LD256 + 2 * R256 * PT256 +
+                              2 * R256) * 4;
+  auto dq_kernel = fa_bwd256_dq_kernel<T>;
+  auto dkdv_kernel = fa_bwd256_dkdv_kernel<T>;
+  static const int err_q = ftile::allow_smem(dq_kernel, DQ_BYTES);
+  static const int err_k = ftile::allow_smem(dkdv_kernel, DKDV_BYTES);
+  if (err_q) return err_q;
+  if (err_k) return err_k;
+  const int nqb = (sq + R256 - 1) / R256;
+  dq_kernel<<<nqb * bh, T256, DQ_BYTES, stream>>>(
+      q, k, v, o, dout, dq, lse, dsum, bh, nqb, group, sq, skv, causal,
+      window, prefix, scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int nkb = (skv + R256 - 1) / R256;
+  const long long per_part = (long long)bh * skv * D256;
+  dkdv_kernel<<<nkb * bh, T256, DKDV_BYTES, stream>>>(
+      q, k, v, dout, lse, dsum, part, part + per_part, bh, group, sq, skv,
+      causal, window, prefix, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long total = per_part / group;
+  fa_bwd256_sum_kernel<T><<<static_cast<int>((total + 255) / 256), 256, 0,
+                            stream>>>(part, part + per_part, dk, dv, group,
+                                      (long long)skv * D256, total);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, void* dq, void* dk, void* dv, void* lse,
-           void* dsum, int bh, int group, int sq, int skv, int dh,
-           int causal, int window, float scale, void* stream) {
+           void* dsum, void* part, int bh, int group, int sq, int skv, int dh,
+           int causal, int window, int prefix, float scale, void* stream) {
   if (bh < 1 || group < 1 || bh % group || sq < 1 || skv < 1 ||
-      (causal && sq != skv) || window < 0 || (window && !causal))
+      (causal && sq != skv) || window < 0 || (window && !causal) ||
+      prefix < 0 || (prefix && (!causal || window)))
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* tq = static_cast<const T*>(q);
   const auto* tk = static_cast<const T*>(k);
@@ -788,10 +1123,11 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   auto* fd = static_cast<float*>(dsum);
   auto st = static_cast<cudaStream_t>(stream);
   switch (dh) {
-    case 16: return run<T, 16>(tq, tk, tv, to, td, gq, gk, gv, fl, fd, bh, group, sq, skv, causal, window, scale, st);
-    case 32: return run<T, 32>(tq, tk, tv, to, td, gq, gk, gv, fl, fd, bh, group, sq, skv, causal, window, scale, st);
-    case 64: return run<T, 64>(tq, tk, tv, to, td, gq, gk, gv, fl, fd, bh, group, sq, skv, causal, window, scale, st);
-    case 128: return run<T, 128>(tq, tk, tv, to, td, gq, gk, gv, fl, fd, bh, group, sq, skv, causal, window, scale, st);
+    case 16: return run<T, 16>(tq, tk, tv, to, td, gq, gk, gv, fl, fd, bh, group, sq, skv, causal, window, prefix, scale, st);
+    case 32: return run<T, 32>(tq, tk, tv, to, td, gq, gk, gv, fl, fd, bh, group, sq, skv, causal, window, prefix, scale, st);
+    case 64: return run<T, 64>(tq, tk, tv, to, td, gq, gk, gv, fl, fd, bh, group, sq, skv, causal, window, prefix, scale, st);
+    case 128: return run<T, 128>(tq, tk, tv, to, td, gq, gk, gv, fl, fd, bh, group, sq, skv, causal, window, prefix, scale, st);
+    case 256: return run256<T>(tq, tk, tv, to, td, gq, gk, gv, fl, fd, static_cast<float*>(part), bh, group, sq, skv, causal, window, prefix, scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -801,21 +1137,22 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 extern "C" int flash_attn_bwd_f32(const void* q, const void* k, const void* v,
                                   const void* o, const void* dout, void* dq,
                                   void* dk, void* dv, void* lse, void* dsum,
-                                  int bh, int group, int sq, int skv, int dh,
-                                  int causal, int window, float scale,
-                                  void* stream) {
-  return launch<float>(q, k, v, o, dout, dq, dk, dv, lse, dsum, bh, group, sq,
-                       skv, dh, causal, window, scale, stream);
+                                  void* part, int bh, int group, int sq,
+                                  int skv, int dh, int causal, int window,
+                                  int prefix, float scale, void* stream) {
+  return launch<float>(q, k, v, o, dout, dq, dk, dv, lse, dsum, part, bh,
+                       group, sq, skv, dh, causal, window, prefix, scale,
+                       stream);
 }
 
 extern "C" int flash_attn_bwd_bf16(const void* q, const void* k,
                                    const void* v, const void* o,
                                    const void* dout, void* dq, void* dk,
-                                   void* dv, void* lse, void* dsum, int bh,
-                                   int group, int sq, int skv, int dh,
-                                   int causal, int window, float scale,
-                                   void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, o, dout, dq, dk, dv, lse, dsum, bh,
-                               group, sq, skv, dh, causal, window, scale,
-                               stream);
+                                   void* dv, void* lse, void* dsum,
+                                   void* part, int bh, int group, int sq,
+                                   int skv, int dh, int causal, int window,
+                                   int prefix, float scale, void* stream) {
+  return launch<__nv_bfloat16>(q, k, v, o, dout, dq, dk, dv, lse, dsum, part,
+                               bh, group, sq, skv, dh, causal, window, prefix,
+                               scale, stream);
 }

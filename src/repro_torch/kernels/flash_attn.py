@@ -12,14 +12,17 @@ bound on the card: bytes in bfloat16, operations in float32.
 
 Gradients: when grad mode is on and q, k or v requires grad, the call
 goes through a `torch.autograd.Function` whose forward is the kernel and
-whose backward is the backward kernel in csrc/flash_attn_bwd.cu
-(FlashAttention-2's backward on the tensor cores, `wgmma` like the
-forward, in two launches: dq with each row's lse and D, then dk and dv;
-Dh up to 128); on CPU tensors the same Function takes the plain versions
+whose backward is the backward kernel in csrc/flash_attn_bwd.cu, in two
+launches: dq with each row's lse and D, then dk and dv. At Dh up to 128
+it is FlashAttention-2's backward on the tensor cores (`wgmma` like the
+forward); at Dh 256 it is a pair of CUDA-core kernels whose float32 sums
+fit the registers (see the source). Every mask of the forward has its
+backward: bidir (Sq and Skv may differ), causal, local (a window) and
+prefix. On CPU tensors the same Function takes the plain versions
 `ref.flash_attn` and `ref.flash_attn_bwd`. `bwd_work` counts what the
-backward must do: operations in either type, its bound on the card. The
-prefix mask has no backward kernel yet: a prefix call under grad raises
-(ROADMAP Queue 2), it never detaches.
+backward must do: operations in either type, its bound on the card.
+Only causal attention with Sq != Skv, which the forward refuses too, has
+no backward.
 
 Dispatch: a CUDA tensor launches the kernel (or raises); a CPU tensor
 takes the plain version `kernels.ref.flash_attn`.
@@ -45,7 +48,7 @@ _FN = {torch.float32: "flash_attn_f32", torch.bfloat16: "flash_attn_bf16"}
 _BWD_FN = {torch.float32: "flash_attn_bwd_f32",
            torch.bfloat16: "flash_attn_bwd_bf16"}
 HEAD_DIMS = (16, 32, 64, 128, 256)
-BWD_HEAD_DIMS = (16, 32, 64, 128)
+BWD_HEAD_DIMS = (16, 32, 64, 128, 256)
 
 
 _fns: dict = {}
@@ -93,14 +96,14 @@ def work(q_shape, kv_heads: int, dtype: torch.dtype, causal: bool,
 
 
 def bwd_work(q_shape, kv_heads: int, dtype: torch.dtype, causal: bool,
-             window: int = 0) -> tuple[float, float]:
+             window: int = 0, prefix_len: int = 0) -> tuple[float, float]:
     """(operations, bytes) of one backward call on q (BH, S, Dh): five
     products of Dh multiply-adds over each kept pair (S, dP, dq, dk,
     dv), and q, k, v, o, do read and dq, dk, dv written once each at the
     dtype's element size."""
     bh, s, dh = q_shape
     e = torch.empty((), dtype=dtype).element_size()
-    ops = 10.0 * bh * kept_pairs(s, s, causal, window) * dh
+    ops = 10.0 * bh * kept_pairs(s, s, causal, window, prefix_len) * dh
     return ops, float((4 * bh * s + 4 * kv_heads * s) * dh * e)
 
 
@@ -164,35 +167,32 @@ def _bwd_fn(dtype: torch.dtype):
     f = _bwd_fns.get(dtype)
     if f is None:
         f = getattr(build.lib("flash_attn_bwd"), _BWD_FN[dtype])
-        f.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 \
+        f.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 \
             + [ctypes.c_float, ctypes.c_void_p]
         f.restype = ctypes.c_int
         _bwd_fns[dtype] = f
     return f
 
 
-def check_bwd(q, k, causal: bool, prefix_len: int = 0) -> None:
+def check_bwd(q, k, causal: bool) -> None:
     """Refuse what the backward kernel does not take (it never hands back
-    a plain gradient instead)."""
-    if prefix_len:
-        raise ValueError(
-            "flash_attn backward kernel: the prefix mask has no backward "
-            "kernel yet (ROADMAP Queue 2, item 3); the prefix forward "
-            "runs only without grad")
+    a plain gradient instead): causal attention with Sq != Skv, which
+    the forward refuses too."""
     if q.shape[2] not in BWD_HEAD_DIMS or (causal
                                            and q.shape[1] != k.shape[1]):
         raise ValueError(
             f"flash_attn backward kernel: head dim {q.shape[2]} (takes "
             f"{BWD_HEAD_DIMS}) or causal Sq {q.shape[1]} != Skv "
-            f"{k.shape[1]} has no backward kernel yet (ROADMAP Queue 2)")
+            f"{k.shape[1]}")
 
 
-def launch_bwd(q, k, v, o, do, causal: bool, window: int = 0):
+def launch_bwd(q, k, v, o, do, causal: bool, window: int = 0,
+               prefix_len: int = 0):
     """Run the backward kernel on CUDA tensors: (dq, dk, dv) for q
     (BH, Sq, Dh), k/v (BH / group, Skv, Dh), the forward's o and its
     gradient do; dk and dv sum over each kv head's group."""
     group = check_attention_operands("flash_attn backward", q, k, v)
-    check_window(causal, window)
+    check_window(causal, window, prefix_len)
     check_bwd(q, k, causal)
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype:
         raise ValueError(f"flash_attn backward kernel: o {tuple(o.shape)} "
@@ -212,16 +212,23 @@ def launch_bwd(q, k, v, o, do, causal: bool, window: int = 0):
     # kernel to the dk/dv kernel
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
     dsum = torch.empty_like(lse)
+    # Dh 256: each q head's dk and dv in float32, summed over the group by
+    # the third launch
+    part = torch.empty((2, bh, k.shape[1], dh), dtype=torch.float32,
+                       device=q.device) if dh == 256 else None
     err = _bwd_fn(q.dtype)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                            o.data_ptr(), do.data_ptr(), dq.data_ptr(),
                            dk.data_ptr(), dv.data_ptr(), lse.data_ptr(),
-                           dsum.data_ptr(), bh, group, sq, k.shape[1], dh,
-                           int(causal), window, dh ** -0.5,
+                           dsum.data_ptr(),
+                           None if part is None else part.data_ptr(),
+                           bh, group, sq, k.shape[1], dh,
+                           int(causal), window, prefix_len, dh ** -0.5,
                            torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attn backward kernel launch failed: CUDA "
                            f"error {err}")
-    _bwd_stats["kernel"] += 2           # the dq kernel, then the dk/dv one
+    # the dq kernel, then the dk/dv one (and at Dh 256 the group sum)
+    _bwd_stats["kernel"] += 3 if dh == 256 else 2
     return dq, dk, dv
 
 
@@ -229,14 +236,16 @@ class FlashAttn(torch.autograd.Function):
     """The kernel with its backward kernel (plain versions on the CPU)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, window: int):
+    def forward(ctx, q, k, v, causal: bool, window: int,
+                prefix_len: int = 0):
         if q.device.type == "cpu":
             _stats["ref"] += 1
-            o = ref.flash_attn(q, k, v, causal=causal, window=window)
+            o = ref.flash_attn(q, k, v, causal=causal, window=window,
+                               prefix_len=prefix_len)
         else:
-            o = launch(q, k, v, causal, window)
+            o = launch(q, k, v, causal, window, prefix_len)
         ctx.save_for_backward(q, k, v, o)
-        ctx.causal, ctx.window = causal, window
+        ctx.causal, ctx.window, ctx.prefix_len = causal, window, prefix_len
         return o
 
     @staticmethod
@@ -245,10 +254,12 @@ class FlashAttn(torch.autograd.Function):
         if q.device.type == "cpu":
             _bwd_stats["ref"] += 1
             grads = ref.flash_attn_bwd(q, k, v, o, do, causal=ctx.causal,
-                                       window=ctx.window)
+                                       window=ctx.window,
+                                       prefix_len=ctx.prefix_len)
         else:
-            grads = launch_bwd(q, k, v, o, do, ctx.causal, ctx.window)
-        return (*grads, None, None)
+            grads = launch_bwd(q, k, v, o, do, ctx.causal, ctx.window,
+                               ctx.prefix_len)
+        return (*grads, None, None, None)
 
 
 def flash_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -257,12 +268,11 @@ def flash_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """softmax(q k^T / sqrt(Dh)) v per head; `causal` masks key j > query
     i and needs Sq == Skv; a `window` w > 0 also masks j <= i - w; a
     `prefix_len` P > 0 keeps j < P (no window). Differentiable through the
-    backward kernel (`FlashAttn`), except with a prefix, which raises
-    under grad."""
+    backward kernel (`FlashAttn`)."""
     check_window(causal, window, prefix_len)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        check_bwd(q, k, causal, prefix_len)
-        return FlashAttn.apply(q, k, v, causal, window)
+        check_bwd(q, k, causal)
+        return FlashAttn.apply(q, k, v, causal, window, prefix_len)
     if q.device.type == "cpu":
         _stats["ref"] += 1
         return ref.flash_attn(q, k, v, causal=causal, window=window,

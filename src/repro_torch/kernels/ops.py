@@ -9,8 +9,9 @@ The launch counters (`smm_stats` for secure_matmul, `rmm_stats` for
 ring_matmul, `fa_stats` for flash_attn, `eh_stats` for entropy_head,
 `msa_stats` for mlp_softmax_attn, `ssd_stats` for ssd, `lru_stats` for
 rg_lru) count kernel launches under "kernel"
-and plain-version calls under "ref"; `fa_bwd_stats` and `msa_bwd_stats`
-count the two backward kernels the same way. The executor snapshots the ring
+and plain-version calls under "ref"; `fa_bwd_stats`, `msa_bwd_stats`,
+`ssd_bwd_stats` and `lru_bwd_stats` count the backward kernels the same
+way. The executor snapshots the ring
 counters around a phase (`DeviceReport.combine_*` / `matmul_*`); a run
 on the card reads them all to show that its work went through the
 kernels.
@@ -118,3 +119,21 @@ def msa_bwd_stats() -> dict:
 
 def reset_msa_bwd_stats() -> None:
     _msa.reset_bwd_stats()
+
+
+def ssd_bwd_stats() -> dict:
+    """Snapshot of the ssd backward counters (kernel / ref)."""
+    return _ssd.bwd_stats()
+
+
+def reset_ssd_bwd_stats() -> None:
+    _ssd.reset_bwd_stats()
+
+
+def lru_bwd_stats() -> dict:
+    """Snapshot of the rg_lru backward counters (kernel / ref)."""
+    return _lru.bwd_stats()
+
+
+def reset_lru_bwd_stats() -> None:
+    _lru.reset_bwd_stats()

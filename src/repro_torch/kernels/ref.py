@@ -13,12 +13,14 @@ materialized (S x S) scores. They take the kernels' grouped layout —
 q (BH, Sq, Dh) against k/v (BH / group, Skv, Dh) — and return q's dtype
 (`entropy_head`: float32), as the kernels do.
 
-Backward (allclose): `flash_attn_bwd` and `mlp_softmax_attn_bwd` are the
-plain versions of the two backward kernels, in their own math — the
-probabilities recomputed from the row log-sum-exp (flash_attn), the
-gradient through A = K^T W1 * scale and U = W2 V (mlp_softmax_attn) —
-held against autograd of the forwards above. k and v's gradients sum
-over each kv head's group.
+Backward (allclose): `flash_attn_bwd`, `mlp_softmax_attn_bwd`,
+`ssd_bwd` and `rg_lru_bwd` are the plain versions of the backward
+kernels, in their own math — the probabilities recomputed from the row
+log-sum-exp (flash_attn), the gradient through A = K^T W1 * scale and
+U = W2 V (mlp_softmax_attn), the reverse recurrences of the scans step
+by step (ssd, rg_lru) — held against autograd of the forwards here. k
+and v's gradients sum over each kv head's group; ssd's b and c
+gradients over the heads.
 
 Scans (allclose): `ssd` and `rg_lru` mirror repro/kernels/ref.py:46-84,
 step by step in float32. `ssd` also returns the final state, which the
@@ -102,10 +104,12 @@ def _group_sum(x: torch.Tensor, group: int) -> torch.Tensor:
     return x.reshape((x.shape[0] // group, group) + tuple(x.shape[1:])).sum(1)
 
 
-def flash_attn_bwd(q, k, v, o, do, *, causal: bool = True, window: int = 0):
+def flash_attn_bwd(q, k, v, o, do, *, causal: bool = True, window: int = 0,
+                   prefix_len: int = 0):
     """(dq, dk, dv) of `flash_attn` given the output o and its gradient
     do: P = exp(S - lse), D = rowsum(do * o), dv = P^T do,
-    dS = P * (do v^T - D), dq = dS k * scale, dk = dS^T q * scale."""
+    dS = P * (do v^T - D), dq = dS k * scale, dk = dS^T q * scale; the
+    masks are the forward's."""
     group, scale = q.shape[0] // k.shape[0], q.shape[-1] ** -0.5
     qf, dof = _up(q), _up(do)
     kf, vf = _kv_for(q, k), _kv_for(q, v)
@@ -115,6 +119,7 @@ def flash_attn_bwd(q, k, v, o, do, *, causal: bool = True, window: int = 0):
         mask = torch.ones((sq, sk), dtype=torch.bool, device=s.device).tril()
         if window:
             mask = mask.triu(1 - window)
+        mask[:, :prefix_len] = True
         s = s.masked_fill(~mask, float("-inf"))
     p = torch.exp(s - torch.logsumexp(s, dim=-1, keepdim=True))
     d = (dof * _up(o)).sum(-1, keepdim=True)
@@ -191,6 +196,39 @@ def ssd(x, a, b, c, state0=None):
     return torch.stack(ys, dim=1), state
 
 
+def ssd_bwd(x, a, b, c, dy, dstate=None, state0=None):
+    """(dx, da, db, dc, dstate0) of `ssd` given dy (B, T, H, P) and the
+    final state's gradient `dstate` (B, H, P, N) or None, step by step
+    in float32: with h_t = e^{a_t} h_{t-1} + x_t b_t^T, y_t = h_t c_t and
+    dh_t = dy_t c_t^T + e^{a_{t+1}} dh_{t+1} (dh_{T+1} term: dstate),
+    dx_t = dh_t b_t, db_t = sum_heads dh_t^T x_t, dc_t = sum_heads
+    h_t^T dy_t, da_t = <dh_t, e^{a_t} h_{t-1}>, and dstate0 = e^{a_1}
+    dh_1 (None without state0). dx, db and dc come back in x's, b's and
+    c's dtype, da and dstate0 in float32."""
+    bs, t, h, p = x.shape
+    n = b.shape[-1]
+    xf, af, bf, cf, dyf = x.float(), a.float(), b.float(), c.float(), \
+        dy.float()
+    hs = [torch.zeros((bs, h, p, n), dtype=torch.float32, device=x.device)
+          if state0 is None else state0.float()]
+    for i in range(t):
+        hs.append(hs[-1] * torch.exp(af[:, i])[..., None, None]
+                  + torch.einsum("bn,bhp->bhpn", bf[:, i], xf[:, i]))
+    g = (torch.zeros_like(hs[0]) if dstate is None else dstate.float())
+    dx, da, db, dc = (torch.empty_like(xf), torch.empty_like(af),
+                      torch.empty_like(bf), torch.empty_like(cf))
+    for i in reversed(range(t)):
+        dh = g + torch.einsum("bhp,bn->bhpn", dyf[:, i], cf[:, i])
+        dx[:, i] = torch.einsum("bhpn,bn->bhp", dh, bf[:, i])
+        db[:, i] = torch.einsum("bhpn,bhp->bn", dh, xf[:, i])
+        dc[:, i] = torch.einsum("bhpn,bhp->bn", hs[i + 1], dyf[:, i])
+        decay = torch.exp(af[:, i])[..., None, None]
+        da[:, i] = (dh * decay * hs[i]).sum((-1, -2))
+        g = dh * decay
+    return (dx.to(x.dtype), da, db.to(b.dtype), dc.to(c.dtype),
+            None if state0 is None else g)
+
+
 def segsum(a):
     """a: (..., Q) log decays -> (..., Q, Q) lower-triangular pairwise sums
     L[i, j] = sum_{j+1..i} a, -inf above the diagonal."""
@@ -249,3 +287,19 @@ def rg_lru(a, bterm, h0=None):
         h = af[:, i] * h + bf[:, i]
         hs.append(h)
     return torch.stack(hs, dim=1)
+
+
+def rg_lru_bwd(a, h, dh):
+    """(da, db) of `rg_lru` from h_0 = 0, given a, the forward's trace h
+    and its gradient dh (B, T, D), in float32: from g_{T+1} = 0,
+    g_t = dh_t + a_{t+1} g_{t+1}, db_t = g_t, da_t = g_t h_{t-1}
+    (h_0 = 0)."""
+    af, hf, dhf = a.float(), h.float(), dh.float()
+    t = a.shape[1]
+    da, db = torch.empty_like(af), torch.empty_like(af)
+    g = torch.zeros_like(af[:, 0])
+    for i in reversed(range(t)):
+        g = dhf[:, i] + af[:, i + 1] * g if i + 1 < t else dhf[:, i]
+        db[:, i] = g
+        da[:, i] = g * hf[:, i - 1] if i else torch.zeros_like(g)
+    return da, db

@@ -10,6 +10,14 @@ accumulation, and the state stays float32. Chunks of up to 128 steps; T
 need not divide by the chunk. `work` counts what a call must do, for its
 bound on the card: bytes in bfloat16 (see the source).
 
+Gradients: when grad mode is on and an operand requires grad, the call
+goes through `SsdScan`, a `torch.autograd.Function` whose forward is the
+kernel and whose backward is the kernel in csrc/ssd_bwd.cu: dx, da, db,
+dc and, when an initial state was given, its gradient, from dy and the
+final state's gradient (when the final state is used). On CPU tensors
+the same Function takes the plain versions `ref.ssd_chunked` and
+`ref.ssd_bwd`. `bwd_work` counts what the backward must do.
+
 Dispatch: a CUDA tensor launches the kernel (or raises); a CPU tensor
 takes the plain chunked scan `kernels.ref.ssd_chunked`.
 """
@@ -19,14 +27,18 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build, refuse_grad
+from repro_torch.kernels import build
 from repro_torch.kernels import ref
 
 # launches of the kernel ("kernel") and calls of the plain version on CPU
 # tensors ("ref") — the witness that a run went through the kernel
 _stats = {"kernel": 0, "ref": 0}
+# the same for the backward kernel (a call launches two: the per-head
+# pass, then the sum of b's and c's gradients over the heads)
+_bwd_stats = {"kernel": 0, "ref": 0}
 
 _FN = {torch.float32: "ssd_f32", torch.bfloat16: "ssd_bf16"}
+_BWD_FN = {torch.float32: "ssd_bwd_f32", torch.bfloat16: "ssd_bwd_bf16"}
 MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE = 128, 64, 128
 
 
@@ -58,7 +70,6 @@ def _fn(dtype: torch.dtype):
 
 def launch(x, a, b, c, chunk: int = MAX_CHUNK, state0=None):
     """Run the kernel on CUDA tensors; returns (y, final state)."""
-    refuse_grad("ssd", x, a, b, c, state0)
     ops = (x, a, b, c) + (() if state0 is None else (state0,))
     if not all(t.is_cuda and t.device == x.device for t in ops):
         raise ValueError("ssd kernel: operands must share one CUDA device")
@@ -97,9 +108,147 @@ def launch(x, a, b, c, chunk: int = MAX_CHUNK, state0=None):
     return y, s_out
 
 
+BWD_CHUNK = 64           # steps a chunk of the backward (csrc/ssd_bwd.cu)
+
+
+def bwd_work(bsz: int, t: int, h: int, p: int, n: int,
+             dtype: torch.dtype) -> tuple[float, float]:
+    """(operations, bytes) of one backward call: per chunk of q <=
+    BWD_CHUNK steps of each (batch, head), the forward's state update
+    recomputed (q P N), the causal triangles of C B^T and dY X^T (q (q +
+    1) / 2 (N + P)), dX (q (q + 1) / 2 P + q N P), dB and dC (q (q + 1)
+    / 2 N + q P N each) and the carried state gradient (q P N), at two
+    operations a multiply-add; x, dy (and dx) at the element size, a
+    and da float32, b, c (and db, dc) at the element size, each read or
+    written once; no initial or final state."""
+    e = dtype.itemsize
+    macs = 0
+    for t0 in range(0, t, BWD_CHUNK):
+        q = min(BWD_CHUNK, t - t0)
+        tri = q * (q + 1) // 2
+        macs += q * p * n + tri * (n + p) + tri * p + q * n * p \
+            + 2 * (tri * n + q * p * n) + q * p * n
+    nbytes = 3 * bsz * t * h * p * e + 2 * bsz * t * h * 4 \
+        + 4 * bsz * t * n * e
+    return 2.0 * bsz * h * macs, float(nbytes)
+
+
+_bwd_fns: dict = {}
+
+
+def _bwd_fn(dtype: torch.dtype):
+    f = _bwd_fns.get(dtype)
+    if f is None:
+        f = getattr(build.lib("ssd_bwd"), _BWD_FN[dtype])
+        f.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5 \
+            + [ctypes.c_void_p]
+        f.restype = ctypes.c_int
+        _bwd_fns[dtype] = f
+    return f
+
+
+def launch_bwd(x, a, b, c, dy, dstate=None, state0=None):
+    """Run the backward kernel on CUDA tensors: (dx, da, db, dc,
+    dstate0) for the forward's operands, dy (B, T, H, P) in x's dtype
+    and the final state's gradient (B, H, P, N) float32 or None;
+    dstate0 is None without state0."""
+    ops = (x, a, b, c, dy) + tuple(s for s in (dstate, state0)
+                                   if s is not None)
+    if not all(t.is_cuda and t.device == x.device for t in ops):
+        raise ValueError("ssd backward kernel: operands must share one CUDA "
+                         "device")
+    if x.dtype not in _FN or any(t.dtype != x.dtype for t in (b, c, dy)) \
+            or a.dtype != torch.float32 or any(
+                s is not None and s.dtype != torch.float32
+                for s in (dstate, state0)):
+        raise TypeError(f"ssd backward kernel takes float32 or bfloat16 "
+                        f"x/b/c/dy of one dtype and float32 a and states, "
+                        f"got {x.dtype}, {a.dtype}, {b.dtype}, {c.dtype}, "
+                        f"{dy.dtype}")
+    bsz, t, h, p = x.shape if x.dim() == 4 else (0,) * 4
+    n = b.shape[-1] if b.dim() == 3 else 0
+    st = (bsz, h, p, n)
+    if (x.dim() != 4 or a.shape != (bsz, t, h) or b.shape != (bsz, t, n)
+            or c.shape != b.shape or dy.shape != x.shape
+            or not 1 <= p <= MAX_HEAD_DIM or not 1 <= n <= MAX_STATE
+            or any(s is not None and s.shape != st
+                   for s in (dstate, state0))):
+        raise ValueError(
+            f"ssd backward kernel: bad shapes x {tuple(x.shape)}, a "
+            f"{tuple(a.shape)}, b {tuple(b.shape)}, c {tuple(c.shape)}, dy "
+            f"{tuple(dy.shape)} (head dim <= {MAX_HEAD_DIM}, state <= "
+            f"{MAX_STATE})")
+    # inputs made contiguous before any output is allocated
+    x, a, b, c, dy = (v.contiguous() for v in (x, a, b, c, dy))
+    ds = None if dstate is None else dstate.contiguous()
+    s0 = None if state0 is None else state0.contiguous()
+    dx, db, dc = torch.empty_like(x), torch.empty_like(b), \
+        torch.empty_like(c)
+    da = torch.empty_like(a)
+    ds0 = None if s0 is None else torch.empty_like(s0)
+    if bsz * t * h == 0:
+        for v in (dx, da, db, dc) + (() if ds0 is None else (ds0,)):
+            v.zero_()
+        if ds0 is not None and ds is not None:
+            ds0.copy_(ds)              # no step: the state passes through
+        return dx, da, db, dc, ds0
+    nc = -(-t // BWD_CHUNK)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    # scratch: each chunk's entry state, and b's and c's gradients per
+    # head before the sum over the heads
+    states = torch.empty((bsz, h, nc, p, n), **f32)
+    dbh = torch.empty((bsz, h, t, n), **f32)
+    dch = torch.empty_like(dbh)
+
+    def ptr(v):
+        return None if v is None else v.data_ptr()
+    err = _bwd_fn(x.dtype)(
+        x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
+        dy.data_ptr(), ptr(ds), ptr(s0), dx.data_ptr(), da.data_ptr(),
+        db.data_ptr(), dc.data_ptr(), ptr(ds0), states.data_ptr(),
+        dbh.data_ptr(), dch.data_ptr(), bsz, h, t, p, n,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ssd backward kernel launch failed: CUDA error "
+                           f"{err}")
+    _bwd_stats["kernel"] += 2       # the per-head pass, then the head sum
+    return dx, da, db, dc, ds0
+
+
+class SsdScan(torch.autograd.Function):
+    """The kernel with its backward kernel (plain versions on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, x, a, b, c, state0, chunk: int):
+        if x.device.type == "cpu":
+            _stats["ref"] += 1
+            y, s = ref.ssd_chunked(x, a, b, c, chunk, state0)
+        else:
+            y, s = launch(x, a, b, c, chunk, state0)
+        ctx.save_for_backward(x, a, b, c, state0)
+        ctx.set_materialize_grads(False)
+        return y, s
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        x, a, b, c, state0 = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        if x.device.type == "cpu":
+            _bwd_stats["ref"] += 1
+            dx, da, db, dc, ds0 = ref.ssd_bwd(x, a, b, c, dy, dstate, state0)
+        else:
+            dx, da, db, dc, ds0 = launch_bwd(x, a, b, c, dy, dstate, state0)
+        return dx, da.to(a.dtype), db, dc, ds0, None
+
+
 def ssd_chunked(x, a, b, c, *, chunk: int = MAX_CHUNK, state0=None):
     """Chunked SSD: y (B, T, H, P) in x's dtype and the final state
-    (B, H, P, N) float32."""
+    (B, H, P, N) float32. Differentiable through the backward kernel
+    (`SsdScan`)."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, a, b, c, state0)):
+        return SsdScan.apply(x, a, b, c, state0, chunk)
     if x.device.type == "cpu":
         _stats["ref"] += 1
         return ref.ssd_chunked(x, a, b, c, chunk, state0)
@@ -113,3 +262,12 @@ def stats() -> dict:
 def reset_stats() -> None:
     for k in _stats:
         _stats[k] = 0
+
+
+def bwd_stats() -> dict:
+    return dict(_bwd_stats)
+
+
+def reset_bwd_stats() -> None:
+    for k in _bwd_stats:
+        _bwd_stats[k] = 0

@@ -1,2 +1,3 @@
-"""Launchers of the port: `serve.py`, the token server, and `select.py`,
-the SelectFormer workflow launcher."""
+"""Launchers of the port: `serve.py`, the token server, `select.py`, the
+SelectFormer workflow launcher, and `train.py`, the model zoo's training
+driver."""

@@ -14,8 +14,10 @@ RG-LRU recurrence (diagonal, gated):
 Prefill computes the gates in torch and the recurrence with
 `kernels.ops.rg_lru_scan`: the hand-written `rg_lru` kernel on a CUDA
 tensor, a plain serial scan on the CPU (the JAX package runs an
-associative scan, so the two agree to rounding, not bitwise). Decode is
-a single step in plain torch, as in JAX.
+associative scan, so the two agree to rounding, not bitwise). Under grad
+(training) the recurrence is the `RgLru` Function, whose backward is the
+`rg_lru` backward kernel on the card. Decode is a single step in plain
+torch, as in JAX.
 """
 from __future__ import annotations
 

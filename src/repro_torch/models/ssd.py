@@ -8,7 +8,8 @@ inter-chunk linear state recurrence); gated RMSNorm; out_proj.
 `ssd_scan` goes through `kernels.ops.ssd_chunked`: on a CUDA tensor the
 hand-written `ssd` kernel (which also writes the final state, so prefill
 needs no second pass), on the CPU the plain chunked scan, op for op the
-JAX function. Single-step decode (`ssd_step`) is plain torch, as in JAX,
+JAX function. Under grad (training) it is the `SsdScan` Function, whose
+backward is the `ssd` backward kernel on the card. Single-step decode (`ssd_step`) is plain torch, as in JAX,
 and carries (conv_state, ssm_state).
 """
 from __future__ import annotations

@@ -1,8 +1,8 @@
 """Model assembly — the port of repro/models/transformer.py's forward and
 serving path for the whole model zoo: decoder-only LM (dense), MoE,
 hybrid (RecurrentGemma), SSM (Mamba-2), enc-dec (Whisper) and VLM
-(PaliGemma): parameter init, forward_logits, init_cache, prefill and
-decode_step. `train_loss` is not ported yet (ROADMAP Queue 1).
+(PaliGemma): parameter init, forward_logits, train_loss, init_cache,
+prefill and decode_step.
 
 Layer parameters stay stacked on a leading L axis, as in the JAX
 package; `_scan_uniform` and `_scan_with_cache` are Python loops over
@@ -13,7 +13,12 @@ every attention without a cache (a forward, a prefill, an encoder,
 cross-attention to the encoder) runs on the `flash_attn` kernel, the
 SSD scan on `ssd` and the RG-LRU recurrence on `rg_lru`; decode steps
 are plain torch, as in JAX. The MoE FFN's expert products are plain
-einsums (`models/ffn.py`), as in JAX.
+einsums (`models/ffn.py`), as in JAX. Under grad (`train_loss`) the same
+kernels run through their autograd Functions, whose backwards are kernels
+too (flash_attn's at every head dim and mask, ssd's, rg_lru's). `remat`
+wraps each layer (each hybrid block pattern) in a non-reentrant
+`torch.utils.checkpoint`, as JAX's `jax.checkpoint`: the layer's
+activations are recomputed in the backward instead of kept.
 
 Departures from the JAX package, each tested (ROADMAP Queue 3): a
 hybrid prefill shorter than the window keeps a full ring of w slots
@@ -23,7 +28,8 @@ and `max_len` defaults to that filled length.
 
 Entry points:
   init_params(gen, cfg, device)                  parameters
-  forward_logits(params, cfg, batch)             teacher-forced logits
+  forward_logits(params, cfg, batch, remat)      teacher-forced logits
+  train_loss(params, cfg, batch, remat)          LM loss (+ MoE aux), aux
   init_cache(cfg, batch, max_len, device)        decode cache
   prefill(params, cfg, batch, max_len)           last logits + filled cache
   decode_step(params, cfg, cache, batch, pos)    one-token step
@@ -37,6 +43,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.tree import tree_leaves
@@ -310,12 +317,33 @@ def layer_slice(stacked, i):
     return stacked[i]
 
 
-def _scan_uniform(x, stacked, layer_fn):
+def unstacked(stacked) -> list:
+    """Every layer of a tree of stacked (L, ...) parameters, by one
+    `torch.unbind` a leaf: under grad its backward stacks the layers'
+    gradients in one op, where indexing each layer out would add L
+    full-size (L, ...) gradients."""
+    if isinstance(stacked, dict):
+        parts = {k: unstacked(v) for k, v in stacked.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return list(torch.unbind(stacked, 0))
+
+
+def _rematted(fn, remat: bool):
+    """fn itself, or fn under a non-reentrant activation checkpoint: its
+    forward keeps only its inputs, and the backward runs it again."""
+    if not remat:
+        return fn
+    return lambda *a: checkpoint(fn, *a, use_reentrant=False)
+
+
+def _scan_uniform(x, stacked, layer_fn, remat: bool = False):
     """Run a uniform stack in order; layer_fn(x, lp) -> (x, aux dict),
-    aux summed over the layers."""
+    aux summed over the layers; `remat` checkpoints each layer."""
     aux_acc: dict = {}
-    for i in range(tree_leaves(stacked)[0].shape[0]):
-        x, aux = layer_fn(x, layer_slice(stacked, i))
+    fn = _rematted(layer_fn, remat)
+    for lp in unstacked(stacked):
+        x, aux = fn(x, lp)
         for k, v in aux.items():
             aux_acc[k] = aux_acc.get(k, 0.0) + v
     return x, aux_acc
@@ -373,15 +401,15 @@ def _head(x, params, cfg: ArchConfig):
 # ===========================================================================
 
 def _run_stack(params, cfg: ArchConfig, x, positions, *, mask_kind,
-               prefix_len=0):
+               prefix_len=0, remat=False):
     """Training/eval forward through the body (no cache)."""
     if cfg.family == "ssm":
         def fn(x, lp):
             y, _, aux = _ssd_layer(x, lp, cfg)
             return y, aux
-        return _scan_uniform(x, params["layers"], fn)
+        return _scan_uniform(x, params["layers"], fn, remat)
     if cfg.family == "hybrid":
-        return _run_hybrid(params, cfg, x, positions)
+        return _run_hybrid(params, cfg, x, positions, remat=remat)
     if cfg.family == "encdec":
         raise ValueError("use forward_encoder")
 
@@ -391,24 +419,38 @@ def _run_stack(params, cfg: ArchConfig, x, positions, *, mask_kind,
                                    window=cfg.window_size,
                                    prefix_len=prefix_len)
         return y, aux
-    return _scan_uniform(x, params["layers"], fn)
+    return _scan_uniform(x, params["layers"], fn, remat)
 
 
-def _run_hybrid(params, cfg: ArchConfig, x, positions):
+def _run_hybrid(params, cfg: ArchConfig, x, positions, *, remat=False):
     """The hybrid stack in layer order: the JAX package scans over whole
-    repeats of the block pattern, then unrolls the remainder; in eager
+    repeats of the block pattern (each repeat one checkpoint under
+    `remat`), then unrolls the remainder (never checkpointed); in eager
     torch both are the same loop over the layer kinds."""
-    rec, att = params["rec_layers"], params["attn_layers"]
-    ri = ai = 0
-    for kind in cfg._layer_kinds():
-        if kind == "rec":
-            x, _, _ = _rec_layer(x, layer_slice(rec, ri), cfg)
-            ri += 1
-        else:
-            x, _, _ = _decoder_layer(x, layer_slice(att, ai), cfg,
-                                     mask_kind="local", positions=positions,
-                                     window=cfg.window_size)
-            ai += 1
+    rec = unstacked(params["rec_layers"])
+    att = unstacked(params["attn_layers"])
+    pat = list(cfg.block_pattern)
+    n_full = cfg.n_layers // len(pat)
+
+    def run(x, kinds, ri, ai):
+        for kind in kinds:
+            if kind == "rec":
+                x, _, _ = _rec_layer(x, rec[ri], cfg)
+                ri += 1
+            else:
+                x, _, _ = _decoder_layer(x, att[ai], cfg,
+                                         mask_kind="local",
+                                         positions=positions,
+                                         window=cfg.window_size)
+                ai += 1
+        return x
+
+    n_rec, n_att = pat.count("rec"), pat.count("attn")
+    block = _rematted(lambda x, i: run(x, pat, i * n_rec, i * n_att), remat)
+    for i in range(n_full):
+        x = block(x, i)
+    x = run(x, cfg._layer_kinds()[n_full * len(pat):], n_full * n_rec,
+            n_full * n_att)
     return x, {}
 
 
@@ -430,10 +472,11 @@ def forward_encoder(params, cfg: ArchConfig, batch):
     return common.apply_norm(x, params["enc_norm"], cfg.norm_type)
 
 
-def forward_logits(params, cfg: ArchConfig, batch):
+def forward_logits(params, cfg: ArchConfig, batch, *, remat=False):
     """Teacher-forced logits over the full sequence (the vlm family's
     image prefix included): (logits, aux), aux the MoE load-balance stats
-    summed over the layers ({} for other families)."""
+    summed over the layers ({} for other families). `remat` checkpoints
+    each decoder layer (each hybrid block pattern), not the encoder's."""
     if cfg.family == "encdec":
         enc = forward_encoder(params, cfg, batch)
         x, _ = _embed(params, cfg, batch)
@@ -443,14 +486,32 @@ def forward_logits(params, cfg: ArchConfig, batch):
             y, _, aux = _decoder_layer(x, lp, cfg, mask_kind="causal",
                                        positions=positions, xa=enc)
             return y, aux
-        x, aux = _scan_uniform(x, params["layers"], fn)
+        x, aux = _scan_uniform(x, params["layers"], fn, remat)
         return _head(x, params, cfg), aux
     x, prefix_len = _embed(params, cfg, batch)
     positions = torch.arange(x.shape[1], device=x.device)
     mask_kind = "prefix" if cfg.family == "vlm" else "causal"
     x, aux = _run_stack(params, cfg, x, positions, mask_kind=mask_kind,
-                        prefix_len=prefix_len)
+                        prefix_len=prefix_len, remat=remat)
     return _head(x, params, cfg), aux
+
+
+def train_loss(params, cfg: ArchConfig, batch, *, remat=True):
+    """Mean next-token cross-entropy over batch["labels"] (ignore id -1;
+    the vlm family's image prefix carries no loss), plus 0.01 lb_loss +
+    1e-4 router_z for the moe family: (loss, aux)."""
+    logits, aux = forward_logits(params, cfg, batch, remat=remat)
+    labels = torch.as_tensor(batch["labels"], device=logits.device)
+    if cfg.family == "vlm":                  # image prefix carries no loss
+        pad = torch.full(labels.shape[:1]
+                         + (logits.shape[1] - labels.shape[1],), -1,
+                         dtype=labels.dtype, device=labels.device)
+        labels = torch.cat([pad, labels], dim=1)
+    loss = common.cross_entropy(logits, labels)
+    if aux:
+        loss = loss + 0.01 * aux.get("lb_loss", 0.0) \
+            + 1e-4 * aux.get("router_z", 0.0)
+    return loss, aux
 
 
 # ===========================================================================

@@ -91,3 +91,23 @@ def top_k_indices(scores: Share, k: int, seed: int = 0,
         else:
             idx = greater
     return np.sort(np.concatenate(out)) if out else np.array([], dtype=int)
+
+
+def expected_comparisons(n: int, k: int) -> float:
+    """Analytic expected #comparisons (~2n for k<<n; <=4n worst typical)."""
+    return 2.0 * n
+
+
+def quickselect_cost(n: int, wave: int = 1,
+                     coalesce: bool = True) -> tuple[int, int]:
+    """(rounds, bytes) for a top-k over n candidates.
+
+    Coalesced (the default, matching `top_k_indices` under the flight
+    batcher): O(log n) partition flights, rounds independent of the
+    wave chunking. Uncoalesced, every per-wave chunk pays its own
+    comparison flight — the eager cost the batcher removes.
+    """
+    flights = int(np.ceil(np.log2(max(n, 2)))) + 4
+    per_partition = 1 if coalesce else max(1, wave)
+    return (flights * per_partition * compare.CMP_ROUNDS,
+            int(expected_comparisons(n, 0)) * compare.CMP_BYTES)

@@ -877,6 +877,7 @@ class ReliableTransport:
         def attempt():
             self._service_control(dst)
             deadline = self._clock() + self.rto_s
+            gap = None
             while True:
                 left = max(0.001, deadline - self._clock())
                 try:
@@ -889,7 +890,8 @@ class ReliableTransport:
                         pass           # still down: back off, re-attempt
                     raise _FrameLost(f"link {src}->{dst} down")
                 except WireError:
-                    raise _FrameLost(f"no frame from {src} within rto")
+                    raise _FrameLost(gap or
+                                     f"no frame from {src} within rto")
                 want = self._rx_next[link]
                 if seq is None or seq == want:
                     if seq is not None:
@@ -901,11 +903,18 @@ class ReliableTransport:
                         self.dup_frames += 1
                     continue           # retransmission we already have
                 # gap: discard the out-of-order tail (go-back-N resends
-                # it in order) and ask for retransmission
+                # it in order) and ask for retransmission once an
+                # attempt. The whole tail is drained here, not one frame
+                # an attempt: a tail longer than max_attempts frames
+                # would otherwise exhaust the retries before the resent
+                # frame, queued behind it, is read
                 with self._slock:
                     self.gap_frames += 1
-                raise _FrameLost(
-                    f"gap on {src}->{dst}: got seq {seq}, want {want}")
+                if gap is None:
+                    with self._slock:
+                        self.retries += 1
+                    self._request_resend(dst, src, kind)
+                gap = f"gap on {src}->{dst}: got seq {seq}, want {want}"
 
         def lossy_attempt():
             try:

@@ -8,8 +8,10 @@ float32 result), flash_attn with and without its causal window and
 with its prefix, and bidir over a longer key sequence; the
 scans (ssd, with its final state, and rg_lru) within 1e-5 in float32
 (the JAX package's tolerance for the same kernels), ssd's bfloat16 y
-within 1e-2; the clear scoring paths and the token server, card against
-CPU.
+within 1e-2; the backward kernels (flash_attn at every head dim and
+mask, mlp_softmax_attn, ssd, rg_lru) against autograd of the plain
+versions, at the same tolerances; the clear scoring paths and the token
+server, card against CPU.
 
 This file imports no JAX, so it runs where only torch is installed:
 
@@ -208,6 +210,7 @@ def test_phase_on_the_card_runs_the_kernels(cuda, ring_name):
 
 
 FLOAT_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+SCAN_TOL = 1e-5
 
 
 @pytest.mark.gpu
@@ -315,14 +318,22 @@ def test_flash_attn_prefix_matches_plain(cuda, dtype, shape):
 @pytest.mark.gpu
 def test_flash_attn_prefix_refusals(cuda):
     """A prefix with a window, or without causal attention, is refused
-    before a launch, and under grad it raises (no backward kernel yet)."""
+    before a launch; under grad the prefix takes its backward kernel,
+    within FLOAT_TOL of autograd of the plain forward."""
     from repro_torch.kernels import flash_attn as fa
     q = torch.zeros((2, 64, 64), device=cuda)
     for causal, window in ((True, 16), (False, 0)):
         with pytest.raises(ValueError, match="prefix"):
             fa.launch(q, q, q, causal, window, 8)
-    with pytest.raises(ValueError, match="ROADMAP"):
-        fa.flash_attn(q.clone().requires_grad_(), q, q, prefix_len=8)
+    g = torch.Generator(device=cuda).manual_seed(13)
+    qg, kg, vg = _leaves(g, [(2, 64, 64)] * 3, torch.float32, [1.0] * 3)
+    do = randn(g, (2, 64, 64))
+    fa.reset_bwd_stats()
+    got = _grads(fa.flash_attn(qg, kg, vg, prefix_len=8), (qg, kg, vg), do)
+    assert fa.bwd_stats() == {"kernel": 2, "ref": 0}
+    want = _grads(ref.flash_attn(qg, kg, vg, prefix_len=8), (qg, kg, vg), do)
+    for a, b in zip(got, want):
+        assert_close(a, b, FLOAT_TOL[torch.float32])
 
 
 @pytest.mark.gpu
@@ -924,12 +935,25 @@ def test_flash_attn_backward_bitwise_and_strided(cuda):
 
 @pytest.mark.gpu
 def test_flash_attn_backward_refuses_what_it_lacks(cuda):
-    """Dh 256 has no backward kernel: asking for a gradient raises (naming
-    ROADMAP), never a plain gradient."""
+    """Only causal attention with Sq != Skv has no backward (the forward
+    refuses it too): asking for it raises, never a plain gradient. Dh 256
+    has its backward kernels now: three launches (dq, dk/dv per head, the
+    group sum), within FLOAT_TOL of autograd of the plain forward."""
     from repro_torch.kernels import flash_attn as fa
-    q = torch.randn(2, 16, 256, device=cuda, requires_grad=True)
-    with pytest.raises(ValueError, match="ROADMAP"):
-        fa.flash_attn(q, q.detach(), q.detach())
+    q = torch.randn(2, 16, 64, device=cuda, requires_grad=True)
+    k = torch.randn(2, 24, 64, device=cuda)
+    with pytest.raises(ValueError, match="Sq 16 != Skv 24"):
+        fa.flash_attn(q, k, k, causal=True)
+    g = torch.Generator(device=cuda).manual_seed(14)
+    q, k, v = _leaves(g, [(4, 70, 256), (2, 70, 256), (2, 70, 256)],
+                      torch.float32, [1.0] * 3)
+    do = randn(g, (4, 70, 256))
+    fa.reset_bwd_stats()
+    got = _grads(fa.flash_attn(q, k, v, causal=True), (q, k, v), do)
+    assert fa.bwd_stats() == {"kernel": 3, "ref": 0}
+    want = _grads(ref.flash_attn(q, k, v, causal=True), (q, k, v), do)
+    for a, b in zip(got, want):
+        assert_close(a, b, FLOAT_TOL[torch.float32])
     with torch.no_grad():
         assert fa.flash_attn(q, q, q).shape == q.shape
 
@@ -1027,9 +1051,12 @@ def test_mlp_softmax_attn_backward_transposed_kv(cuda, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("kernel", ["entropy_head", "ssd", "rg_lru"])
 def test_fronts_without_backward_refuse_grad(cuda, kernel):
-    """A kernel with no backward raises on an input that requires grad in
-    grad mode (its output would carry no gradient), and runs under
-    no_grad."""
+    """entropy_head has no backward: it raises on an input that requires
+    grad in grad mode (its output would carry no gradient), and runs
+    under no_grad. ssd and rg_lru have their backward kernels now: under
+    grad each goes through its Function, launches its backward kernel
+    (never a plain one) and agrees with autograd of its plain version
+    within SCAN_TOL of max(1, max |plain|)."""
     from repro_torch.kernels import ops as kops
     x = torch.randn(2, 16, 3, 8, device=cuda)
     calls = {
@@ -1040,8 +1067,146 @@ def test_fronts_without_backward_refuse_grad(cuda, kernel):
         "rg_lru": (kops.rg_lru_scan, (torch.rand(2, 16, 8, device=cuda),
                                       torch.randn(2, 16, 8, device=cuda)))}
     fn, args = calls[kernel]
-    args = (args[0].clone().requires_grad_(),) + args[1:]
-    with pytest.raises(RuntimeError, match=f"{kernel} kernel has no backward"):
-        fn(*args)
+    if kernel == "entropy_head":
+        args = (args[0].clone().requires_grad_(),) + args[1:]
+        with pytest.raises(RuntimeError,
+                           match=f"{kernel} kernel has no backward"):
+            fn(*args)
+        with torch.no_grad():
+            fn(*args)
+        return
+    args = tuple(a.clone().requires_grad_() for a in args)
+    plain = {"ssd": lambda *a: ref.ssd(*a)[0], "rg_lru": ref.rg_lru}[kernel]
+    stats = {"ssd": (kops.ssd_bwd_stats, kops.reset_ssd_bwd_stats),
+             "rg_lru": (kops.lru_bwd_stats, kops.reset_lru_bwd_stats)}
+    stats[kernel][1]()
+    out = fn(*args)
+    out = out[0] if kernel == "ssd" else out
+    dy = torch.randn_like(out)
+    got = _grads(out, args, dy)
+    assert stats[kernel][0]()["ref"] == 0 and stats[kernel][0]()["kernel"]
+    want = _grads(plain(*args), args, dy)
+    for a, b in zip(got, want):
+        assert_close(a, b, SCAN_TOL)
     with torch.no_grad():
         fn(*args)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [
+    # (dtype, BH, S, Dh, group, window, prefix): RecurrentGemma's local
+    # layer (group 10, window past S) and PaliGemma's prefix (group 8),
+    # cut in BH; prefixes of 1, = S and past a key tile; Dh 256 float32
+    # with a window and bidir; the prefix at Dh 64 and 128 (tensor cores)
+    (torch.bfloat16, 10, 512, 256, 10, 2048, 0),
+    (torch.bfloat16, 8, 768, 256, 8, 0, 256),
+    (torch.float32, 4, 130, 256, 2, 0, 1),
+    (torch.float32, 4, 130, 256, 1, 0, 130),
+    (torch.float32, 4, 130, 256, 2, 0, 97),
+    (torch.float32, 4, 200, 256, 2, 70, 0),
+    (torch.float32, 4, 150, 256, 1, -1, 0),
+    (torch.float32, 6, 300, 64, 3, 0, 100),
+    (torch.bfloat16, 4, 300, 128, 1, 0, 65),
+    (torch.float32, 4, 70, 64, 1, 0, 70)])
+def test_flash_attn_backward_dh256_and_prefix_match_plain(cuda, case):
+    """The backward at Dh 256 (CUDA cores: dq, dk/dv per head, the group
+    sum) and with the prefix mask, against autograd of the plain version
+    (window -1: bidirectional)."""
+    from repro_torch.kernels import flash_attn as fa
+    dtype, bh, s, dh, group, window, prefix = case
+    causal, window = window >= 0, max(window, 0)
+    g = torch.Generator(device=cuda).manual_seed(15)
+    q, k, v = _leaves(g, [(bh, s, dh), (bh // group, s, dh),
+                          (bh // group, s, dh)], dtype)
+    do = randn(g, (bh, s, dh), dtype)
+    fa.reset_bwd_stats()
+    kw = dict(causal=causal, window=window, prefix_len=prefix)
+    got = _grads(fa.flash_attn(q, k, v, **kw), (q, k, v), do)
+    assert fa.bwd_stats() == {"kernel": 3 if dh == 256 else 2, "ref": 0}
+    want = _grads(ref.flash_attn(q, k, v, **kw), (q, k, v), do)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and a.shape == b.shape
+        assert_close(a, b, FLOAT_TOL[dtype])
+    again = _grads(fa.flash_attn(q, k, v, **kw), (q, k, v), do)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [
+    # (dtype, B, T, H, P, N, decay, state0, dstate): Mamba-2's training
+    # shape cut to 8 heads, in bf16 and float32; a chunk's worth and a
+    # ragged T; no decay; decays that underflow; a large initial state
+    # with its gradient; a final-state gradient; P and N off 32
+    (torch.bfloat16, 2, 512, 8, 64, 128, "rand", False, False),
+    (torch.float32, 2, 512, 8, 64, 128, "rand", False, False),
+    (torch.float32, 1, 64, 3, 64, 128, "rand", False, False),
+    (torch.float32, 2, 150, 3, 16, 32, "none", False, True),
+    (torch.float32, 2, 150, 3, 16, 32, "underflow", True, False),
+    (torch.float32, 2, 97, 4, 64, 128, "rand", True, True),
+    (torch.float32, 1, 33, 2, 5, 7, "rand", True, True),
+    (torch.bfloat16, 1, 200, 4, 64, 128, "rand", True, True)])
+def test_ssd_backward_matches_plain_autograd(cuda, case):
+    from repro_torch.kernels import ssd as ssdk
+    dtype, bsz, t, h, p, n, decay, s0, dst = case
+    g = torch.Generator(device=cuda).manual_seed(16)
+    x, b, c = _leaves(g, [(bsz, t, h, p), (bsz, t, n), (bsz, t, n)], dtype)
+    u = torch.rand((bsz, t, h), generator=g, device=cuda)
+    a = {"rand": -0.3 * u, "none": 0 * u, "underflow": -50 - u}[decay]
+    a.requires_grad_()
+    st0 = (randn(g, (bsz, h, p, n)) * 100).requires_grad_() if s0 else None
+    ins = [v for v in (x, a, b, c, st0) if v is not None]
+    dy, ds = randn(g, (bsz, t, h, p), dtype), randn(g, (bsz, h, p, n))
+
+    def loss(y, s):
+        return (y.float() * dy.float()).sum() + ((s * ds).sum() if dst
+                                                  else 0)
+    ssdk.reset_bwd_stats()
+    got = torch.autograd.grad(loss(*ssdk.ssd_chunked(x, a, b, c,
+                                                      state0=st0)), ins)
+    assert ssdk.bwd_stats() == {"kernel": 2, "ref": 0}
+    want = torch.autograd.grad(loss(*ref.ssd(x, a, b, c, state0=st0)), ins)
+    tol = SCAN_TOL if dtype == torch.float32 else FLOAT_TOL[dtype]
+    for gg, w in zip(got, want):
+        assert gg.shape == w.shape
+        assert_close(gg.float(), w.float(), tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [
+    # (B, T, D, fill): RecurrentGemma's training width; T 1 and 129, D 1
+    # and 33; a = 0; a = 1; the model's gate range
+    (2, 512, 2560, "rand"), (2, 1, 64, "rand"), (2, 129, 33, "rand"),
+    (3, 40, 1, "rand"), (2, 77, 40, "zero"), (2, 77, 40, "one"),
+    (2, 300, 70, "gate")])
+def test_rg_lru_backward_matches_plain_autograd(cuda, case):
+    from repro_torch.kernels import rg_lru as lru
+    bsz, t, d, fill = case
+    g = torch.Generator(device=cuda).manual_seed(17)
+    u = torch.rand((bsz, t, d), generator=g, device=cuda)
+    a = {"rand": u, "zero": 0 * u, "one": 1 + 0 * u,
+         "gate": torch.exp(-8 * 0.7 * u)}[fill].requires_grad_()
+    b = randn(g, (bsz, t, d)).requires_grad_()
+    dh = randn(g, (bsz, t, d))
+    lru.reset_bwd_stats()
+    got = _grads(lru.rg_lru_scan(a, b), (a, b), dh)
+    assert lru.bwd_stats() == {"kernel": 1, "ref": 0}
+    want = _grads(ref.rg_lru(a, b), (a, b), dh)
+    for gg, w in zip(got, want):
+        assert_close(gg, w, SCAN_TOL)
+
+
+@pytest.mark.gpu
+def test_rg_lru_backward_bitwise_and_permuted(cuda):
+    """Permuted operands take the contiguous copies; two launches agree
+    bitwise; the plain backward is bitwise the kernel's (the same
+    roundings in the same order)."""
+    from repro_torch.kernels import rg_lru as lru
+    g = torch.Generator(device=cuda).manual_seed(18)
+    a = torch.rand((300, 3, 70), generator=g, device=cuda).transpose(0, 1)
+    h = randn(g, (70, 300, 3)).permute(2, 1, 0)
+    dh = randn(g, (3, 300, 70))
+    first, second = lru.launch_bwd(a, h, dh), lru.launch_bwd(a, h, dh)
+    want = ref.rg_lru_bwd(a, h, dh)
+    for x, y, z in zip(first, second, want):
+        assert torch.equal(x, y) and torch.equal(x, z)

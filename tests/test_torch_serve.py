@@ -28,6 +28,7 @@ from repro.models import transformer as j_T
 from repro_torch.configs import base
 from repro_torch.core import tree
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref
 from repro_torch.launch import serve
 from repro_torch.models import transformer as T
 
@@ -211,7 +212,9 @@ def test_attend_flash_local_matches_jax(sq, window):
 def test_flash_window_needs_causal_and_prefix_is_not_ported():
     """A window needs causal attention. The prefix mask is ported now:
     it runs (keys below the prefix kept, the rest causal), and with a
-    window, without causal attention, or under grad it raises."""
+    window or without causal attention it raises; under grad it takes
+    its backward (on the CPU the plain one), equal to autograd of the
+    plain forward within 1e-5 of max |plain|."""
     from repro_torch.models import attention
     q = torch.zeros(1, 8, 16)
     with pytest.raises(ValueError, match="window"):
@@ -231,8 +234,18 @@ def test_flash_window_needs_causal_and_prefix_is_not_ported():
         kops.flash_attn(q, q, q, causal=True, window=4, prefix_len=3)
     with pytest.raises(ValueError, match="prefix"):
         kops.flash_attn(q, q, q, causal=False, prefix_len=3)
-    with pytest.raises(ValueError, match="ROADMAP"):
-        kops.flash_attn(q.requires_grad_(), q, q, prefix_len=3)
+    rng = np.random.default_rng(9)
+    qg, kg, vg = (torch.tensor(rng.standard_normal((2, 8, 16)),
+                               dtype=torch.float32, requires_grad=True)
+                  for _ in range(3))
+    do = torch.tensor(rng.standard_normal((2, 8, 16)), dtype=torch.float32)
+    got = torch.autograd.grad(kops.flash_attn(qg, kg, vg, prefix_len=3),
+                              (qg, kg, vg), do)
+    want = torch.autograd.grad(ref.flash_attn(qg, kg, vg, prefix_len=3),
+                               (qg, kg, vg), do)
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= 1e-5 * max(
+            1.0, float(w.abs().max()))
 
 
 def _jax_server(monkeypatch, arch, max_len, max_new):

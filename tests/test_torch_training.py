@@ -331,9 +331,22 @@ def test_mlp_softmax_attn_backward_matches_jax_vjp(group):
                                    rtol=1e-5)
 
 
+@pytest.fixture
+def one_thread():
+    """gradcheck's thousands of tiny float64 ops on one torch thread: under
+    the suite's parallel workers the full thread pool spins, and each
+    case took minutes instead of seconds."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("causal,window,group", [(False, 0, 1), (True, 0, 2),
                                                  (True, 3, 1)])
-def test_flash_attn_function_gradcheck(causal, window, group):
+def test_flash_attn_function_gradcheck(causal, window, group, one_thread):
     g = torch.Generator().manual_seed(1)
     ins = [torch.randn(s, generator=g, dtype=torch.float64)
            .requires_grad_() for s in [(4, 7, 16), (4 // group, 7, 16),
@@ -343,7 +356,7 @@ def test_flash_attn_function_gradcheck(causal, window, group):
 
 
 @pytest.mark.parametrize("group", [1, 2])
-def test_mlp_softmax_attn_function_gradcheck(group):
+def test_mlp_softmax_attn_function_gradcheck(group, one_thread):
     g = torch.Generator().manual_seed(2)
     shapes = [(4, 7, 16), (4 // group, 7, 16), (4 // group, 7, 16), (7, 3),
               (3,), (3, 7), (7,)]
