@@ -174,18 +174,25 @@ result line):
      forward and backward and its forward alone, in float32 and bf16.
      The training path's backward kernels too: phase 1 reports the
      registers, spills and atomics of flash_attn's Dh-256 passes and group
-     sum (CUDA cores: no HGMMA, by design; the bf16 ones must not spill),
-     ssd's per-head pass and head sum and rg_lru's reverse recurrence
-     (none holding an atomic); phase 2 (`phase_train_kernels`) holds them
-     against autograd of the plain versions: flash_attn at
-     RecurrentGemma's (20, 512, 256) bf16 local layer (group 10, window
-     2048) and PaliGemma's (16, 768, 256) bf16 prefix 256 (group 8),
-     prefixes of 0, 1, = S and past a key tile, Dh 256 in float32, the
-     prefix at Dh 64 and 128; ssd at Mamba-2's (2, 512, 80, 64) bf16 and
-     float32 with a forward chunk of 1, no decay, underflowing decays, an
-     initial state x 100 with its gradient, a final state's gradient; and
-     rg_lru at (2, 512, 2560) with T 1 and 129, a = 0, a = 1 and permuted
-     operands; each path case checked bitwise on a second launch and
+     sum, ssd's state, chunk and sum passes (bf16) and per-head pass and
+     head sum (float32), and rg_lru's reverse recurrence, none holding an
+     atomic and no bf16 one spilling, and fails unless the bf16 passes
+     with products show HGMMA (flash_attn's dq and dk/dv at Dh 256, ssd's
+     state and chunk passes; float32 at Dh 256 and ssd's float32 pass run
+     on the CUDA cores, the sums are elementwise); phase 2
+     (`phase_train_kernels`) holds them against autograd of the plain
+     versions: flash_attn at RecurrentGemma's (20, 512, 256) bf16 local
+     layer (group 10, window 2048) and PaliGemma's (16, 768, 256) bf16
+     prefix 256 (group 8), prefixes of 0, 1, = S and past a key tile, Dh
+     256 in float32, bf16 Dh 256 at S off 64 with a group of 3, a window
+     whose first tile is partial, a prefix past a tile and bidirectional,
+     the prefix at Dh 64 and 128; ssd at Mamba-2's (2, 512, 80, 64) bf16
+     and float32 with a forward chunk of 1, no decay, underflowing decays,
+     an initial state x 100 with its gradient, a final state's gradient,
+     and in bf16 T off the chunk with heads off the chunk pass's group, P
+     and N off the tiles, P past one state slice; and rg_lru at (2, 512,
+     2560) with T 1 and 129, a = 0, a = 1 and permuted operands; each
+     path case checked bitwise on a second launch and
      timed host-issued and queued beside its plain backward and its
      `bwd_work` bound, flash_attn's beside SDPA's backward with the same
      boolean mask.
@@ -526,19 +533,32 @@ MSA_BWD_ENTRIES = {f"heads {t} Dh {dh} x{mt}":
                    for mt in sorted({1, max(1, dh // 32)})}
 MSA_BWD_ENTRIES["sum"] = "msa_bwd_sum_kernel"
 MSA_BWD_NO_SPILL = ("heads f32 Dh 64 x1", "heads f32 Dh 64 x2", "sum")
-# the training path's backward kernels: flash_attn's Dh-256 passes (CUDA
-# cores: no HGMMA, the docstring of csrc/flash_attn_bwd.cu says why) and
-# their group sum, ssd's per-head pass and head sum, rg_lru's reverse
-# recurrence, each in float32 and bf16 where it takes both; the path's
-# (bf16) not spilling, none holding an atomic
-FA_BWD256_ENTRIES = {f"{k} {t} Dh 256": f"fa_bwd256_{k}_kernelI{m}E"
-                     for k in ("dq", "dkdv", "sum")
-                     for t, m in (("bf16", "13__nv_bfloat16"), ("f32", "f"))}
-FA_BWD256_NO_SPILL = ("dq bf16 Dh 256", "dkdv bf16 Dh 256", "sum bf16 Dh 256")
-SSD_BWD_ENTRIES = {f"{k} {t}": f"ssd_bwd_{k}_kernelI{m}E"
-                   for k in ("head", "sum")
-                   for t, m in (("bf16", "13__nv_bfloat16"), ("f32", "f"))}
-SSD_BWD_NO_SPILL = ("head bf16", "sum bf16")
+# the training path's backward kernels, none holding an atomic, the
+# path's (bf16) not spilling: flash_attn's at Dh 256, bf16 on the tensor
+# cores (HGMMA required in its dq pass and its dk and dv passes) and
+# float32 on the CUDA cores (exempt, csrc/flash_attn_bwd.cu says why),
+# each with its group sum (elementwise: exempt); ssd's, bf16 on the
+# tensor cores (HGMMA required in its state and chunk passes) and the
+# float32 per-head pass on the CUDA cores, each with its sum (exempt);
+# rg_lru's reverse recurrence
+FA_BWD256_ENTRIES = {
+    "dq bf16 Dh 256": "fa_bwd_dq_kernelI13__nv_bfloat16Li256E",
+    "dk/dv bf16 Dh 256": "fa_bwd_kv256_kernelI13__nv_bfloat16E",
+    "sum bf16 Dh 256": "fa_bwd256_sum_kernelI13__nv_bfloat16E",
+    "dq f32 Dh 256": "fa_bwd256_dq_kernelIfE",
+    "dkdv f32 Dh 256": "fa_bwd256_dkdv_kernelIfE",
+    "sum f32 Dh 256": "fa_bwd256_sum_kernelIfE"}
+FA_BWD256_NO_SPILL = ("dq bf16 Dh 256", "dk/dv bf16 Dh 256",
+                      "sum bf16 Dh 256")
+FA_BWD256_CUDA_CORES = ("sum bf16 Dh 256", "dq f32 Dh 256",
+                        "dkdv f32 Dh 256", "sum f32 Dh 256")
+SSD_BWD_ENTRIES = {"state bf16": "ssd_bwd_state_kernelI13__nv_bfloat16E",
+                   "chunk bf16": "ssd_bwd_chunk_kernelI13__nv_bfloat16E",
+                   "sum bf16": "ssd_bwd_sum_kernelI13__nv_bfloat16E",
+                   "head f32": "ssd_bwd_head_kernelIfE",
+                   "sum f32": "ssd_bwd_sum_kernelIfE"}
+SSD_BWD_NO_SPILL = ("state bf16", "chunk bf16", "sum bf16")
+SSD_BWD_CUDA_CORES = ("sum bf16", "head f32", "sum f32")
 LRU_BWD_ENTRIES = {"f32": "rg_lru_bwd_kernelE"}
 SSD_BWD_REPLACES = ("none: the JAX package has no backward kernel; its "
                     "training differentiates the chunked scan "
@@ -1624,11 +1644,19 @@ def phase_train_kernels(seed: int) -> dict:
             ("prefix = S", 8, 300, 256, 2, f32, True, 0, 300, None),
             ("prefix past a key tile", 8, 300, 256, 2, f32, True, 0, 97,
              None),
-            ("Dh 256 f32 causal", 8, 300, 256, 2, f32, True, 0, 0, None),
+            ("Dh 256 f32 causal", 8, 300, 256, 2, f32, True, 0, 0, "f32"),
             ("Dh 256 f32 bidirectional", 8, 200, 256, 1, f32, False, 0, 0,
              None),
             ("Dh 256 f32 window 70", 8, 200, 256, 2, f32, True, 70, 0,
              None),
+            ("bf16 S off 64, group 3", 6, 150, 256, 3, bf16, True, 0, 0,
+             None),
+            ("bf16 window 70 (first tile partial)", 4, 200, 256, 2, bf16,
+             True, 70, 0, None),
+            ("bf16 prefix past a tile", 4, 300, 256, 1, bf16, True, 0, 97,
+             None),
+            ("bf16 bidirectional S off 64", 2, 77, 256, 1, bf16, False, 0,
+             0, None),
             ("Dh 64 f32 prefix 100", 12, 300, 64, 3, f32, True, 0, 100,
              None),
             ("Dh 128 bf16 prefix 65", 4, 300, 128, 1, bf16, True, 0, 65,
@@ -1686,8 +1714,8 @@ def phase_train_kernels(seed: int) -> dict:
         timing("flash_attn backward", sub, lambda: fa.launch_bwd(*args),
                lambda: ref.flash_attn_bwd(q, k, v, o, do, causal=causal,
                                           window=window, prefix_len=prefix),
-               ops, nbytes, PEAK_BF16_S,
-               f"({bh},{s},{dh}) group {group} bf16 "
+               ops, nbytes, PEAK_BF16_S if dt == bf16 else PEAK_3XTF32_S,
+               f"({bh},{s},{dh}) group {group} {str(dt)[6:]} "
                + (f"prefix {prefix}" if prefix else f"window {window}"),
                **lib)
         del qs, ks, vs, sdpa_fwd_bwd, sdpa_fwd
@@ -1712,7 +1740,13 @@ def phase_train_kernels(seed: int) -> dict:
             ("final-state gradient bf16", 1, 200, 4, 64, 128, bf16, "rand",
              True, True, 128, None),
             ("P, N off 32", 1, 77, 3, 5, 7, f32, "rand", True, True, 128,
-             None)):
+             None),
+            ("bf16 T off the chunk, heads off the group", 2, 150, 7, 64,
+             128, bf16, "rand", True, True, 128, None),
+            ("bf16 P, N off the tiles", 1, 77, 3, 5, 7, bf16, "rand", True,
+             True, 128, None),
+            ("bf16 P past a state slice, underflowing decays", 2, 100, 6,
+             40, 96, bf16, "underflow", False, True, 128, None)):
         x = randn((bsz, t, h, p), dt, grad=True)
         b, c = (randn((bsz, t, n), dt, grad=True) for _ in "bc")
         u = torch.rand((bsz, t, h), generator=gen, device="cuda")
@@ -4403,9 +4437,10 @@ def main(argv=None) -> int:
                               {**FA_BWD_ENTRIES, **FA_BWD256_ENTRIES},
                               FA_BWD_NO_SPILL + FA_BWD256_NO_SPILL, "HGMMA",
                               forbid=NO_ATOMICS,
-                              exempt=tuple(FA_BWD256_ENTRIES))
+                              exempt=FA_BWD256_CUDA_CORES)
     ssd_bwd_build = phase_sass("ssd_bwd", SSD_BWD_ENTRIES, SSD_BWD_NO_SPILL,
-                               forbid=NO_ATOMICS)
+                               "HGMMA", forbid=NO_ATOMICS,
+                               exempt=SSD_BWD_CUDA_CORES)
     lru_bwd_build = phase_sass("rg_lru_bwd", LRU_BWD_ENTRIES,
                                LRU_BWD_ENTRIES, forbid=NO_ATOMICS)
     msa_bwd_build = phase_sass("mlp_softmax_attn_bwd", MSA_BWD_ENTRIES,
@@ -4603,7 +4638,8 @@ def main(argv=None) -> int:
             "shape": k["shape"], "build": build_info,
             "launches_note": (
                 "two kernels a backward call (dq, then dk/dv; at Dh 256 "
-                "three, with the group sum), all counted"
+                "three: dq, the dk and dv passes in one launch, the group "
+                "sum), all counted"
                 if name == "flash_attn_bwd" else
                 "two kernels a backward call (head pass, then head sum), "
                 "both counted"),
@@ -4617,8 +4653,9 @@ def main(argv=None) -> int:
             kernels[-1]["dh256"] = tkern["flash_attn_bwd_dh256"]
     for name, short, replaces, build_info, note in (
             ("ssd_bwd", "ssd_bwd", SSD_BWD_REPLACES, ssd_bwd_build,
-             "two kernels a backward call (the per-head pass, then the head "
-             "sum), both counted"),
+             "three kernels a bf16 backward call (the state pass, the "
+             "chunk pass, the sum over head groups), two in float32 (the "
+             "per-head pass, the head sum), all counted"),
             ("rg_lru_bwd", "lru_bwd", RG_LRU_BWD_REPLACES, lru_bwd_build,
              "one kernel a backward call")):
         k = tkern[name]

@@ -4,9 +4,10 @@
 // 256}, bidirectional or causal (Sq == Skv), a causal window w > 0 also
 // masking keys j <= i - w, or a causal prefix P > 0 keeping every key
 // j < P (the VLM's image tokens). float32 or bfloat16 in and out, float32
-// sums. Dh up to 128 runs on the tensor cores (below); Dh 256 on the CUDA
-// cores (fa_bwd256_*, at the end: a wgmma accumulator of that width does
-// not fit the registers), with no HGMMA in its SASS.
+// sums. bf16 at every Dh and float32 up to Dh 128 run on the tensor cores
+// (below; bf16 Dh 256 splits its dk/dv pass in two, the Dh-256 section at
+// the end says why); float32 at Dh 256 runs on the CUDA cores
+// (fa_bwd256_*, no HGMMA in their SASS).
 //
 // Replaces no Pallas kernel: the JAX package has no backward kernel (no
 // custom_vjp under src/repro/kernels/), and its training differentiates
@@ -131,10 +132,14 @@ struct Cfg {
   static constexpr bool F32 = std::is_same<T, float>::value;
   static constexpr int E = sizeof(T);
   static constexpr bool BIG = F32 && DH >= 128;
-  static constexpr int NWG = BIG ? 1 : DQ ? DQ_NWG : DKDV_NWG;
+  // bf16 Dh 256's dq pass: one warpgroup a block and whole column tiles
+  // (Q and dO 64 KB, two stages of K and V at 64 keys 128 KB): twice the
+  // blocks of two warpgroups, half the steps of 32-key tiles
+  static constexpr bool DQ256 = DQ && !F32 && DH == 256;
+  static constexpr int NWG = BIG || DQ256 ? 1 : DQ ? DQ_NWG : DKDV_NWG;
   static constexpr int BN = (DQ ? (F32 ? DQ_BN_F32 : DQ_BN_BF16)
                                 : (F32 ? DKDV_BN_F32 : DKDV_BN_BF16)) /
-                           (DH >= 128 ? 2 : 1);
+                           (DH >= 128 && !DQ256 ? 2 : 1);
   static constexpr int THREADS = WG * NWG;
   static constexpr int KS = 32 / E;          // elements a k-step: 32 B
   // float32: each step's register-A products into a fresh accumulator,
@@ -397,14 +402,18 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __syncthreads();
 
   // dq~, and (STEP_SUM) the last step's dS~ K, which the wait at the top
-  // of the next step completes and folds in
-  float acc[DH / 2], stp[DH / 2];
+  // of the next step completes and folds in; without it `stp` is one
+  // unused register, so that bf16 Dh 256 holds only dq~'s 128
+  constexpr int NSTP = C::STEP_SUM ? DH / 2 : 1;
+  float acc[DH / 2], stp[NSTP];
 #pragma unroll
-  for (int i = 0; i < DH / 2; ++i) acc[i] = stp[i] = 0.f;
+  for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < NSTP; ++i) stp[i] = 0.f;
   auto fold = [&] {
     fence_regs(acc);
-    fence_regs(stp);
     if constexpr (C::STEP_SUM) {
+      fence_regs(stp);
 #pragma unroll
       for (int i = 0; i < DH / 2; ++i) acc[i] += stp[i];
     }
@@ -533,7 +542,10 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int e = 0; e < 4; ++e) acc[4 * j + e] *= alpha[e >> 1];
 
       wgmma_fence();
-      issue_rs<C, DH>(C::STEP_SUM ? stp : acc, f, sb + C::B1, sm + C::C1);
+      if constexpr (C::STEP_SUM)
+        issue_rs<C, DH>(stp, f, sb + C::B1, sm + C::C1);
+      else
+        issue_rs<C, DH>(acc, f, sb + C::B1, sm + C::C1);
       wgmma_commit();
     }
     wgmma_wait<0>();
@@ -561,27 +573,34 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int DH>
-__global__ void __launch_bounds__(Cfg<T, DH, false>::THREADS, 1)
-fa_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, const T* __restrict__ dout,
-                   const float* __restrict__ lse_in,
-                   const float* __restrict__ dsum_in, T* __restrict__ dk,
-                   T* __restrict__ dv, int nkv, int group, int sq, int skv,
-                   int causal, int window, int prefix, float scale,
-                   float scale_log2) {
+// which gradients a dk/dv pass forms: both (Dh <= 128), or at Dh 256 dk
+// alone or dv alone (each a 128-register accumulator: see the Dh-256
+// section below)
+enum Part { DKDV = 0, DK = 1, DV = 2 };
+
+// the dk/dv pass of one block: keys [k0, k0 + 64 NWG) of kv head `kvh`,
+// walking q heads h0 .. h0 + nh - 1 and each one's query tiles in order;
+// dk and dv (as `part` says) go to rows k0.. of `dk` / `dv` from element
+// `ooff` (the kv head's rows, or a q head's float32 partial)
+template <typename T, int DH, int PART, typename O>
+__device__ __forceinline__ void dkdv_pass(
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const T* __restrict__ dout,
+    const float* __restrict__ lse_in, const float* __restrict__ dsum_in,
+    O* __restrict__ dk, O* __restrict__ dv, int kvh, int h0, int nh, int k0,
+    long long ooff, int sq, int skv, int causal, int window, int prefix,
+    float scale, float scale_log2) {
   using C = Cfg<T, DH, false>;
   constexpr int BN = C::BN;
+  constexpr bool WDK = PART != DV, WDV = PART != DK;   // forms dk / dv
+  constexpr int NK = WDK ? DH / 2 : 1, NV = WDV ? DH / 2 : 1;
   extern __shared__ char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t sm = (raw + 1023) & ~1023u;
   const uint32_t bars = sm + C::BARS;
   char* const gsm = smem_raw + (sm - raw);
 
-  // key blocks in order (the causal form's first ones see every query),
-  // kv heads innermost; warpgroup `wg` owns keys [kw, kw + 64)
-  const int kvh = blockIdx.x % nkv;
-  const int k0 = blockIdx.x / nkv * ROWS * C::NWG;
+  // warpgroup `wg` owns keys [kw, kw + 64)
   const long long koff = (long long)kvh * skv * DH;
   const int wg = threadIdx.x / WG, kw = k0 + ROWS * wg;
   const int warp = threadIdx.x % WG / 32, lane = threadIdx.x % 32;
@@ -595,7 +614,7 @@ fa_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int qbeg = causal && k0 >= prefix ? k0 / BN * BN : 0;
   const int qend = causal && window > 0 ? min(sq, klast + window) : sq;
   const int nq = qend > qbeg ? (qend - qbeg + BN - 1) / BN : 0;
-  const int nt = group * nq;
+  const int nt = nh * nq;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < C::NB; ++s) mbar_init(bars + 8 * s, C::THREADS);
@@ -604,29 +623,42 @@ fa_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __syncthreads();
 
   // dk, dv and (STEP_SUM) the last step's products, folded in as in the
-  // dq pass
-  float dka[DH / 2], dva[DH / 2], dks[DH / 2], dvs[DH / 2];
+  // dq pass; an accumulator the pass does not form is one unused register
+  constexpr int SK = C::STEP_SUM ? NK : 1, SV = C::STEP_SUM ? NV : 1;
+  float dka[NK], dva[NV], dks[SK], dvs[SV];
 #pragma unroll
-  for (int i = 0; i < DH / 2; ++i) dka[i] = dva[i] = dks[i] = dvs[i] = 0.f;
+  for (int i = 0; i < NK; ++i) dka[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) dva[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < SK; ++i) dks[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < SV; ++i) dvs[i] = 0.f;
+  auto fence_acc = [&] {
+    if constexpr (WDK) fence_regs(dka);
+    if constexpr (WDV) fence_regs(dva);
+  };
   auto fold = [&] {
-    fence_regs(dka);
-    fence_regs(dva);
-    fence_regs(dks);
-    fence_regs(dvs);
+    fence_acc();
     if constexpr (C::STEP_SUM) {
+      fence_regs(dks);
+      fence_regs(dvs);
 #pragma unroll
-      for (int i = 0; i < DH / 2; ++i) {
-        dka[i] += dks[i];
-        dva[i] += dvs[i];
-      }
+      for (int i = 0; i < NK; ++i) dka[i] += dks[i];
+#pragma unroll
+      for (int i = 0; i < NV; ++i) dva[i] += dvs[i];
     }
   };
   Frag<C> fp, fd;
+  auto fence_frags = [&] {
+    if constexpr (WDV) fp.fence();
+    if constexpr (WDK) fd.fence();
+  };
 
-  // step `it`: q head kvh * group + it / nq, query tile it % nq
+  // step `it`: q head h0 + it / nq, query tile it % nq
   auto load_stage = [&](int it) {
     const int st = it % C::NB, q0 = qbeg + it % nq * BN;
-    const long long bh = (long long)kvh * group + it / nq;
+    const long long bh = (long long)h0 + it / nq;
     const uint32_t sb = sm + C::ST0 + st * C::STAGE;
     const uint32_t ld = sb + C::LD + (it & 1) * 8 * BN;
     load_rows<T, DH, typename C::CT, BN, C::THREADS>(sb + C::B1,
@@ -643,12 +675,13 @@ fa_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   };
 
   if (nt > 0) {
-    // K and V join stage 0's barrier
+    // K (and V, where dP^T is formed) join stage 0's barrier
     for (int w = 0; w < C::NWG; ++w) {
       load_rows<T, DH, typename C::RT, ROWS, C::THREADS>(
           sm + C::A1 + w * C::R_B, k + koff, k0 + ROWS * w, skv);
-      load_rows<T, DH, typename C::RT, ROWS, C::THREADS>(
-          sm + C::A2 + w * C::R_B, v + koff, k0 + ROWS * w, skv);
+      if constexpr (WDK)
+        load_rows<T, DH, typename C::RT, ROWS, C::THREADS>(
+            sm + C::A2 + w * C::R_B, v + koff, k0 + ROWS * w, skv);
     }
     for (int s = 0; s < C::NB && s < nt; ++s) load_stage(s);
     mbar_wait(bars, 0);
@@ -667,8 +700,7 @@ fa_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if constexpr (C::F32) {
         wgmma_wait<0>();
         fold();
-        fp.fence();
-        fd.fence();
+        fence_frags();
         __syncthreads();
       }
       mbar_wait(bars + 8 * st, (it / C::NB) & 1);
@@ -681,22 +713,21 @@ fa_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       fence_proxy_async();
       if constexpr (!C::F32) {
         wgmma_wait<0>();
-        fence_regs(dka);
-        fence_regs(dva);
-        fp.fence();
-        fd.fence();
+        fence_acc();
+        fence_frags();
       }
       __syncthreads();
       if (!C::F32 && it >= 1 && it + 1 < nt) load_stage(it + 1);
 
-      float s[BN / 2], dp[BN / 2];
+      float s[BN / 2], dp[WDK ? BN / 2 : 1];
       wgmma_fence();
       issue_ss<C, DH, false>(s, sm + C::A1 + wg * C::R_B, sb + C::B1);
-      issue_ss<C, DH, false>(dp, sm + C::A2 + wg * C::R_B, sb + C::B2);
+      if constexpr (WDK)
+        issue_ss<C, DH, false>(dp, sm + C::A2 + wg * C::R_B, sb + C::B2);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(s);
-      fence_regs(dp);
+      if constexpr (WDK) fence_regs(dp);
       // float32: Q and dO are free past the barrier (the products below
       // read Q^T and dO^T); lse and D alternate halves
       if constexpr (C::F32) {
@@ -727,37 +758,67 @@ fa_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
               keep ? exp2f(__fmul_rn(s[4 * j + e], scale_log2) - ls[col])
                    : 0.f;
           s[4 * j + e] = p;
-          dp[4 * j + e] = p * (dp[4 * j + e] - ds[col]);
+          if constexpr (WDK) dp[4 * j + e] = p * (dp[4 * j + e] - ds[col]);
         }
-      fp.pack(s);
-      fd.pack(dp);
+      if constexpr (WDV) fp.pack(s);
+      if constexpr (WDK) fd.pack(dp);
 
       // dv += P^T dO, dk += dS^T Q
       wgmma_fence();
-      issue_rs<C, DH>(C::STEP_SUM ? dvs : dva, fp, sb + C::B2,
-                      sm + C::C1 + 2 * C::T_B);
-      issue_rs<C, DH>(C::STEP_SUM ? dks : dka, fd, sb + C::B1, sm + C::C1);
+      if constexpr (WDV) {
+        if constexpr (C::STEP_SUM)
+          issue_rs<C, DH>(dvs, fp, sb + C::B2, sm + C::C1 + 2 * C::T_B);
+        else
+          issue_rs<C, DH>(dva, fp, sb + C::B2, sm + C::C1 + 2 * C::T_B);
+      }
+      if constexpr (WDK) {
+        if constexpr (C::STEP_SUM)
+          issue_rs<C, DH>(dks, fd, sb + C::B1, sm + C::C1);
+        else
+          issue_rs<C, DH>(dka, fd, sb + C::B1, sm + C::C1);
+      }
       wgmma_commit();
     }
     wgmma_wait<0>();
     fold();
-    fp.fence();
-    fd.fence();
+    fence_frags();
   }
 
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int j = kw + row0 + 8 * h;
     if (j >= skv) continue;
-    T* krow = dk + koff + (long long)j * DH;
-    T* vrow = dv + koff + (long long)j * DH;
 #pragma unroll
     for (int c = 0; c < DH / 8; ++c) {
-      store2(krow + 8 * c + c2, dka[4 * c + 2 * h] * scale,
-             dka[4 * c + 2 * h + 1] * scale);
-      store2(vrow + 8 * c + c2, dva[4 * c + 2 * h], dva[4 * c + 2 * h + 1]);
+      if constexpr (WDK)
+        store2(dk + ooff + (long long)j * DH + 8 * c + c2,
+               dka[4 * c + 2 * h] * scale, dka[4 * c + 2 * h + 1] * scale);
+      if constexpr (WDV)
+        store2(dv + ooff + (long long)j * DH + 8 * c + c2, dva[4 * c + 2 * h],
+               dva[4 * c + 2 * h + 1]);
     }
   }
+}
+
+// Dh <= 128: a block of NWG warpgroups walks the group's q heads in order,
+// so that dk and dv sum over them in a fixed order
+template <typename T, int DH>
+__global__ void __launch_bounds__(Cfg<T, DH, false>::THREADS, 1)
+fa_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, const T* __restrict__ dout,
+                   const float* __restrict__ lse_in,
+                   const float* __restrict__ dsum_in, T* __restrict__ dk,
+                   T* __restrict__ dv, int nkv, int group, int sq, int skv,
+                   int causal, int window, int prefix, float scale,
+                   float scale_log2) {
+  // key blocks in order (the causal form's first ones see every query),
+  // kv heads innermost
+  const int kvh = blockIdx.x % nkv;
+  const int k0 = blockIdx.x / nkv * ROWS * Cfg<T, DH, false>::NWG;
+  dkdv_pass<T, DH, DKDV, T>(q, k, v, dout, lse_in, dsum_in, dk, dv, kvh,
+                            kvh * group, group, k0, (long long)kvh * skv * DH,
+                            sq, skv, causal, window, prefix, scale,
+                            scale_log2);
 }
 
 template <typename T, int DH>
@@ -788,32 +849,64 @@ int run(const T* q, const T* k, const T* v, const T* o, const T* dout, T* dq,
 }
 
 // ---------------------------------------------------------------------------
-// Dh 256: the same two passes on the CUDA cores, in float32, with a third
-// launch that sums dk and dv over each kv head's group. At Dh 256 a
-// 64-row wgmma accumulator of dq, or of dk and dv, is 128 or 256 float32
-// registers a thread: the tensor-core tiling above does not fit. Here a
-// thread owns one of the 256 columns of its block's 32 rows (32 sums in
-// the dq pass, 64 in the dk/dv pass), and every operand sits in shared
-// memory as float32 (bf16 widened on the load), rows padded by one float
-// so that a warp's walk down a column hits 32 banks:
+// Dh 256. A 64-row wgmma accumulator of that width is 128 float32
+// registers a thread: dq~ fits (the dq pass above runs unchanged, as the
+// forward holds its O), dk and dv together (256) do not. Two ways to keep
+// the dk/dv pass on the tensor cores were weighed, at bf16 (the path's):
+// (a) two warpgroups each own half the columns of dk and dv for the same
+//     64 keys, one forming S^T and the other dP^T, P^T and dS^T crossing
+//     between them through shared memory as bf16 each step behind a named
+//     barrier: K and V resident for 64 keys 64 KB, two stages of Q and dO
+//     at 64 queries 128 KB, P^T and dS^T 16 KB: 208 KB a block of 64 keys;
+// (b) two passes, dk (S^T, dP^T, dk += dS^T Q) and dv (S^T, dv += P^T dO),
+//     each with one 128-register accumulator: the Dh <= 128 pass itself
+//     (dkdv_pass, PART), at the cost of S^T formed in both (8 products a
+//     kept tile pair against 7) and Q read twice.
+// (b) is taken: no new exchange or barrier to get right, one templated
+// body, and two warpgroups of 64 keys a block as at Dh <= 128. Its tiles
+// at Dh 256 bf16 (Cfg): the dq pass, one warpgroup a block, holds Q and
+// dO for 64 rows (64 KB) and two stages of K and V at 64 keys (128 KB),
+// 193 KB, 250 registers (dq~ 128, S and dP 32 each, dS~ as bf16
+// fragments 16); the dk/dv passes K and V for 128 keys (128 KB; the dv
+// pass leaves V's half unused) and two stages of Q, dO, lse and D at 32
+// queries (66 KB), 195 KB, 200 registers. On NVIDIA H100 80GB HBM3 at
+// 700 W (tools/flash_attn_bwd_ab.py), the dq pass at one warpgroup and
+// 64-key tiles took 58.3 us at the local case against 79.5 at two
+// warpgroups of 32-key tiles (80 blocks on 132 SMs); the dk/dv passes at
+// one warpgroup took 73-84 us against 71.
+// Filling the card: the dk and dv passes run as one launch
+// (fa_bwd_kv256_kernel), each block one q head's 128 keys, the group
+// split across blocks, so each head's dk and dv go to a float32 scratch
+// (2, BH, Skv, 256) that a third launch (fa_bwd256_sum_kernel) sums over
+// the group in head order. At RecurrentGemma's local layer, (20, 512,
+// 256) group 10, that is 160 dq blocks, 160 dk/dv blocks and 21.0 MB of
+// scratch written and read once (12.5 us at 3.35 TB/s, beside a bound of
+// 6.9 us); at PaliGemma's prefix case, (16, 768, 256) group 8, 192 and 192
+// blocks and 25.2 MB (15.0 us, bound 13.6 us). Walking g heads of a group
+// in a block cuts the scratch g-fold but the blocks too: at g = 2, 80 and
+// 96 dk/dv blocks on 132 SMs.
+//
+// float32 at Dh 256 (13c's one step and the gates only) keeps the passes
+// on the CUDA cores, with the same third launch: its 3xTF32 operands and
+// their transposed copies do not fit the tiles above. A thread owns one
+// of the 256 columns of its block's 32 rows (32 sums in the dq pass, 64
+// in the dk/dv pass), and every operand sits in shared memory as float32,
+// rows padded by one float so that a warp's walk down a column hits 32
+// banks:
 // - fa_bwd256_dq_kernel: 32 query rows of one head; each warp owns 4 rows
 //   and its lanes the 32 keys of a tile, so S = Q K^T, dP = dO V^T, the
 //   mask, the online row max and sum and dS~ = P~ (dP - D) close in
 //   shuffles; then every thread adds dS~ K to its column of dq~, rescaled
 //   by the change of the row max. lse (natural log) and D go to the dk/dv
-//   pass, as in the tensor-core passes.
-// - fa_bwd256_dkdv_kernel: 32 keys of one q head of the group (the group
-//   split across blocks, so that a kv head's keys fill the card); each
-//   warp owns 4 keys and its lanes the 32 queries of a tile: P^T =
-//   exp(S^T scale - lse), dS^T = P^T (dP^T - D); then every thread adds
-//   P^T dO and dS^T Q to its column of dv and dk. The head's dk and dv
-//   go to a float32 scratch (BH, Skv, 256) each.
-// - fa_bwd256_sum_kernel: dk and dv of each kv head, the scratch summed
-//   over its group in head order.
+//   pass.
+// - fa_bwd256_dkdv_kernel: 32 keys of one q head of the group; each warp
+//   owns 4 keys and its lanes the 32 queries of a tile: P^T = exp(S^T
+//   scale - lse), dS^T = P^T (dP^T - D); then every thread adds P^T dO
+//   and dS^T Q to its column of dv and dk, into the scratch.
+// - fa_bwd256_sum_kernel (both types): dk and dv of each kv head, the
+//   scratch summed over its group in head order.
 // Masks and the tiles walked are the tensor-core passes'. Every sum has a
 // fixed order and there are no atomics: two launches agree bitwise.
-// Bound: the same five products at the tensor cores' rate; these kernels
-// run at the CUDA cores' (67 TFLOP/s float32), from shared memory.
 // ---------------------------------------------------------------------------
 constexpr int R256 = 32;          // rows a block, columns a tile
 constexpr int D256 = 256;
@@ -1102,6 +1195,74 @@ int run256(const T* q, const T* k, const T* v, const T* o, const T* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Dh 256 on the tensor cores (bf16): the dk/dv pass split in two passes
+// of one launch, dk (S^T, dP^T, dS^T Q) and dv (S^T, P^T dO), each block a
+// key block of one q head, odd blocks dv and even ones dk of the same
+// keys and head (their Q and dO tiles read together through L2); each
+// head's dk and dv go to the float32 scratch that fa_bwd256_sum_kernel
+// sums over the group
+template <typename T>
+__global__ void __launch_bounds__(Cfg<T, 256, false>::THREADS, 1)
+fa_bwd_kv256_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const float* __restrict__ lse_in,
+                    const float* __restrict__ dsum_in,
+                    float* __restrict__ dk_part, float* __restrict__ dv_part,
+                    int nbh, int group, int sq, int skv, int causal,
+                    int window, int prefix, float scale, float scale_log2) {
+  const int i = blockIdx.x >> 1;
+  const int bh = i % nbh;
+  const int k0 = i / nbh * ROWS * Cfg<T, 256, false>::NWG;
+  const long long ooff = (long long)bh * skv * 256;
+  if (blockIdx.x & 1)
+    dkdv_pass<T, 256, DV, float>(q, k, v, dout, lse_in, dsum_in, dk_part,
+                                 dv_part, bh / group, bh, 1, k0, ooff, sq,
+                                 skv, causal, window, prefix, scale,
+                                 scale_log2);
+  else
+    dkdv_pass<T, 256, DK, float>(q, k, v, dout, lse_in, dsum_in, dk_part,
+                                 dv_part, bh / group, bh, 1, k0, ooff, sq,
+                                 skv, causal, window, prefix, scale,
+                                 scale_log2);
+}
+
+// bf16 Dh 256: the templated dq pass, the split dk/dv passes and the group
+// sum
+template <typename T>
+int run_tc256(const T* q, const T* k, const T* v, const T* o, const T* dout,
+              T* dq, T* dk, T* dv, float* lse, float* dsum, float* part,
+              int bh, int group, int sq, int skv, int causal, int window,
+              int prefix, float scale, cudaStream_t stream) {
+  if (part == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  using CQ = Cfg<T, 256, true>;
+  using CK = Cfg<T, 256, false>;
+  auto dq_kernel = fa_bwd_dq_kernel<T, 256>;
+  auto kv_kernel = fa_bwd_kv256_kernel<T>;
+  static const int err_q = ftile::allow_smem(dq_kernel, CQ::BYTES);
+  static const int err_k = ftile::allow_smem(kv_kernel, CK::BYTES);
+  if (err_q) return err_q;
+  if (err_k) return err_k;
+  const float scale_log2 = scale * 1.4426950408889634f;
+  const int nqb = (sq + ROWS * CQ::NWG - 1) / (ROWS * CQ::NWG);
+  dq_kernel<<<nqb * bh, CQ::THREADS, CQ::BYTES, stream>>>(
+      q, k, v, o, dout, dq, lse, dsum, bh, nqb, group, sq, skv, causal,
+      window, prefix, scale, scale_log2);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int nkb = (skv + ROWS * CK::NWG - 1) / (ROWS * CK::NWG);
+  const long long per_part = (long long)bh * skv * D256;
+  kv_kernel<<<2 * nkb * bh, CK::THREADS, CK::BYTES, stream>>>(
+      q, k, v, dout, lse, dsum, part, part + per_part, bh, group, sq, skv,
+      causal, window, prefix, scale, scale_log2);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long total = per_part / group;
+  fa_bwd256_sum_kernel<T><<<static_cast<int>((total + 255) / 256), 256, 0,
+                            stream>>>(part, part + per_part, dk, dv, group,
+                                      (long long)skv * D256, total);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, void* dq, void* dk, void* dv, void* lse,
@@ -1127,7 +1288,11 @@ int launch(const void* q, const void* k, const void* v, const void* o,
     case 32: return run<T, 32>(tq, tk, tv, to, td, gq, gk, gv, fl, fd, bh, group, sq, skv, causal, window, prefix, scale, st);
     case 64: return run<T, 64>(tq, tk, tv, to, td, gq, gk, gv, fl, fd, bh, group, sq, skv, causal, window, prefix, scale, st);
     case 128: return run<T, 128>(tq, tk, tv, to, td, gq, gk, gv, fl, fd, bh, group, sq, skv, causal, window, prefix, scale, st);
-    case 256: return run256<T>(tq, tk, tv, to, td, gq, gk, gv, fl, fd, static_cast<float*>(part), bh, group, sq, skv, causal, window, prefix, scale, st);
+    case 256:
+      if constexpr (std::is_same<T, float>::value)
+        return run256<T>(tq, tk, tv, to, td, gq, gk, gv, fl, fd, static_cast<float*>(part), bh, group, sq, skv, causal, window, prefix, scale, st);
+      else
+        return run_tc256<T>(tq, tk, tv, to, td, gq, gk, gv, fl, fd, static_cast<float*>(part), bh, group, sq, skv, causal, window, prefix, scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,5 +1,6 @@
 """Write wgmma_ops.cuh: the `wgmma.mma_async` instructions that
-flash_attn.cu, ring_matmul.cu and ssd.cu issue, one inline-PTX function per
+flash_attn.cu, flash_attn_bwd.cu, ring_matmul.cu, secure_matmul.cu, ssd.cu
+and ssd_bwd.cu issue, one inline-PTX function per
 (operand source, type, N). Each names every accumulator register of the
 m64nN tile (N / 2 a thread: floats, or s32 for the u8 products), which
 no preprocessor loop can spell out, hence this generator. Run it after changing the set below:
@@ -29,6 +30,9 @@ FORMS = {
     # 1): ssd's state update S^T += B^T (decayed X), B's and X's rows
     # along K
     "ss_bf16_tt": (16, "f32", "bf16", False, "1, 1, 1, 1"),
+    # A K-major, B MN-major in shared memory (imm-trans-b 1): ssd's
+    # backward X dS and dY S0, the state's rows (P) along K
+    "ss_bf16_bmn": (16, "f32", "bf16", False, "1, 1, 0, 1"),
     # tf32 takes K-major operands only
     "ss_tf32": (8, "f32", "tf32", False, "1, 1"),
     "rs_tf32": (8, "f32", "tf32", True, "1, 1"),
@@ -75,7 +79,7 @@ def render() -> str:
     parts = [
         "// Generated by gen_wgmma.py; do not edit. The wgmma.mma_async "
         "forms that\n"
-        "// flash_attn.cu and ssd.cu issue, m64nNk16 bf16 and m64nNk8 tf32 "
+        "// flash_attn*.cu and ssd*.cu issue, m64nNk16 bf16 and m64nNk8 tf32 "
         "into float32\n"
         "// accumulators, and that ring_matmul.cu issues, m64nNk32 u8 into "
         "s32\n"

@@ -13,10 +13,13 @@ bound on the card: bytes in bfloat16, operations in float32.
 Gradients: when grad mode is on and q, k or v requires grad, the call
 goes through a `torch.autograd.Function` whose forward is the kernel and
 whose backward is the backward kernel in csrc/flash_attn_bwd.cu, in two
-launches: dq with each row's lse and D, then dk and dv. At Dh up to 128
-it is FlashAttention-2's backward on the tensor cores (`wgmma` like the
-forward); at Dh 256 it is a pair of CUDA-core kernels whose float32 sums
-fit the registers (see the source). Every mask of the forward has its
+launches: dq with each row's lse and D, then dk and dv. It is
+FlashAttention-2's backward on the tensor cores (`wgmma` like the
+forward) at every Dh in bf16 and up to Dh 128 in float32; at Dh 256 the
+dk/dv pass splits into a dk and a dv pass of one launch, one q head a
+block, and a third launch sums dk and dv over each kv head's group
+(float32 Dh 256 runs these three on the CUDA cores; see the source).
+Every mask of the forward has its
 backward: bidir (Sq and Skv may differ), causal, local (a window) and
 prefix. On CPU tensors the same Function takes the plain versions
 `ref.flash_attn` and `ref.flash_attn_bwd`. `bwd_work` counts what the

@@ -14,9 +14,11 @@ Gradients: when grad mode is on and an operand requires grad, the call
 goes through `SsdScan`, a `torch.autograd.Function` whose forward is the
 kernel and whose backward is the kernel in csrc/ssd_bwd.cu: dx, da, db,
 dc and, when an initial state was given, its gradient, from dy and the
-final state's gradient (when the final state is used). On CPU tensors
-the same Function takes the plain versions `ref.ssd_chunked` and
-`ref.ssd_bwd`. `bwd_work` counts what the backward must do.
+final state's gradient (when the final state is used); bf16 chunk-parallel
+on the tensor cores (three launches), float32 on the CUDA cores (two).
+On CPU tensors the same Function takes the plain versions
+`ref.ssd_chunked` and `ref.ssd_bwd`. `bwd_work` counts what the backward
+must do.
 
 Dispatch: a CUDA tensor launches the kernel (or raises); a CPU tensor
 takes the plain chunked scan `kernels.ref.ssd_chunked`.
@@ -33,8 +35,7 @@ from repro_torch.kernels import ref
 # launches of the kernel ("kernel") and calls of the plain version on CPU
 # tensors ("ref") — the witness that a run went through the kernel
 _stats = {"kernel": 0, "ref": 0}
-# the same for the backward kernel (a call launches two: the per-head
-# pass, then the sum of b's and c's gradients over the heads)
+# the same for the backward kernel (`bwd_launches` a call)
 _bwd_stats = {"kernel": 0, "ref": 0}
 
 _FN = {torch.float32: "ssd_f32", torch.bfloat16: "ssd_bf16"}
@@ -109,6 +110,16 @@ def launch(x, a, b, c, chunk: int = MAX_CHUNK, state0=None):
 
 
 BWD_CHUNK = 64           # steps a chunk of the backward (csrc/ssd_bwd.cu)
+# bf16 backward (csrc/ssd_bwd.cu, QT, HG, IMG): heads a chunk-pass block,
+# and the bytes of one S0 or dS tile image (64 x 128 bf16)
+BWD_HEADS, BWD_IMAGE_BYTES = 5, 64 * 128 * 2
+
+
+def bwd_launches(dtype: torch.dtype) -> int:
+    """Kernels one backward call launches: bf16 the state pass, the
+    chunk pass and the sum over head groups; float32 the per-head pass and
+    the sum over heads."""
+    return 3 if dtype == torch.bfloat16 else 2
 
 
 def bwd_work(bsz: int, t: int, h: int, p: int, n: int,
@@ -194,10 +205,18 @@ def launch_bwd(x, a, b, c, dy, dstate=None, state0=None):
         return dx, da, db, dc, ds0
     nc = -(-t // BWD_CHUNK)
     f32 = dict(dtype=torch.float32, device=x.device)
-    # scratch: each chunk's entry state, and b's and c's gradients per
-    # head before the sum over the heads
-    states = torch.empty((bsz, h, nc, p, n), **f32)
-    dbh = torch.empty((bsz, h, t, n), **f32)
+    if x.dtype == torch.bfloat16:
+        # scratch: each chunk's S0 and dS as hi and lo bf16 tile images,
+        # and b's and c's gradients per group of BWD_HEADS heads
+        states = torch.empty(bsz * h * nc * 4 * BWD_IMAGE_BYTES,
+                             dtype=torch.uint8, device=x.device)
+        parts = -(-h // BWD_HEADS)
+    else:
+        # scratch: each chunk's entry state, and b's and c's gradients per
+        # head
+        states = torch.empty((bsz, h, nc, p, n), **f32)
+        parts = h
+    dbh = torch.empty((bsz, parts, t, n), **f32)
     dch = torch.empty_like(dbh)
 
     def ptr(v):
@@ -211,7 +230,7 @@ def launch_bwd(x, a, b, c, dy, dstate=None, state0=None):
     if err != 0:
         raise RuntimeError(f"ssd backward kernel launch failed: CUDA error "
                            f"{err}")
-    _bwd_stats["kernel"] += 2       # the per-head pass, then the head sum
+    _bwd_stats["kernel"] += bwd_launches(x.dtype)
     return dx, da, db, dc, ds0
 
 

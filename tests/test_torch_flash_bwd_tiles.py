@@ -9,11 +9,17 @@ rescaled when m grows, dq = dq~ scale / l at the end, and it writes lse =
 m + log2 l (base 2) and D = rowsum(do o). The dk/dv pass gives a
 warpgroup 64 keys and walks the group's q heads and each one's query
 tiles in order: P^T = exp2(S^T scale log2 e - lse), dS^T = P^T (dP^T - D),
-dv += P^T do, dk += dS^T q. `kernel_model` below is that arithmetic in
-plain torch, a model for this test that runs on no path:
+dv += P^T do, dk += dS^T q. At bf16 Dh 256 the dk/dv pass is two passes
+of one launch (dk: S^T, dP^T, dk += dS^T q; dv: S^T, dv += P^T do), each
+block one q head's 128 keys, and a third launch sums each head's float32
+dk and dv over the kv head's group in head order. `kernel_model` below is
+that arithmetic in plain torch, a model for this test that runs on no
+path:
 
 - the tile walk of each pass, with the blocks' skipped (wholly masked)
-  tiles, and dk / dv summed over a kv head's group in the kernel's order;
+  tiles under the window and prefix masks, and dk / dv summed over a kv
+  head's group in the kernel's order (one accumulator walking the heads,
+  or at bf16 Dh 256 each head's float32 partial, then their sum);
 - float32 (3xTF32): every operand x split into hi = tf32(x) and lo =
   tf32(x - hi), a product lo hi + hi lo + hi hi; the register operands (P,
   dS) split the same way, and the products that contract over keys or
@@ -39,6 +45,7 @@ import torch
 
 from repro.kernels import flash_attn as j_pallas
 from repro.kernels import ref as j_ref
+from repro.models import attention as j_attn
 from repro_torch.kernels import flash_attn as fa
 from repro_torch.kernels import ref
 
@@ -55,19 +62,21 @@ def plan(dq: bool, f32: bool, dh: int) -> tuple[int, int]:
     """(BN, NWG) of a pass: the column tile (keys in the dq pass, queries
     in the dk/dv pass) and the warpgroups of 64 rows a block, as `Cfg` in
     the kernel source."""
-    nwg = 1 if f32 and dh >= 128 else DQ_NWG if dq else DKDV_NWG
+    dq256 = dq and not f32 and dh == 256      # one warpgroup, whole tiles
+    nwg = 1 if (f32 and dh >= 128) or dq256 else DQ_NWG if dq else DKDV_NWG
     bn = ((DQ_BN_F32 if f32 else DQ_BN_BF16) if dq
           else DKDV_BN_F32 if f32 else DKDV_BN_BF16)
-    return bn // (2 if dh >= 128 else 1), nwg
+    return bn // (2 if dh >= 128 and not dq256 else 1), nwg
 
 
-def dq_walk(sq, skv, dh, f32, causal, window):
+def dq_walk(sq, skv, dh, f32, causal, window, prefix=0):
     """(query rows, key tile start, BN) of every step of the dq pass, per
     q head: a block of NWG warpgroups walks the key tiles from its first
-    row's window to its last row's diagonal."""
+    row's window to its last row's diagonal (or to the prefix, where that
+    lies further)."""
     bn, nwg = plan(True, f32, dh)
     for b0 in range(0, sq, ROWS * nwg):
-        kend = min(skv, b0 + ROWS * nwg) if causal else skv
+        kend = min(skv, max(b0 + ROWS * nwg, prefix)) if causal else skv
         kbeg = max(0, b0 - window + 1) // bn * bn if window > 0 else 0
         for w in range(nwg):
             rows = range(b0 + ROWS * w, min(sq, b0 + ROWS * (w + 1)))
@@ -75,14 +84,15 @@ def dq_walk(sq, skv, dh, f32, causal, window):
                 yield rows, [k0 for k0 in range(kbeg, kend, bn)], bn
 
 
-def dkdv_walk(sq, skv, dh, f32, causal, window):
+def dkdv_walk(sq, skv, dh, f32, causal, window, prefix=0):
     """(key rows, query tile starts, BN) of every block of the dk/dv pass,
-    per kv head: from the first key's diagonal to the last query whose
-    window holds the block's last key."""
+    per kv head: from the first key's diagonal (from query 0 if a key of
+    the block lies in the prefix) to the last query whose window holds the
+    block's last key."""
     bn, nwg = plan(False, f32, dh)
     for k0 in range(0, skv, ROWS * nwg):
         klast = min(skv, k0 + ROWS * nwg) - 1
-        qbeg = k0 // bn * bn if causal else 0
+        qbeg = k0 // bn * bn if causal and k0 >= prefix else 0
         qend = min(sq, klast + window) if causal and window > 0 else sq
         for w in range(nwg):
             keys = range(k0 + ROWS * w, min(skv, k0 + ROWS * (w + 1)))
@@ -153,20 +163,21 @@ def rs(frag, b, f32, passes=3, perm=vt_col):
         + ah @ th.transpose(-1, -2)
 
 
-def keep(qi, kj, causal, window):
+def keep(qi, kj, causal, window, prefix=0):
     """The mask over query indices qi (rows) and key indices kj."""
     qi, kj = torch.as_tensor(qi)[:, None], torch.as_tensor(kj)[None, :]
     if not causal:
         return torch.ones(qi.shape[0], kj.shape[1], dtype=torch.bool)
-    m = kj <= qi
+    m = (kj <= qi) | (kj < prefix)
     return m & (kj > qi - window) if window else m
 
 
 def kernel_model(q, k, v, o, do, causal=False, window=0, passes=3,
-                 perm=vt_col):
+                 perm=vt_col, prefix=0):
     """(dq, dk, dv) in the inputs' dtype, computed as the kernel computes
     them."""
     f32 = q.dtype == torch.float32
+    split_group = not f32 and q.shape[2] == 256   # per-head partials, summed
     bh, sq, dh = q.shape
     nkv, skv = k.shape[:2]
     group = bh // nkv
@@ -178,7 +189,8 @@ def kernel_model(q, k, v, o, do, causal=False, window=0, passes=3,
     dq = torch.zeros(bh, sq, dh)
     lse = torch.zeros(bh, sq)
     ninf = torch.tensor(-math.inf)
-    for rows, tiles, bn in dq_walk(sq, skv, dh, f32, causal, window):
+    for rows, tiles, bn in dq_walk(sq, skv, dh, f32, causal, window,
+                                   prefix):
         r = slice(rows.start, rows.stop)
         m = torch.full((bh, len(rows)), -math.inf)
         l = torch.zeros(bh, len(rows))
@@ -188,7 +200,7 @@ def kernel_model(q, k, v, o, do, causal=False, window=0, passes=3,
             s = ss(qf[:, r], kq[:, c], f32, passes)
             dp = ss(dof[:, r], vq[:, c], f32, passes)
             s = torch.where(keep(rows, range(c.start, c.stop), causal,
-                                 window), s, ninf)
+                                 window, prefix), s, ninf)
             x = s * sl2
             m_new = torch.maximum(m, x.amax(-1))
             mu = torch.where(m_new == -math.inf, 0.0, m_new)
@@ -203,7 +215,8 @@ def kernel_model(q, k, v, o, do, causal=False, window=0, passes=3,
         lse[:, r] = m + torch.log2(l)
     dk = torch.zeros(nkv, skv, dh)
     dv = torch.zeros(nkv, skv, dh)
-    for keys, tiles, bn in dkdv_walk(sq, skv, dh, f32, causal, window):
+    for keys, tiles, bn in dkdv_walk(sq, skv, dh, f32, causal, window,
+                                     prefix):
         kr = slice(keys.start, keys.stop)
         dka = torch.zeros(nkv, len(keys), dh)
         dva = torch.zeros(nkv, len(keys), dh)
@@ -213,25 +226,34 @@ def kernel_model(q, k, v, o, do, causal=False, window=0, passes=3,
                 c = slice(q0, min(sq, q0 + bn))
                 st = ss(kf[:, kr], qf[hq, c], f32, passes, dq_order=False)
                 dpt = ss(vf[:, kr], dof[hq, c], f32, passes, dq_order=False)
-                kept = keep(range(c.start, c.stop), keys, causal, window).T
+                kept = keep(range(c.start, c.stop), keys, causal, window,
+                            prefix).T
                 p = torch.where(kept, torch.exp2(st * sl2 - lse[hq, None, c]),
                                 0.0)
                 dst = p * (dpt - dsum[hq, None, c])
                 dva = dva + rs(p, dof[hq, c], f32, passes, perm)
                 dka = dka + rs(dst, qf[hq, c], f32, passes, perm)
-        dk[:, kr] = dka * scale
-        dv[:, kr] = dva
+            if split_group:
+                # the head's float32 partial (dk scaled), added to the sum
+                # in head order by the third launch
+                dk[:, kr] += dka * scale
+                dv[:, kr] += dva
+                dka, dva = torch.zeros_like(dka), torch.zeros_like(dva)
+        if not split_group:
+            dk[:, kr] = dka * scale
+            dv[:, kr] = dva
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _inputs(bh, s, dh, group, dtype, scale=1.0, seed=0, causal=False,
-            window=0):
+            window=0, prefix=0):
     rng = np.random.default_rng(seed)
     q, k, v, do = (torch.from_numpy(
         (rng.normal(size=sh) * sc).astype(np.float32)).to(dtype)
         for sh, sc in (((bh, s, dh), scale), ((bh // group, s, dh), scale),
                        ((bh // group, s, dh), 1.0), ((bh, s, dh), 1.0)))
-    o = ref.flash_attn(q, k, v, causal=causal, window=window)
+    o = ref.flash_attn(q, k, v, causal=causal, window=window,
+                       prefix_len=prefix)
     return q, k, v, o, do
 
 
@@ -388,6 +410,98 @@ def test_walks_visit_every_kept_pair_once(shape):
     assert (seen[mask] == 1).all()
 
 
+# bf16 Dh 256 (the dq pass and the split dk / dv passes on the tensor
+# cores, the group's per-head partials summed in head order): (BH, S,
+# group, causal, window, prefix) at S off 64, group 1 and split groups, a
+# window whose first key tile is partial, a prefix past a tile and = S
+CASES_256 = [
+    (4, 100, 1, True, 0, 0),
+    (6, 150, 3, True, 0, 0),
+    (4, 130, 2, True, 40, 0),
+    (4, 140, 2, True, 0, 70),
+    (4, 96, 4, True, 0, 96),
+    (2, 77, 1, False, 0, 0),
+]
+
+
+def _id256(case):
+    bh, s, group, causal, window, prefix = case
+    return (f"{bh}x{s}-g{group}{'-causal' if causal else '-bidir'}"
+            f"{f'-w{window}' if window else ''}"
+            f"{f'-p{prefix}' if prefix else ''}")
+
+
+@pytest.fixture(scope="module")
+def dh256_cases():
+    """Each case's inputs and the model's gradients (shared by the tests
+    below: the model walks every tile in plain torch)."""
+    out = {}
+    for case in CASES_256:
+        bh, s, group, causal, window, prefix = case
+        ins = _inputs(bh, s, 256, group, BF, causal=causal, window=window,
+                      prefix=prefix, seed=3)
+        out[case] = ins, kernel_model(*ins, causal, window, prefix=prefix)
+    return out
+
+
+@pytest.mark.parametrize("case", CASES_256, ids=_id256)
+def test_dh256_bf16_model_matches_plain(dh256_cases, case):
+    bh, s, group, causal, window, prefix = case
+    (q, k, v, o, do), got = dh256_cases[case]
+    want = ref.flash_attn_bwd(q, k, v, o, do, causal=causal, window=window,
+                              prefix_len=prefix)
+    assert all(g.dtype == BF for g in got)
+    _check(got, want, BF16_TOL)
+
+
+@pytest.mark.parametrize("case", CASES_256, ids=_id256)
+def test_dh256_bf16_model_matches_jax_vjp(dh256_cases, case):
+    """Against jax.vjp of the JAX package's plain attention with the same
+    mask (models/attention.py:attend_full: heads on axis 2, kv head h //
+    group), on the inputs' float32 values."""
+    bh, s, group, causal, window, prefix = case
+    (q, k, v, o, do), got = dh256_cases[case]
+    kind = ("bidir" if not causal else "local" if window
+            else "prefix" if prefix else "causal")
+
+    def heads(x):                          # (BH, S, Dh) -> (1, S, BH, Dh)
+        return jnp.asarray(x.float().numpy().transpose(1, 0, 2)[None])
+    _, vjp = jax.vjp(lambda q, k, v: j_attn.attend_full(
+        q, k, v, mask_kind=kind, window=window, prefix_len=prefix),
+        heads(q), heads(k), heads(v))
+    want = [torch.from_numpy(np.array(w)[0].transpose(1, 0, 2))
+            for w in vjp(heads(do))]
+    _check(got, want, BF16_TOL)
+
+
+@pytest.mark.parametrize("case", CASES_256, ids=_id256)
+def test_dh256_walks_visit_every_kept_pair_once(case):
+    """The bf16 Dh-256 plan's walks (the dq pass one warpgroup of 64 rows
+    and 64-key tiles, the dk/dv passes two warpgroups of 64 keys and
+    32-query tiles) under every mask: each kept (query, key) pair falls in
+    exactly one visited tile of each pass, and no dk/dv block visits a
+    query tile that no key of its own keeps."""
+    bh, s, group, causal, window, prefix = case
+    mask = keep(range(s), range(s), causal, window, prefix).numpy()
+    seen = np.zeros((s, s), dtype=int)
+    assert plan(True, False, 256) == (64, 1)
+    assert plan(False, False, 256) == (32, 2)
+    for rows, tiles, bn in dq_walk(s, s, 256, False, causal, window,
+                                   prefix):
+        for k0 in tiles:
+            seen[rows.start:rows.stop, k0:min(s, k0 + bn)] += 1
+    assert (seen[mask] == 1).all()
+    seen = np.zeros((s, s), dtype=int)
+    span = ROWS * plan(False, False, 256)[1]
+    for keys, tiles, bn in dkdv_walk(s, s, 256, False, causal, window,
+                                     prefix):
+        k0 = keys.start - keys.start % span
+        for q0 in tiles:
+            assert mask[q0:q0 + bn, k0:k0 + span].any()
+            seen[q0:min(s, q0 + bn), keys.start:keys.stop] += 1
+    assert (seen[mask] == 1).all()
+
+
 def test_tile_constants_match_the_kernel_source():
     src = SRC.read_text()
     for name, want in (("ROWS", ROWS), ("DQ_BN_BF16", DQ_BN_BF16),
@@ -398,6 +512,18 @@ def test_tile_constants_match_the_kernel_source():
         m = re.search(rf"constexpr int {name} = (\d+);", src)
         assert m and int(m.group(1)) == want, name
     assert "(j & ~7) | ((j & 1) << 2) | ((j & 7) >> 1)" in src
+    # the Dh-256 plan: column tiles halved from Dh 128 (plan()), bf16 on
+    # the tensor-core passes (one q head a dk/dv block: its float32
+    # partials, summed over the group), float32 on the CUDA cores
+    assert "DQ256 = DQ && !F32 && DH == 256;" in src
+    assert "NWG = BIG || DQ256 ? 1 : DQ ? DQ_NWG : DKDV_NWG;" in src
+    assert "(DH >= 128 && !DQ256 ? 2 : 1)" in src
+    assert "enum Part { DKDV = 0, DK = 1, DV = 2 };" in src
+    assert re.search(r"dkdv_pass<T, 256, DV, float>\(.*?bh / group, bh, 1,",
+                     src, re.S)
+    assert re.search(r"dkdv_pass<T, 256, DK, float>\(.*?bh / group, bh, 1,",
+                     src, re.S)
+    assert re.search(r"is_same<T, float>::value\)\s*return run256<T>", src)
 
 
 def test_bwd_work_at_the_path_case():

@@ -1096,10 +1096,16 @@ def test_fronts_without_backward_refuse_grad(cuda, kernel):
 @pytest.mark.parametrize("case", [
     # (dtype, BH, S, Dh, group, window, prefix): RecurrentGemma's local
     # layer (group 10, window past S) and PaliGemma's prefix (group 8),
-    # cut in BH; prefixes of 1, = S and past a key tile; Dh 256 float32
-    # with a window and bidir; the prefix at Dh 64 and 128 (tensor cores)
+    # cut in BH; bf16 Dh 256 at S off 64, a group of 3 that two key blocks
+    # share unevenly, a window whose first tile is partial and a prefix
+    # past a tile; prefixes of 1, = S and past a key tile; Dh 256 float32
+    # with a window and bidir; the prefix at Dh 64 and 128
     (torch.bfloat16, 10, 512, 256, 10, 2048, 0),
     (torch.bfloat16, 8, 768, 256, 8, 0, 256),
+    (torch.bfloat16, 6, 150, 256, 3, 0, 0),
+    (torch.bfloat16, 4, 200, 256, 2, 70, 0),
+    (torch.bfloat16, 4, 300, 256, 1, 0, 97),
+    (torch.bfloat16, 2, 77, 256, 1, -1, 0),
     (torch.float32, 4, 130, 256, 2, 0, 1),
     (torch.float32, 4, 130, 256, 1, 0, 130),
     (torch.float32, 4, 130, 256, 2, 0, 97),
@@ -1109,9 +1115,10 @@ def test_fronts_without_backward_refuse_grad(cuda, kernel):
     (torch.bfloat16, 4, 300, 128, 1, 0, 65),
     (torch.float32, 4, 70, 64, 1, 0, 70)])
 def test_flash_attn_backward_dh256_and_prefix_match_plain(cuda, case):
-    """The backward at Dh 256 (CUDA cores: dq, dk/dv per head, the group
-    sum) and with the prefix mask, against autograd of the plain version
-    (window -1: bidirectional)."""
+    """The backward at Dh 256 (bf16 on the tensor cores: the dq pass,
+    the dk and dv passes per q head, the group sum; float32 on the CUDA
+    cores, the same three launches) and with the prefix mask, against
+    autograd of the plain version (window -1: bidirectional)."""
     from repro_torch.kernels import flash_attn as fa
     dtype, bh, s, dh, group, window, prefix = case
     causal, window = window >= 0, max(window, 0)
@@ -1137,8 +1144,14 @@ def test_flash_attn_backward_dh256_and_prefix_match_plain(cuda, case):
     # (dtype, B, T, H, P, N, decay, state0, dstate): Mamba-2's training
     # shape cut to 8 heads, in bf16 and float32; a chunk's worth and a
     # ragged T; no decay; decays that underflow; a large initial state
-    # with its gradient; a final-state gradient; P and N off 32
+    # with its gradient; a final-state gradient; P and N off 32; bf16 (the
+    # tensor-core passes) at T off the chunk, heads off the block's group,
+    # P and N off the tiles (element loads), P past one state slice
     (torch.bfloat16, 2, 512, 8, 64, 128, "rand", False, False),
+    (torch.bfloat16, 2, 150, 7, 64, 128, "rand", True, True),
+    (torch.bfloat16, 1, 77, 3, 5, 7, "rand", True, True),
+    (torch.bfloat16, 2, 100, 6, 40, 96, "underflow", False, True),
+    (torch.bfloat16, 1, 64, 2, 16, 32, "none", True, False),
     (torch.float32, 2, 512, 8, 64, 128, "rand", False, False),
     (torch.float32, 1, 64, 3, 64, 128, "rand", False, False),
     (torch.float32, 2, 150, 3, 16, 32, "none", False, True),
@@ -1164,7 +1177,8 @@ def test_ssd_backward_matches_plain_autograd(cuda, case):
     ssdk.reset_bwd_stats()
     got = torch.autograd.grad(loss(*ssdk.ssd_chunked(x, a, b, c,
                                                       state0=st0)), ins)
-    assert ssdk.bwd_stats() == {"kernel": 2, "ref": 0}
+    assert ssdk.bwd_stats() == {"kernel": ssdk.bwd_launches(dtype),
+                                "ref": 0}
     want = torch.autograd.grad(loss(*ref.ssd(x, a, b, c, state0=st0)), ins)
     tol = SCAN_TOL if dtype == torch.float32 else FLOAT_TOL[dtype]
     for gg, w in zip(got, want):

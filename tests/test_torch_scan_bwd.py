@@ -168,64 +168,226 @@ def test_ssd_scan_grad_matches_jax(state0, chunk):
         close(g, np.asarray(w), JAX_TOL)
 
 
-def chunked_bwd_model(x, a, b, c, dy, dstate, state0, qc):
-    """The ssd backward kernel's arithmetic (csrc/ssd_bwd.cu) in float64:
-    the chunk entry states from a forward walk, then per chunk, from the
-    last, W = L o CB^T, R2 = L o dY X^T, G2 = W o dY X^T, dX, dB, dC, the
-    gradient g of the chunk's running sum of a (G2's row sums less its
-    column sums, the S0 and dS terms) summed from each step to the
-    chunk's end, and dS carried to the chunk before."""
+def _bf(v):
+    """Round to bfloat16, keeping the dtype (the kernel's bf16 operands)."""
+    return v.to(torch.bfloat16).to(v.dtype)
+
+
+def _hi_lo(v):
+    """The kernel's hi + lo split: two bf16 values whose sum keeps ~16
+    bits of v."""
+    hi = _bf(v)
+    return hi, _bf(v - hi)
+
+
+SSD_QT, SSD_HG = 64, 5          # csrc/ssd_bwd.cu: QT, HG
+
+
+def ssd_bwd_model(x, a, b, c, dy, dstate, state0, rounding=True,
+                  hi_lo=True):
+    """The bf16 ssd backward kernel's arithmetic (csrc/ssd_bwd.cu), in
+    chunks of SSD_QT steps, as a plain model for this test (it runs on no
+    path). The state pass: S0 of each chunk from the forward chain S <-
+    e^{cum_last} S + B^T (etail o X), dS leaving each chunk from the
+    backward chain dS <- e^{cum_last} dS + (ecum o dY)^T C, the scaled
+    operand split hi + lo and both products summed in float32, each chain
+    value stored as a hi + lo bf16 image. The chunk pass, per (batch,
+    chunk, head): W = L o C B^T, R2 = L o dY X^T and G2 = W o dY X^T in
+    float32 (exact products of bf16 values), dX = bf16(W)^T dY + etail o
+    (B dS_hi^T), dB += bf16(R2)^T C + etail o (X dS), dC += bf16(R2) B +
+    ecum o (dY S0), the images' hi + lo in the last two; da from G2's row
+    and column sums, the S0 and e terms and <dS, S0>. dB and dC sum over
+    the heads in groups of SSD_HG, then over the groups, in order; dX, dB
+    and dC come back in bf16. With `rounding` False every value is float64
+    and nothing rounds: the algebra alone; with `hi_lo` False every hi +
+    lo split keeps its hi part only."""
+    dt = torch.float32 if rounding else torch.float64
+    rnd = _bf if rounding else (lambda v: v)
+    if not rounding:
+        def split(v):
+            return v, torch.zeros_like(v)
+    elif hi_lo:
+        split = _hi_lo
+    else:
+        def split(v):
+            return _bf(v), torch.zeros_like(v)
     bsz, t, h, p = x.shape
-    x, a, b, c, dy = (v.double() for v in (x, a, b, c, dy))
-    dx, da = torch.zeros_like(x), torch.zeros_like(a)
-    dbh = torch.zeros((bsz, h, t, b.shape[-1]), dtype=torch.float64)
-    dch = torch.zeros_like(dbh)
-    ds0 = torch.zeros((bsz, h, p, b.shape[-1]), dtype=torch.float64)
-    starts = list(range(0, t, qc))
+    n = b.shape[-1]
+    x, a, b, c, dy = (v.to(dt) for v in (x, a, b, c, dy))
+    starts = list(range(0, t, SSD_QT))
+    nc = len(starts)
+
+    def chunk(bi, k, hh):
+        sl = slice(starts[k], min(t, starts[k] + SSD_QT))
+        cum = torch.cumsum(a[bi, sl, hh], 0)
+        return (sl, cum, torch.exp(cum), torch.exp(cum[-1] - cum),
+                torch.exp(cum[-1]))
+
+    # the state pass: the chain values as hi + lo images
+    s0_img = torch.zeros((bsz, h, nc, p, n), dtype=dt)
+    ds_img = torch.zeros_like(s0_img)
+    ds_hi = torch.zeros_like(s0_img)
+    ds0 = torch.zeros((bsz, h, p, n), dtype=dt)
     for bi in range(bsz):
         for hh in range(h):
-            s = state0[bi, hh].double().clone()
-            entry = []
-            for t0 in starts:
-                entry.append(s.clone())
-                for i in range(t0, min(t, t0 + qc)):
-                    s = s * torch.exp(a[bi, i, hh]) \
-                        + torch.outer(x[bi, i, hh], b[bi, i])
-            dS = dstate[bi, hh].double().clone()
-            for k in reversed(range(len(starts))):
-                t0 = starts[k]
-                q = min(qc, t - t0)
-                sl = slice(t0, t0 + q)
-                X, DY, B, C = x[bi, sl, hh], dy[bi, sl, hh], b[bi, sl], \
-                    c[bi, sl]
-                cum = torch.cumsum(a[bi, sl, hh], 0)
-                ecum, etail = torch.exp(cum), torch.exp(cum[-1] - cum)
-                tri = torch.ones((q, q), dtype=torch.bool).tril()
-                L = torch.exp(cum[:, None] - cum[None, :]) * tri
-                W, R2 = L * (C @ B.T), L * (DY @ X.T)
-                G2 = W * (DY @ X.T)
-                dx[bi, sl, hh] = W.T @ DY + etail[:, None] * (B @ dS.T)
-                t6 = X @ dS
-                dbh[bi, hh, sl] = R2.T @ C + etail[:, None] * t6
-                ev = etail * (B * t6).sum(1)
-                t7 = DY @ entry[k]
-                dch[bi, hh, sl] = R2 @ B + ecum[:, None] * t7
-                g = G2.sum(1) - G2.sum(0) + ecum * (C * t7).sum(1) - ev
-                g[-1] += ev.sum() + ecum[-1] * (dS * entry[k]).sum()
-                da[bi, sl, hh] = torch.flip(torch.cumsum(torch.flip(g, [0]),
-                                                         0), [0])
-                dS = ecum[-1] * dS + (ecum[:, None] * DY).T @ C
-            ds0[bi, hh] = dS
-    return dx, da, dbh.sum(1), dch.sum(1), ds0
+            st = (torch.zeros((p, n), dtype=dt) if state0 is None
+                  else state0[bi, hh].to(dt))
+            for k in range(nc):
+                hi, lo = split(st)
+                s0_img[bi, hh, k] = hi + lo
+                sl, cum, ecum, etail, decay = chunk(bi, k, hh)
+                xh, xl = split(etail[:, None] * x[bi, sl, hh])
+                st = decay * st + xh.T @ b[bi, sl] + xl.T @ b[bi, sl]
+            g = (torch.zeros((p, n), dtype=dt) if dstate is None
+                 else dstate[bi, hh].to(dt))
+            for k in reversed(range(nc)):
+                hi, lo = split(g)
+                ds_img[bi, hh, k], ds_hi[bi, hh, k] = hi + lo, hi
+                sl, cum, ecum, etail, decay = chunk(bi, k, hh)
+                yh, yl = split(ecum[:, None] * dy[bi, sl, hh])
+                g = decay * g + yh.T @ c[bi, sl] + yl.T @ c[bi, sl]
+            ds0[bi, hh] = g
+
+    # the chunk pass
+    dx, da = torch.zeros_like(x), torch.zeros_like(a)
+    ngr = -(-h // SSD_HG)
+    dbg = torch.zeros((bsz, ngr, t, n), dtype=dt)
+    dcg = torch.zeros_like(dbg)
+    for bi in range(bsz):
+        for k in range(nc):
+            for gi in range(ngr):
+                for hh in range(gi * SSD_HG, min(h, (gi + 1) * SSD_HG)):
+                    sl, cum, ecum, etail, _ = chunk(bi, k, hh)
+                    q = cum.shape[0]
+                    X, DY, B, C = x[bi, sl, hh], dy[bi, sl, hh], b[bi, sl], \
+                        c[bi, sl]
+                    tri = torch.ones((q, q), dtype=torch.bool).tril()
+                    L = torch.where(tri, torch.exp(cum[:, None]
+                                                   - cum[None, :]), 0.0)
+                    dyx = DY @ X.T
+                    W, R2 = L * (C @ B.T), L * dyx
+                    G2 = W * dyx
+                    S0, dS = s0_img[bi, hh, k], ds_img[bi, hh, k]
+                    bds = B @ ds_hi[bi, hh, k].T
+                    dx[bi, sl, hh] = rnd(W).T @ DY + etail[:, None] * bds
+                    xds, dys0 = X @ dS, DY @ S0
+                    ev = etail * (B * xds).sum(1)
+                    dbg[bi, gi, sl] += rnd(R2).T @ C + etail[:, None] * xds
+                    dcg[bi, gi, sl] += rnd(R2) @ B + ecum[:, None] * dys0
+                    g = (G2.sum(1) - G2.sum(0) + ecum * (C * dys0).sum(1)
+                         - ev)
+                    g[-1] += ev.sum() + ecum[-1] * (dS * S0).sum()
+                    da[bi, sl, hh] = torch.flip(
+                        torch.cumsum(torch.flip(g, [0]), 0), [0])
+    db, dc = dbg.sum(1), dcg.sum(1)
+    out = (dx, db, dc) if not rounding else tuple(
+        v.to(torch.bfloat16) for v in (dx, db, dc))
+    return out[0], da, out[1], out[2], (None if state0 is None else ds0)
 
 
-@pytest.mark.parametrize("t,qc", [(40, 16), (64, 64), (5, 64), (33, 1)])
-def test_ssd_bwd_kernel_model_matches_plain(t, qc):
-    x, a, b, c, s0, dy, ds = ssd_inputs(5, t=t)
-    got = chunked_bwd_model(x, a, b, c, dy, ds, s0, qc)
+@pytest.mark.parametrize("t,h,p,n,decay", [
+    (40, 3, 4, 5, "rand"), (64, 7, 16, 8, "rand"), (150, 6, 5, 7, "rand"),
+    (130, 2, 8, 8, "rand"), (70, 2, 8, 6, "none")])
+def test_ssd_bwd_kernel_model_matches_plain(t, h, p, n, decay):
+    """The kernel's decomposition (chunk-parallel products, the state
+    pass's chains, dB and dC in head groups) without rounding, in float64,
+    against the plain step-by-step backward in float64: within 1e-6 of
+    each gradient's max |plain|. T off the chunk, heads off the group, a
+    head dim and state off the tiles, absent decays. (Decays that
+    underflow leave da ~1e-21, which the chunked form's row and column
+    sums of G2 lose against their O(1) diagonal: the card's gate holds
+    them within 1e-2 of max(1, max |plain|).)"""
+    x, a, b, c, s0, dy, ds = ssd_inputs(5, t=t, h=h, p=p, n=n, decay=decay)
+    got = ssd_bwd_model(x, a, b, c, dy, ds, s0, rounding=False)
     want = ref.ssd_bwd(*(v.double() for v in (x, a, b, c, dy, ds, s0)))
     for g, w in zip(got, want):
         close(g, w, 1e-6)
+
+
+SSD_BF16_TOL = 1e-2     # the card's bf16 gate (chip_smoke.py BF16_TOL)
+
+
+def _bf16_err(got, want) -> float:
+    g, w = (v.detach().double().numpy() if torch.is_tensor(v)
+            else np.array(v, dtype=np.float64) for v in (got, want))
+    return float(np.abs(g - w).max() / max(1.0, float(np.abs(w).max())))
+
+
+@pytest.fixture(scope="module")
+def ssd_bf16_case():
+    """bf16 inputs at Mamba-2's head and state widths, cut to 2 batch
+    rows of 150 steps (T off the chunk) and 7 heads (off the group), the
+    model's log decays, an initial state x10 and a final-state gradient;
+    the kernel model with its roundings, and the plain float32 backward
+    on the same bf16 values."""
+    r = rng_np(8)
+    bsz, t, h, p, n = 2, 150, 7, 64, 128
+    x, b, c, dy = (torch.tensor(r.standard_normal(sh), dtype=torch.float32)
+                   .to(torch.bfloat16) for sh in
+                   ((bsz, t, h, p), (bsz, t, n), (bsz, t, n), (bsz, t, h, p)))
+    a = torch.tensor(-0.1 - 2.0 * r.random((bsz, t, h)), dtype=torch.float32)
+    s0 = torch.tensor(r.standard_normal((bsz, h, p, n)) * 10,
+                      dtype=torch.float32)
+    ds = torch.tensor(r.standard_normal((bsz, h, p, n)), dtype=torch.float32)
+    ins = (x, a, b, c, dy, ds, s0)
+    return ins, ssd_bwd_model(*ins), ref.ssd_bwd(*ins)
+
+
+def test_ssd_bwd_kernel_model_bf16_matches_plain(ssd_bf16_case):
+    """The model with the kernel's roundings (bf16 W and R2 into dX, dB,
+    dC; the chains' and images' hi + lo; dX, dB, dC rounded at the end)
+    against the plain backward on the same bf16 inputs, within the card's
+    bf16 gate, 1e-2 of max(1, max |plain|), each gradient."""
+    _, got, want = ssd_bf16_case
+    assert got[0].dtype == torch.bfloat16 and got[2].dtype == torch.bfloat16
+    for g, w in zip(got, want):
+        assert _bf16_err(g, w) <= SSD_BF16_TOL
+
+
+def test_ssd_bwd_kernel_model_bf16_matches_jax(ssd_bf16_case):
+    """The same against jax.grad of the JAX package's chunked scan
+    (repro/models/ssd.py:ssd_scan, chunk 50) on the inputs' float32
+    values, within the same gate."""
+    (x, a, b, c, dy, ds, s0), got, _ = ssd_bf16_case
+    vals = [v.float().numpy() for v in (x, a, b, c, s0)]
+
+    def j_loss(x, a, b, c, s0):
+        y, s = j_ssd.ssd_scan(x, a, b, c, chunk=50, state0=s0)
+        return jnp.sum(y * dy.float().numpy()) + jnp.sum(s * ds.numpy())
+    want = jax.grad(j_loss, argnums=(0, 1, 2, 3, 4))(
+        *[jnp.asarray(v) for v in vals])
+    for g, w in zip([got[0], got[1], got[2], got[3], got[4]], want):
+        assert _bf16_err(g, np.asarray(w)) <= SSD_BF16_TOL
+
+
+def test_ssd_bwd_chains_need_the_hi_lo_split(ssd_bf16_case):
+    """The hi + lo splits (the chains' scaled operands, the images) are
+    what keep da, a difference of sums that nearly cancel, well inside
+    the gate: with each split cut to its hi part, da's error grows
+    several-fold."""
+    ins, got, want = ssd_bf16_case
+    one = ssd_bwd_model(*ins, hi_lo=False)
+    err_split, err_one = _bf16_err(got[1], want[1]), _bf16_err(one[1],
+                                                                want[1])
+    assert err_one > 3 * err_split
+
+
+def test_ssd_bwd_constants_match_the_kernel_source():
+    """The model's chunk and head group, and the wrapper's scratch sizes,
+    are the kernel's (csrc/ssd_bwd.cu)."""
+    import re
+    from pathlib import Path
+    from repro_torch.kernels import ssd as ssd_k
+    src = (Path(ssd_k.__file__).parent / "csrc" / "ssd_bwd.cu").read_text()
+    for name, want in (("QT", SSD_QT), ("HG", SSD_HG), ("PM", 64),
+                       ("NM", 128)):
+        m = re.search(rf"constexpr int {name} = (\d+);", src)
+        assert m and int(m.group(1)) == want, name
+    assert (ssd_k.BWD_CHUNK, ssd_k.BWD_HEADS) == (SSD_QT, SSD_HG)
+    assert ssd_k.BWD_IMAGE_BYTES == 64 * 128 * 2
+    assert "using ImgT = Tile<PM, NM * 2>;" in src
+    assert ssd_k.bwd_launches(torch.bfloat16) == 3
+    assert ssd_k.bwd_launches(torch.float32) == 2
 
 
 # ---------------------------------------------------------------------------

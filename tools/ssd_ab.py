@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Time the ssd kernel of one checkout of this repository at the serving
-path's case and its float32 counterpart, on one NVIDIA GPU:
+path's case and its float32 counterpart, and its backward kernel at the
+training path's, on one NVIDIA GPU:
 
     python3 tools/ssd_ab.py --tree DIR [--reps 50]
 
@@ -17,16 +18,33 @@ and one JSON line of mean CUDA-event times in ms: `ms` with the host
 issuing each call as the program would, `device_ms` with every launch
 queued first behind a device-side sleep, so that the events read the
 device alone.
+
+The backward (`bwd_bfloat16`) is one Mamba-2 2.7B layer's at the
+training batch, x and dy (2, 512, 80, 64) with b/c (2, 512, 128), in
+bfloat16 (the path's), inputs from --seed and the model's log decays
+(-0.1 to -2.1),
+without initial or final state (chip_smoke.py phase 2's path case): its
+gradients against the plain backward `ref.ssd_bwd` within 1e-2 of
+max(1, max |plain|), a second launch bitwise equal, `ms` and `device_ms`
+as above, the plain version's host-issued `plain_ms`, the bound of
+`ssd.bwd_work` (bytes at 3.35 TB/s, operations at 989 TFLOP/s) and its
+share in device time, each kernel's device time from a profiler trace
+(`launches_ms`, by kernel name) and the kernels' registers and spills
+from the build.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 
 SHAPE = (4, 512, 80, 64, 128)          # B, T, H, P, N
+BWD_SHAPE = (2, 512, 80, 64, 128)
+BWD_TOL = 1e-2
+PEAK_BYTES_S, PEAK_BF16_S = 3.35e12, 989e12
 CHUNK = 128
 TOL = {"bfloat16": (1e-2, 1e-5), "float32": (1e-5, 1e-5)}   # y, state
 
@@ -43,26 +61,46 @@ def main(argv=None) -> int:
         print("ssd_ab: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.join(os.path.abspath(args.tree), "src"))
+    from repro_torch.kernels import build
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd as ssd_k
 
-    def ms(fn, queued=False):
-        for _ in range(3):
+    def ms(fn, queued=False, reps=None):
+        reps = args.reps if reps is None else reps
+        for _ in range(min(3, reps)):
             fn()
         torch.cuda.synchronize()
         t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         if queued:
             torch.cuda._sleep(1_000_000_000)
         t0.record()
-        for _ in range(args.reps):
+        for _ in range(reps):
             fn()
         t1.record()
         torch.cuda.synchronize()
-        return t0.elapsed_time(t1) / args.reps
+        return t0.elapsed_time(t1) / reps
 
     def rel(got, want):
         err = float((got.double() - want.double()).abs().max())
         return err / max(1.0, float(want.double().abs().max()))
+
+    def launches_ms(fn):
+        """Device ms a call of each backward kernel, by name, from a
+        torch.profiler trace of --reps calls."""
+        act = torch.profiler.ProfilerActivity
+        with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+            for _ in range(args.reps):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.key_averages():
+            m = re.search(r"ssd_bwd_\w*?_kernel", e.key)
+            if m:
+                us = getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0.0))
+                out[m.group(0)] = (out.get(m.group(0), 0.0)
+                                   + us / 1e3 / args.reps)
+        return out
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     bsz, t, h, p, n = SHAPE
@@ -87,6 +125,40 @@ def main(argv=None) -> int:
                      "y_rel_err": errs[0], "state_rel_err": errs[1],
                      "within_tolerance": good}
         del x, a, b, c, y, s, want_y, want_s
+    bsz, t, h, p, n = BWD_SHAPE
+    dt = torch.bfloat16
+    x, dy = (torch.randn((bsz, t, h, p), generator=gen, device="cuda")
+             .to(dt) for _ in range(2))
+    b, c = (torch.randn((bsz, t, n), generator=gen, device="cuda")
+            .to(dt) for _ in range(2))
+    a = -0.1 - 2.0 * torch.rand((bsz, t, h), generator=gen,
+                                device="cuda")
+    args_ = (x, a, b, c, dy)
+    got = ssd_k.launch_bwd(*args_)
+    again = ssd_k.launch_bwd(*args_)
+    want = ref.ssd_bwd(*args_)
+    torch.cuda.synchronize()
+    err = max(rel(g, w) for g, w in zip(got[:4], want[:4]))
+    bitwise = all(torch.equal(u, v) for u, v in zip(got[:4], again[:4]))
+    del got, again, want
+    ops, nbytes = ssd_k.bwd_work(bsz, t, h, p, n, dt)
+    bound = max(ops / PEAK_BF16_S, nbytes / PEAK_BYTES_S) * 1e3
+    r = {"shape": f"{BWD_SHAPE} bfloat16",
+         "ms": ms(lambda: ssd_k.launch_bwd(*args_)),
+         "device_ms": ms(lambda: ssd_k.launch_bwd(*args_), queued=True),
+         # the plain version steps through T on the host: 2 calls
+         "plain_ms": ms(lambda: ref.ssd_bwd(*args_), reps=2),
+         "bound_ms": bound,
+         "bound_by": "bytes" if nbytes / PEAK_BYTES_S
+         >= ops / PEAK_BF16_S else "operations",
+         "rel_err": err, "within_tolerance": err <= BWD_TOL,
+         "bitwise_repeat": bitwise,
+         "launches_ms": launches_ms(lambda: ssd_k.launch_bwd(*args_))}
+    r["bound_share"] = bound / r["device_ms"]
+    r["build"] = {fn: e for fn, e in build.ptxas_entries(
+        build.ptxas_log("ssd_bwd")).items() if "ssd_bwd" in fn}
+    out["bwd_bfloat16"] = r
+    ok = ok and r["within_tolerance"] and bitwise
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
