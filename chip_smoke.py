@@ -174,28 +174,27 @@ result line):
      forward and backward and its forward alone, in float32 and bf16.
      The training path's backward kernels too: phase 1 reports the
      registers, spills and atomics of flash_attn's Dh-256 passes and group
-     sum, ssd's state, chunk and sum passes (bf16) and per-head pass and
-     head sum (float32), and rg_lru's reverse recurrence, none holding an
-     atomic and no bf16 one spilling, and fails unless the bf16 passes
-     with products show HGMMA (flash_attn's dq and dk/dv at Dh 256, ssd's
-     state and chunk passes; float32 at Dh 256 and ssd's float32 pass run
-     on the CUDA cores, the sums are elementwise); phase 2
-     (`phase_train_kernels`) holds them against autograd of the plain
-     versions: flash_attn at RecurrentGemma's (20, 512, 256) bf16 local
-     layer (group 10, window 2048) and PaliGemma's (16, 768, 256) bf16
-     prefix 256 (group 8), prefixes of 0, 1, = S and past a key tile, Dh
-     256 in float32, bf16 Dh 256 at S off 64 with a group of 3, a window
-     whose first tile is partial, a prefix past a tile and bidirectional,
-     the prefix at Dh 64 and 128; ssd at Mamba-2's (2, 512, 80, 64) bf16
-     and float32 with a forward chunk of 1, no decay, underflowing decays,
-     an initial state x 100 with its gradient, a final state's gradient,
-     and in bf16 T off the chunk with heads off the chunk pass's group, P
-     and N off the tiles, P past one state slice; and rg_lru at (2, 512,
-     2560) with T 1 and 129, a = 0, a = 1 and permuted operands; each
-     path case checked bitwise on a second launch and
-     timed host-issued and queued beside its plain backward and its
-     `bwd_work` bound, flash_attn's beside SDPA's backward with the same
-     boolean mask.
+     sum, ssd's state, chunk and sum passes, bf16 and float32, and rg_lru's
+     reverse recurrence, none holding an atomic and none spilling, and
+     fails unless the passes with products show HGMMA in both types
+     (flash_attn's dq and dk/dv at Dh 256, ssd's state and chunk passes;
+     the sums are elementwise); phase 2 (`phase_train_kernels`) holds them
+     against autograd of the plain versions: flash_attn at RecurrentGemma's
+     (20, 512, 256) local layer (group 10, window 2048) and PaliGemma's (16,
+     768, 256) prefix 256 (group 8), each in bf16 and float32, prefixes of
+     0, 1, = S and past a key tile, Dh 256 in float32 at S off the 16-row
+     tiles, a window whose first tile is partial and bidirectional, bf16 Dh
+     256 at S off 64 with a group of 3, a window whose first tile is
+     partial, a prefix past a tile and bidirectional, the prefix at Dh 64
+     and 128; ssd at Mamba-2's (2, 512, 80, 64) bf16 and float32 with a
+     forward chunk of 1, no decay, underflowing decays, an initial state x
+     100 with its gradient, a final state's gradient, and in both types T
+     off the chunk with heads off the chunk pass's group, P and N off the
+     tiles (bf16 also P past one state slice); and rg_lru at (2, 512, 2560)
+     with T 1 and 129, a = 0, a = 1 and permuted operands; each path case
+     checked bitwise on a second launch and timed host-issued and queued
+     beside its plain backward and its `bwd_work` bound, flash_attn's
+     beside SDPA's backward with the same boolean mask.
   9. the exact-op MPC baselines, the analytic mirror and the launcher.
      (9a) Table 2's ablations (no-sm, no-ln, no-se) and Table 3's
      baselines (quad_sm: MPCFormer 2Quad; poly_sm: Bolt polynomial), each
@@ -533,32 +532,31 @@ MSA_BWD_ENTRIES = {f"heads {t} Dh {dh} x{mt}":
                    for mt in sorted({1, max(1, dh // 32)})}
 MSA_BWD_ENTRIES["sum"] = "msa_bwd_sum_kernel"
 MSA_BWD_NO_SPILL = ("heads f32 Dh 64 x1", "heads f32 Dh 64 x2", "sum")
-# the training path's backward kernels, none holding an atomic, the
-# path's (bf16) not spilling: flash_attn's at Dh 256, bf16 on the tensor
-# cores (HGMMA required in its dq pass and its dk and dv passes) and
-# float32 on the CUDA cores (exempt, csrc/flash_attn_bwd.cu says why),
-# each with its group sum (elementwise: exempt); ssd's, bf16 on the
-# tensor cores (HGMMA required in its state and chunk passes) and the
-# float32 per-head pass on the CUDA cores, each with its sum (exempt);
-# rg_lru's reverse recurrence
+# the training path's backward kernels, none holding an atomic, none
+# spilling: flash_attn's at Dh 256 (HGMMA required in its dq pass and its
+# dk and dv passes, bf16 and float32) with its group sum and float32's
+# combine of the dq parts (elementwise: exempt); ssd's (HGMMA required in
+# its state and chunk passes, bf16 and float32) with its sum over the head
+# groups (exempt); rg_lru's reverse recurrence
 FA_BWD256_ENTRIES = {
     "dq bf16 Dh 256": "fa_bwd_dq_kernelI13__nv_bfloat16Li256E",
     "dk/dv bf16 Dh 256": "fa_bwd_kv256_kernelI13__nv_bfloat16E",
     "sum bf16 Dh 256": "fa_bwd256_sum_kernelI13__nv_bfloat16E",
-    "dq f32 Dh 256": "fa_bwd256_dq_kernelIfE",
-    "dkdv f32 Dh 256": "fa_bwd256_dkdv_kernelIfE",
+    "dq f32 Dh 256": "fa_bwd_dq_kernelIfLi256E",
+    "dq parts f32 Dh 256": "fa_bwd256_dq_sum_kernel",
+    "dk/dv f32 Dh 256": "fa_bwd_kv256_kernelIfE",
     "sum f32 Dh 256": "fa_bwd256_sum_kernelIfE"}
-FA_BWD256_NO_SPILL = ("dq bf16 Dh 256", "dk/dv bf16 Dh 256",
-                      "sum bf16 Dh 256")
-FA_BWD256_CUDA_CORES = ("sum bf16 Dh 256", "dq f32 Dh 256",
-                        "dkdv f32 Dh 256", "sum f32 Dh 256")
+FA_BWD256_NO_SPILL = tuple(FA_BWD256_ENTRIES)
+FA_BWD256_CUDA_CORES = ("sum bf16 Dh 256", "dq parts f32 Dh 256",
+                        "sum f32 Dh 256")
 SSD_BWD_ENTRIES = {"state bf16": "ssd_bwd_state_kernelI13__nv_bfloat16E",
                    "chunk bf16": "ssd_bwd_chunk_kernelI13__nv_bfloat16E",
                    "sum bf16": "ssd_bwd_sum_kernelI13__nv_bfloat16E",
-                   "head f32": "ssd_bwd_head_kernelIfE",
+                   "state f32": "ssd_bwd_state_kernelIfE",
+                   "chunk f32": "ssd_bwd_chunk_kernelIfE",
                    "sum f32": "ssd_bwd_sum_kernelIfE"}
-SSD_BWD_NO_SPILL = ("state bf16", "chunk bf16", "sum bf16")
-SSD_BWD_CUDA_CORES = ("sum bf16", "head f32", "sum f32")
+SSD_BWD_NO_SPILL = tuple(SSD_BWD_ENTRIES)
+SSD_BWD_CUDA_CORES = ("sum bf16", "sum f32")
 LRU_BWD_ENTRIES = {"f32": "rg_lru_bwd_kernelE"}
 SSD_BWD_REPLACES = ("none: the JAX package has no backward kernel; its "
                     "training differentiates the chunked scan "
@@ -1564,12 +1562,16 @@ def phase_train_kernels(seed: int) -> dict:
     plain versions on the card, every gradient within TOL (float32) or
     BF16_TOL of max(1, max |plain|), a second launch bitwise equal at
     each path case: flash_attn's at Dh 256 (RecurrentGemma's local layer,
-    PaliGemma's prefix, both bf16 at 13b's batch of 2) and with the
-    prefix mask (0, 1, = S, past a key tile; Dh 64 and 128 on the tensor
-    cores), Dh 256 in float32; ssd's at Mamba-2's training batch in bf16
-    and float32 and its hard cases (forward chunk 1, no decay, decays
-    that underflow, an initial state x100 with its gradient, a final
-    state's gradient, P and N off 32); rg_lru's at RecurrentGemma's
+    PaliGemma's prefix, both bf16 at 13b's batch of 2, and their float32
+    twins, the shapes a user who sets the model's dtype to float32 trains
+    at) and with the prefix mask (0, 1, = S, past a key tile; Dh 64 and
+    128 on the tensor cores), Dh 256 in float32 (phase 2's timed case, S
+    off the 16-row tiles, a window whose first key tile is partial,
+    bidirectional); ssd's at Mamba-2's training batch in bf16 and float32
+    and its hard cases (forward chunk 1, no decay, decays that underflow,
+    an initial state x100 with its gradient, a final state's gradient, P
+    and N off 32, and in float32 too T off the chunk with heads off the
+    group, P and N off the tiles); rg_lru's at RecurrentGemma's
     training batch and its hard cases (T 1 and 129, a = 0, a = 1,
     permuted operands). The path cases are timed host-issued and queued
     beside the plain backward versions (`ref.flash_attn_bwd`,
@@ -1639,6 +1641,10 @@ def phase_train_kernels(seed: int) -> dict:
              2048, 0, "local"),
             ("path paligemma_3b prefix", 16, 768, 256, 8, bf16, True, 0,
              256, "prefix"),
+            ("local in float32", 20, 512, 256, 10, f32, True, 2048, 0,
+             "local_f32"),
+            ("prefix in float32", 16, 768, 256, 8, f32, True, 0, 256,
+             "prefix_f32"),
             ("prefix 0", 8, 300, 256, 2, bf16, True, 0, 0, None),
             ("prefix 1", 8, 300, 256, 2, f32, True, 0, 1, None),
             ("prefix = S", 8, 300, 256, 2, f32, True, 0, 300, None),
@@ -1649,6 +1655,12 @@ def phase_train_kernels(seed: int) -> dict:
              None),
             ("Dh 256 f32 window 70", 8, 200, 256, 2, f32, True, 70, 0,
              None),
+            ("Dh 256 f32 S off the 16-row tiles, group 3", 6, 83, 256, 3,
+             f32, True, 0, 0, None),
+            ("Dh 256 f32 window 23 (first 16-key tile partial)", 4, 90, 256,
+             2, f32, True, 23, 0, None),
+            ("Dh 256 f32 bidirectional S off 16", 2, 53, 256, 1, f32, False,
+             0, 0, None),
             ("bf16 S off 64, group 3", 6, 150, 256, 3, bf16, True, 0, 0,
              None),
             ("bf16 window 70 (first tile partial)", 4, 200, 256, 2, bf16,
@@ -1741,6 +1753,10 @@ def phase_train_kernels(seed: int) -> dict:
              True, True, 128, None),
             ("P, N off 32", 1, 77, 3, 5, 7, f32, "rand", True, True, 128,
              None),
+            ("f32 T off the chunk, heads off the group", 2, 150, 13, 64, 128,
+             f32, "rand", True, True, 128, None),
+            ("f32 P, N off the tiles, underflowing decays", 2, 100, 6, 40,
+             96, f32, "underflow", False, True, 128, None),
             ("bf16 T off the chunk, heads off the group", 2, 150, 7, 64,
              128, bf16, "rand", True, True, 128, None),
             ("bf16 P, N off the tiles", 1, 77, 3, 5, 7, bf16, "rand", True,
@@ -4639,7 +4655,8 @@ def main(argv=None) -> int:
             "launches_note": (
                 "two kernels a backward call (dq, then dk/dv; at Dh 256 "
                 "three: dq, the dk and dv passes in one launch, the group "
-                "sum), all counted"
+                "sum; four in float32 where the dq pass walks its keys in "
+                "parts: their combine), all counted"
                 if name == "flash_attn_bwd" else
                 "two kernels a backward call (head pass, then head sum), "
                 "both counted"),
@@ -4653,9 +4670,9 @@ def main(argv=None) -> int:
             kernels[-1]["dh256"] = tkern["flash_attn_bwd_dh256"]
     for name, short, replaces, build_info, note in (
             ("ssd_bwd", "ssd_bwd", SSD_BWD_REPLACES, ssd_bwd_build,
-             "three kernels a bf16 backward call (the state pass, the "
-             "chunk pass, the sum over head groups), two in float32 (the "
-             "per-head pass, the head sum), all counted"),
+             "three kernels a backward call in either type (the state "
+             "pass, the chunk pass, the sum over head groups), all "
+             "counted"),
             ("rg_lru_bwd", "lru_bwd", RG_LRU_BWD_REPLACES, lru_bwd_build,
              "one kernel a backward call")):
         k = tkern[name]

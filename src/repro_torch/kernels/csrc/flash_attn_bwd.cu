@@ -4,10 +4,9 @@
 // 256}, bidirectional or causal (Sq == Skv), a causal window w > 0 also
 // masking keys j <= i - w, or a causal prefix P > 0 keeping every key
 // j < P (the VLM's image tokens). float32 or bfloat16 in and out, float32
-// sums. bf16 at every Dh and float32 up to Dh 128 run on the tensor cores
-// (below; bf16 Dh 256 splits its dk/dv pass in two, the Dh-256 section at
-// the end says why); float32 at Dh 256 runs on the CUDA cores
-// (fa_bwd256_*, no HGMMA in their SASS).
+// sums, every pass on the tensor cores (below; Dh 256 splits its dk/dv
+// pass in two and, in float32, splits the row side's tf32 fragments in
+// registers: the Dh-256 section at the end says why).
 //
 // Replaces no Pallas kernel: the JAX package has no backward kernel (no
 // custom_vjp under src/repro/kernels/), and its training differentiates
@@ -116,13 +115,16 @@ using namespace hopper;
 // Tiles (tests/test_torch_flash_bwd_tiles.py reads these lines): ROWS rows
 // a warpgroup owns (one wgmma M: queries in the dq pass, keys in the dk/dv
 // pass); *_BN the column tile a step walks (keys in the dq pass, queries
-// in the dk/dv pass), halved at Dh 128; *_NWG warpgroups a block, 1 at
-// float32 Dh 128.
+// in the dk/dv pass), halved at Dh 128, *_F32_256 float32's at Dh 256;
+// *_NWG warpgroups a block, 1 at float32 Dh 128 (float32 Dh 256: two that
+// share a block's 64 rows, Cfg::NRT).
 constexpr int ROWS = 64;
 constexpr int DQ_BN_BF16 = 64;
 constexpr int DQ_BN_F32 = 64;
 constexpr int DKDV_BN_BF16 = 64;
 constexpr int DKDV_BN_F32 = 32;
+constexpr int DQ_BN_F32_256 = 16;
+constexpr int DKDV_BN_F32_256 = 16;
 constexpr int DQ_NWG = 2;
 constexpr int DKDV_NWG = 2;
 constexpr int WG = 128;          // threads of a warpgroup
@@ -136,34 +138,47 @@ struct Cfg {
   // (Q and dO 64 KB, two stages of K and V at 64 keys 128 KB): twice the
   // blocks of two warpgroups, half the steps of 32-key tiles
   static constexpr bool DQ256 = DQ && !F32 && DH == 256;
-  static constexpr int NWG = BIG || DQ256 ? 1 : DQ ? DQ_NWG : DKDV_NWG;
-  static constexpr int BN = (DQ ? (F32 ? DQ_BN_F32 : DQ_BN_BF16)
-                                : (F32 ? DKDV_BN_F32 : DKDV_BN_BF16)) /
-                           (DH >= 128 && !DQ256 ? 2 : 1);
+  // float32 Dh 256: the row side stays raw float32 and each k-step's A
+  // fragment is split hi + lo in registers; two warpgroups share a
+  // block's 64 rows, each forming S and dP over half of Dh and owning half
+  // the columns of dq, dk or dv (the Dh-256 section says why)
+  static constexpr bool RSPLIT = F32 && DH == 256;
+  static constexpr int NWG =
+      RSPLIT ? 2 : BIG || DQ256 ? 1 : DQ ? DQ_NWG : DKDV_NWG;
+  static constexpr int NRT = RSPLIT ? 1 : NWG;     // 64-row tiles a block
+  static constexpr int DC = RSPLIT ? DH / 2 : DH;  // columns a warpgroup owns
+  static constexpr int BN =
+      RSPLIT ? (DQ ? DQ_BN_F32_256 : DKDV_BN_F32_256)
+             : (DQ ? (F32 ? DQ_BN_F32 : DQ_BN_BF16)
+                   : (F32 ? DKDV_BN_F32 : DKDV_BN_BF16)) /
+                   (DH >= 128 && !DQ256 ? 2 : 1);
   static constexpr int THREADS = WG * NWG;
   static constexpr int KS = 32 / E;          // elements a k-step: 32 B
   // float32: each step's register-A products into a fresh accumulator,
   // added to the running sum on the CUDA cores (where registers allow)
   static constexpr bool STEP_SUM = F32 && DH <= 64;
-  static constexpr int NTR = DQ ? 1 : 2;     // float32 transposed copies
+  // float32 transposed copies: K^T (dq); Q^T and dO^T (dk/dv), or at Dh
+  // 256 the one its pass reads (Q^T for dk, dO^T for dv)
+  static constexpr int NTR = DQ || RSPLIT ? 1 : 2;
   using RT = Tile<ROWS, DH * E>;   // row side: dq Q, dO; dk/dv K, V
   using CT = Tile<BN, DH * E>;     // column side: dq K, V; dk/dv Q, dO
   using TT = Tile<DH, BN * 4>;     // float32 column side transposed
   static constexpr int R_B = align1024(RT::BYTES);
   static constexpr int C_B = align1024(CT::BYTES);
   static constexpr int T_B = align1024(TT::BYTES);
-  // row side: A1 x NWG | A2 x NWG | [their lo halves, A_LO further]
-  static constexpr int A1 = 0, A2 = NWG * R_B, A_LO = 2 * NWG * R_B;
-  static constexpr int ST0 = F32 ? 2 * A_LO : A_LO;
+  // row side: A1 x NRT | A2 x NRT | [their lo halves, A_LO further; not
+  // at Dh 256]
+  static constexpr int A1 = 0, A2 = NRT * R_B, A_LO = 2 * NRT * R_B;
+  static constexpr int ST0 = F32 && !RSPLIT ? 2 * A_LO : A_LO;
   // a tile stage: B1 | B2 | [B1 lo | B2 lo] | (lse, D in two halves), B_i
   // lo 2 C_B past B_i; NB of them: two in bf16, whose register-A products
   // read the tiles, one in float32, whose products read the transposed
-  // copies at C1 (K^T or Q^T, then dO^T), each with its lo T_B further
+  // copies at TQ (K^T or Q^T) and TO (dO^T), each with its lo T_B further
   static constexpr int B1 = 0, B2 = C_B, LD = (F32 ? 4 : 2) * C_B;
   static constexpr int STAGE = align1024(LD + (DQ ? 0 : 16 * BN));
   static constexpr int NB = F32 ? 1 : 2;
   static constexpr int C0 = ST0 + NB * STAGE;
-  static constexpr int C1 = C0;
+  static constexpr int TQ = C0, TO = C0 + (NTR == 2 ? 2 * T_B : 0);
   static constexpr int BARS = C0 + (F32 ? 2 * NTR * T_B : 0);
   static constexpr int BYTES = BARS + 8 * NB + 1024;       // + alignment
   static_assert(BYTES <= 232448, "tiles do not fit in shared memory");
@@ -188,21 +203,6 @@ __device__ __forceinline__ void load_rows(uint32_t dst, const T* x, int r0,
     const char* src = reinterpret_cast<const char*>(
                           x + (ok ? (long long)(r0 + r) * DH : 0)) + cb;
     cp_async16(dst + TL::offset(r, cb), src, ok);
-  }
-}
-
-// float32: x -> hi = tf32(x) in place, lo = tf32(x - hi) `lo` bytes further,
-// over `bytes` bytes (the row side, whose layout the split keeps)
-template <int THREADS>
-__device__ __forceinline__ void split_flat(char* buf, int lo, int bytes) {
-  float4* h = reinterpret_cast<float4*>(buf);
-  float4* l = reinterpret_cast<float4*>(buf + lo);
-  for (int i = threadIdx.x; i < bytes / 16; i += THREADS) {
-    const float4 x = h[i];
-    const float4 y = make_float4(tf32(x.x), tf32(x.y), tf32(x.z), tf32(x.w));
-    h[i] = y;
-    l[i] = make_float4(tf32(x.x - y.x), tf32(x.y - y.y), tf32(x.z - y.z),
-                       tf32(x.w - y.w));
   }
 }
 
@@ -268,6 +268,110 @@ __device__ __forceinline__ void issue_ss(float (&x)[C::BN / 2], uint32_t a,
   }
 }
 
+// float32 Dh 256: X = A B^T (and Y = A2 B2^T, if TWO) over this
+// warpgroup's half of DH (exchange() adds the other's), A the raw float32
+// row tile at `a` (RT's swizzled layout): each k-step's tf32 A fragment
+// is split hi + lo in registers (split_walk), B's hi and lo tiles at `b`
+// and 2 C_B further. The three products of issue_ss's order go to three
+// accumulators, summed as (lo hi + hi lo) + hi hi at the end: a chain of
+// 16 dependent products each, where one accumulator would chain 48 and
+// wait on the tensor cores' latency. The fragment loads find 32 banks
+// (frag_kmajor).
+template <typename C, int DH, bool DQ, bool TWO>
+__device__ __forceinline__ void issue_split(float (&x)[C::BN / 2],
+                                            float (&y)[TWO ? C::BN / 2 : 1],
+                                            const char* a, const char* a2,
+                                            uint32_t b, uint32_t b2) {
+  constexpr int WB = C::CT::W, NA = TWO ? 2 : 1, N2 = C::BN / 2;
+  constexpr int KSW = DH / 8 / C::NWG;           // this warpgroup's k-steps
+  const int fm = threadIdx.x % WG / 32 * 16 + threadIdx.x % 32 / 4;
+  const int s0 = threadIdx.x / WG * KSW;
+  float part[NA][3][N2];
+  auto load = [&](int s, int i, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+    float v[4];
+    frag_kmajor<typename C::RT>(i ? a2 : a, fm, s0 + s, v);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split_tf32(v[e], hi[e], lo[e]);
+  };
+  auto one = [&](float (&p)[3][N2], uint32_t (&hi)[4], uint32_t (&lo)[4],
+                 uint32_t bt, int s) {
+    const uint64_t db =
+        desc(bt + C::CT::start(0, 32 * (s0 + s)), 16, 8 * WB, WB);
+    const uint64_t dbl = desc(bt + 2 * C::C_B + C::CT::start(0, 32 * (s0 + s)),
+                              16, 8 * WB, WB);
+    // (A lo, B hi), (A hi, B lo), (A hi, B hi): the dk/dv pass issues K hi
+    // Q lo and K lo Q hi, the same values as the dq pass's Q lo K hi and Q
+    // hi K lo
+    if constexpr (DQ) {
+      Wgmma<C::BN>::rs_tf32(p[0], lo, db, s > 0);
+      Wgmma<C::BN>::rs_tf32(p[1], hi, dbl, s > 0);
+    } else {
+      Wgmma<C::BN>::rs_tf32(p[0], hi, dbl, s > 0);
+      Wgmma<C::BN>::rs_tf32(p[1], lo, db, s > 0);
+    }
+    Wgmma<C::BN>::rs_tf32(p[2], hi, db, s > 0);
+  };
+  split_walk<KSW, NA>(
+      load, [&](int s, uint32_t (&hi)[NA][4], uint32_t (&lo)[NA][4]) {
+        one(part[0], hi[0], lo[0], b, s);
+        if constexpr (TWO) one(part[NA - 1], hi[NA - 1], lo[NA - 1], b2, s);
+      });
+#pragma unroll
+  for (int i = 0; i < NA; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) fence_regs(part[i][j]);
+#pragma unroll
+  for (int i = 0; i < N2; ++i) x[i] = (part[0][0][i] + part[0][1][i]) +
+                                      part[0][2][i];
+  if constexpr (TWO) {
+#pragma unroll
+    for (int i = 0; i < N2; ++i)
+      y[i] = (part[NA - 1][0][i] + part[NA - 1][1][i]) + part[NA - 1][2][i];
+  }
+}
+
+// float32 Dh 256: each warpgroup's S and dP (or S^T and dP^T) over its
+// half of Dh, summed with the other's through shared memory at `buf` (a
+// stage tile no product reads any more; 16 bytes a thread a row of the
+// exchange, so a warp's stores fill 32 banks), warpgroup 0's half first
+// in both, so the two hold the same sums. Ends with `buf` read.
+template <int N2, bool TWO>
+__device__ __forceinline__ void exchange(float (&x)[N2],
+                                         float (&y)[TWO ? N2 : 1],
+                                         char* buf) {
+  static_assert(N2 % 4 == 0, "whole float4s");
+  constexpr int NV = N2 / 4, NT = 2 * WG;
+  float4* v = reinterpret_cast<float4*>(buf);
+  const int me = threadIdx.x, other = threadIdx.x ^ WG;
+  __syncthreads();                   // every warpgroup's products are done
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    v[i * NT + me] = make_float4(x[4 * i], x[4 * i + 1], x[4 * i + 2],
+                                 x[4 * i + 3]);
+    if constexpr (TWO)
+      v[(NV + i) * NT + me] = make_float4(y[4 * i], y[4 * i + 1],
+                                          y[4 * i + 2], y[4 * i + 3]);
+  }
+  __syncthreads();
+  const bool first = threadIdx.x < WG;
+  auto add = [&](float& a, float b) { a = first ? a + b : b + a; };
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const float4 u = v[i * NT + other];
+    add(x[4 * i], u.x);
+    add(x[4 * i + 1], u.y);
+    add(x[4 * i + 2], u.z);
+    add(x[4 * i + 3], u.w);
+    if constexpr (TWO) {
+      const float4 w = v[(NV + i) * NT + other];
+      add(y[4 * i], w.x);
+      add(y[4 * i + 1], w.y);
+      add(y[4 * i + 2], w.z);
+      add(y[4 * i + 3], w.w);
+    }
+  }
+}
+
 // an accumulator tile (64 x BN) as wgmma A fragments: bf16 hi only (a
 // k-step of 16 columns is n-blocks 2t, 2t + 1, whose accumulator pairs are
 // the fragment's); float32 hi and lo (a k-step of 8 columns is n-block t:
@@ -307,7 +411,7 @@ struct Frag {
 // MN-major: its rows are the k) or its transposed copy at `t` (float32,
 // K-major, lo T_B further): lo hi + hi lo + hi hi
 template <typename C, int DH>
-__device__ __forceinline__ void issue_rs(float (&acc)[DH / 2], Frag<C>& f,
+__device__ __forceinline__ void issue_rs(float (&acc)[C::DC / 2], Frag<C>& f,
                                          uint32_t b, uint32_t t) {
 #pragma unroll
   for (int s = 0; s < Frag<C>::NK; ++s) {
@@ -317,12 +421,12 @@ __device__ __forceinline__ void issue_rs(float (&acc)[DH / 2], Frag<C>& f,
       const uint64_t dt = desc(t + C::TT::start(0, cb), 16, 8 * WT, WT);
       const uint64_t dtl = desc(t + C::T_B + C::TT::start(0, cb), 16,
                                 8 * WT, WT);
-      Wgmma<DH>::rs_tf32(acc, f.lo[s], dt, !(C::STEP_SUM && s == 0));
-      Wgmma<DH>::rs_tf32(acc, f.hi[s], dtl, 1);
-      Wgmma<DH>::rs_tf32(acc, f.hi[s], dt, 1);
+      Wgmma<C::DC>::rs_tf32(acc, f.lo[s], dt, !(C::STEP_SUM && s == 0));
+      Wgmma<C::DC>::rs_tf32(acc, f.hi[s], dtl, 1);
+      Wgmma<C::DC>::rs_tf32(acc, f.hi[s], dt, 1);
     } else {
       constexpr int WC = C::CT::W;
-      Wgmma<DH>::rs_bf16_bmn(
+      Wgmma<C::DC>::rs_bf16_bmn(
           acc, f.hi[s],
           desc(b + C::CT::start(16 * s, 0), C::CT::PANEL, 8 * WC, WC), 1);
     }
@@ -352,7 +456,8 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ dout, T* __restrict__ dq,
                  float* __restrict__ lse_out, float* __restrict__ dsum_out,
                  int nbh, int nqb, int group, int sq, int skv, int causal,
-                 int window, int prefix, float scale, float scale_log2) {
+                 int window, int prefix, float scale, float scale_log2,
+                 int nsq, float* __restrict__ dqp, float* __restrict__ mlp) {
   using C = Cfg<T, DH, true>;
   constexpr int BN = C::BN;
   extern __shared__ char smem_raw[];
@@ -361,39 +466,59 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const uint32_t bars = sm + C::BARS;
   char* const gsm = smem_raw + (sm - raw);     // generic view of `sm`
 
-  // heaviest (last) query blocks first, heads innermost; warpgroup `wg`
-  // owns rows [qw, qw + 64) of the block's [q0, q0 + 64 NWG)
-  const int bh = blockIdx.x % nbh;
-  const int q0 = (nqb - 1 - blockIdx.x / nbh) * ROWS * C::NWG;
+  // heaviest (last) query blocks first, heads innermost, then the parts
+  // of a block's key walk (float32 Dh 256: `nsq` of them); warpgroup `wg`
+  // owns rows [qw, qw + 64) of the block's [q0, q0 + 64 NRT) (float32 Dh
+  // 256: both warpgroups the block's 64, columns [dc, dc + DC) of dq)
+  const int bh = blockIdx.x % nbh, sp = blockIdx.x / nbh % nsq;
+  const int q0 = (nqb - 1 - blockIdx.x / nbh / nsq) * ROWS * C::NRT;
   const long long qoff = (long long)bh * sq * DH;
   const T* kb = k + (long long)(bh / group) * skv * DH;
   const T* vb = v + (long long)(bh / group) * skv * DH;
-  const int wg = threadIdx.x / WG, qw = q0 + ROWS * wg;
+  const int wg = threadIdx.x / WG, rw = C::RSPLIT ? 0 : wg;
+  const int qw = q0 + ROWS * rw, dc = C::RSPLIT ? wg * C::DC : 0;
   const int warp = threadIdx.x % WG / 32, lane = threadIdx.x % 32;
   const int row0 = warp * 16 + lane / 4;     // and row0 + 8
   const int c2 = 2 * (lane % 4);             // and c2 + 1, in each 8
 
-  const int kend = causal ? min(skv, max(q0 + ROWS * C::NWG, prefix)) : skv;
+  const int kend = causal ? min(skv, max(q0 + ROWS * C::NRT, prefix)) : skv;
   const int kbeg = window > 0 ? max(0, q0 - window + 1) / BN * BN : 0;
-  const int nt = kend > kbeg ? (kend - kbeg + BN - 1) / BN : 0;
+  const int ntw = kend > kbeg ? (kend - kbeg + BN - 1) / BN : 0;
+  // this block's part: key tiles [t_lo, t_lo + nt) of the walk
+  const int per = (ntw + nsq - 1) / nsq, t_lo = min(ntw, sp * per);
+  const int nt = min(ntw, t_lo + per) - t_lo, kfirst = kbeg + t_lo * BN;
 
   // D = rowsum(do * o) for rows row0 and row0 + 8: each of a row's four
-  // lanes sums a quarter of it
+  // lanes sums a quarter of it, in order (float32 16 bytes a load); it is
+  // formed while the first tiles land
   float dsum[2];
+  auto row_sums = [&] {
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int i = qw + row0 + 8 * h;
-    float s = 0.f;
-    if (i < sq) {
-      const long long at = qoff + (long long)i * DH + (lane % 4) * (DH / 4);
+    for (int h = 0; h < 2; ++h) {
+      const int i = qw + row0 + 8 * h;
+      float s = 0.f;
+      if (i < sq) {
+        const long long at = qoff + (long long)i * DH + (lane % 4) * (DH / 4);
+        if constexpr (C::F32) {
+          const float4* d4 = reinterpret_cast<const float4*>(dout + at);
+          const float4* o4 = reinterpret_cast<const float4*>(o + at);
 #pragma unroll
-      for (int d = 0; d < DH / 4; ++d)
-        s = fmaf(ftile::to_f(dout[at + d]), ftile::to_f(o[at + d]), s);
+          for (int d = 0; d < DH / 16; ++d) {
+            const float4 a = d4[d], b = o4[d];
+            s = fmaf(a.w, b.w, fmaf(a.z, b.z, fmaf(a.y, b.y,
+                                                    fmaf(a.x, b.x, s))));
+          }
+        } else {
+#pragma unroll
+          for (int d = 0; d < DH / 4; ++d)
+            s = fmaf(ftile::to_f(dout[at + d]), ftile::to_f(o[at + d]), s);
+        }
+      }
+      s += __shfl_xor_sync(0xffffffffu, s, 1);
+      s += __shfl_xor_sync(0xffffffffu, s, 2);
+      dsum[h] = s;
     }
-    s += __shfl_xor_sync(0xffffffffu, s, 1);
-    s += __shfl_xor_sync(0xffffffffu, s, 2);
-    dsum[h] = s;
-  }
+  };
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < C::NB; ++s) mbar_init(bars + 8 * s, C::THREADS);
@@ -404,10 +529,10 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // dq~, and (STEP_SUM) the last step's dS~ K, which the wait at the top
   // of the next step completes and folds in; without it `stp` is one
   // unused register, so that bf16 Dh 256 holds only dq~'s 128
-  constexpr int NSTP = C::STEP_SUM ? DH / 2 : 1;
-  float acc[DH / 2], stp[NSTP];
+  constexpr int NSTP = C::STEP_SUM ? C::DC / 2 : 1;
+  float acc[C::DC / 2], stp[NSTP];
 #pragma unroll
-  for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < C::DC / 2; ++i) acc[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < NSTP; ++i) stp[i] = 0.f;
   auto fold = [&] {
@@ -415,14 +540,14 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if constexpr (C::STEP_SUM) {
       fence_regs(stp);
 #pragma unroll
-      for (int i = 0; i < DH / 2; ++i) acc[i] += stp[i];
+      for (int i = 0; i < C::DC / 2; ++i) acc[i] += stp[i];
     }
   };
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   Frag<C> f;
 
   auto load_stage = [&](int it) {
-    const int st = it % C::NB, k0 = kbeg + it * BN;
+    const int st = it % C::NB, k0 = kfirst + it * BN;
     const uint32_t sb = sm + C::ST0 + st * C::STAGE;
     load_rows<T, DH, typename C::CT, BN, C::THREADS>(sb + C::B1, kb, k0, skv);
     load_rows<T, DH, typename C::CT, BN, C::THREADS>(sb + C::B2, vb, k0, skv);
@@ -432,21 +557,24 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // no key, no tile: dq is 0
   if (nt > 0) {
     // Q and dO join stage 0's barrier
-    for (int w = 0; w < C::NWG; ++w) {
+    for (int w = 0; w < C::NRT; ++w) {
       load_rows<T, DH, typename C::RT, ROWS, C::THREADS>(
           sm + C::A1 + w * C::R_B, q + qoff, q0 + ROWS * w, sq);
       load_rows<T, DH, typename C::RT, ROWS, C::THREADS>(
           sm + C::A2 + w * C::R_B, dout + qoff, q0 + ROWS * w, sq);
     }
     for (int s = 0; s < C::NB && s < nt; ++s) load_stage(s);
+  }
+  row_sums();
+  if (nt > 0) {
     mbar_wait(bars, 0);
-    if constexpr (C::F32)
+    if constexpr (C::F32 && !C::RSPLIT)
       split_flat<C::THREADS>(gsm + C::A1, C::A_LO, C::A_LO);
     float zero[BN / 2] = {};
     f.pack(zero);                  // defined values for the first fence
 
     for (int it = 0; it < nt; ++it) {
-      const int st = it % C::NB, k0 = kbeg + it * BN;
+      const int st = it % C::NB, k0 = kfirst + it * BN;
       const uint32_t sb = sm + C::ST0 + st * C::STAGE;
       char* const gsb = gsm + C::ST0 + st * C::STAGE;
       // float32: dq~ += dS~ K of the step before reads K^T, so that
@@ -460,7 +588,7 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       mbar_wait(bars + 8 * st, (it / C::NB) & 1);
       if constexpr (C::F32) {
         split_transpose<BN, DH, C::THREADS>(gsb + C::B1, 2 * C::C_B,
-                                            gsm + C::C1, C::T_B);
+                                            gsm + C::TQ, C::T_B);
         split_flat<C::THREADS>(gsb + C::B2, 2 * C::C_B, C::CT::BYTES);
       }
       fence_proxy_async();
@@ -475,11 +603,19 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (!C::F32 && it >= 1 && it + 1 < nt) load_stage(it + 1);
 
       float s[BN / 2], dp[BN / 2];
-      wgmma_fence();
-      issue_ss<C, DH, true>(s, sm + C::A1 + wg * C::R_B, sb + C::B1);
-      issue_ss<C, DH, true>(dp, sm + C::A2 + wg * C::R_B, sb + C::B2);
-      wgmma_commit();
-      wgmma_wait<0>();
+      if constexpr (C::RSPLIT) {
+        issue_split<C, DH, true, true>(s, dp, gsm + C::A1, gsm + C::A2,
+                                       sb + C::B1, sb + C::B2);
+        // S and dP over the other half of Dh; V's tile is read by no
+        // product any more
+        exchange<BN / 2, true>(s, dp, gsb + C::B2);
+      } else {
+        wgmma_fence();
+        issue_ss<C, DH, true>(s, sm + C::A1 + wg * C::R_B, sb + C::B1);
+        issue_ss<C, DH, true>(dp, sm + C::A2 + wg * C::R_B, sb + C::B2);
+        wgmma_commit();
+        wgmma_wait<0>();
+      }
       fence_regs(s);
       fence_regs(dp);
       // float32: past the barrier no warpgroup reads K or V again (dq~ +=
@@ -537,15 +673,17 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
       f.pack(s);
 #pragma unroll
-      for (int j = 0; j < DH / 8; ++j)
+      for (int j = 0; j < C::DC / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[4 * j + e] *= alpha[e >> 1];
 
+      // float32 Dh 256: K^T's rows [dc, dc + DC), this warpgroup's columns
       wgmma_fence();
       if constexpr (C::STEP_SUM)
-        issue_rs<C, DH>(stp, f, sb + C::B1, sm + C::C1);
+        issue_rs<C, DH>(stp, f, sb + C::B1, sm + C::TQ);
       else
-        issue_rs<C, DH>(acc, f, sb + C::B1, sm + C::C1);
+        issue_rs<C, DH>(acc, f, sb + C::B1,
+                        sm + C::TQ + C::TT::start(dc, 0));
       wgmma_commit();
     }
     wgmma_wait<0>();
@@ -560,14 +698,29 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
     const int i = qw + row0 + 8 * h;
     if (i >= sq) continue;
-    if (lane % 4 == 0) {
+    if (C::RSPLIT && nsq > 1) {
+      // a part of the walk: dq~ unscaled, the row's m and l, combined by
+      // fa_bwd256_dq_sum_kernel
+      const long long at = ((long long)sp * nbh + bh) * sq + i;
+      if (lane % 4 == 0 && dc == 0) {
+        mlp[2 * at] = m[h];
+        mlp[2 * at + 1] = l[h];
+        if (sp == 0) dsum_out[(long long)bh * sq + i] = dsum[h];
+      }
+      float* prow = dqp + at * DH + dc;
+#pragma unroll
+      for (int j = 0; j < C::DC / 8; ++j)
+        store2(prow + 8 * j + c2, acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      continue;
+    }
+    if (lane % 4 == 0 && dc == 0) {
       lse_out[(long long)bh * sq + i] = m[h] + log2f(l[h]);
       dsum_out[(long long)bh * sq + i] = dsum[h];
     }
     const float r = scale / fmaxf(l[h], 1e-30f);
-    T* row = dq + qoff + (long long)i * DH;
+    T* row = dq + qoff + (long long)i * DH + dc;
 #pragma unroll
-    for (int j = 0; j < DH / 8; ++j)
+    for (int j = 0; j < C::DC / 8; ++j)
       store2(row + 8 * j + c2, acc[4 * j + 2 * h] * r,
              acc[4 * j + 2 * h + 1] * r);
   }
@@ -578,31 +731,34 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // section below)
 enum Part { DKDV = 0, DK = 1, DV = 2 };
 
-// the dk/dv pass of one block: keys [k0, k0 + 64 NWG) of kv head `kvh`,
+// the dk/dv pass of one block: keys [k0, k0 + 64 NRT) of kv head `kvh`,
 // walking q heads h0 .. h0 + nh - 1 and each one's query tiles in order;
 // dk and dv (as `part` says) go to rows k0.. of `dk` / `dv` from element
-// `ooff` (the kv head's rows, or a q head's float32 partial)
+// `ooff` (the kv head's rows, or a q head's float32 partial); the block
+// walks part `sp` of `nspl` contiguous parts of the query tiles
 template <typename T, int DH, int PART, typename O>
 __device__ __forceinline__ void dkdv_pass(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, const T* __restrict__ dout,
     const float* __restrict__ lse_in, const float* __restrict__ dsum_in,
     O* __restrict__ dk, O* __restrict__ dv, int kvh, int h0, int nh, int k0,
-    long long ooff, int sq, int skv, int causal, int window, int prefix,
-    float scale, float scale_log2) {
+    long long ooff, int sp, int nspl, int sq, int skv, int causal,
+    int window, int prefix, float scale, float scale_log2) {
   using C = Cfg<T, DH, false>;
   constexpr int BN = C::BN;
   constexpr bool WDK = PART != DV, WDV = PART != DK;   // forms dk / dv
-  constexpr int NK = WDK ? DH / 2 : 1, NV = WDV ? DH / 2 : 1;
+  constexpr int NK = WDK ? C::DC / 2 : 1, NV = WDV ? C::DC / 2 : 1;
   extern __shared__ char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t sm = (raw + 1023) & ~1023u;
   const uint32_t bars = sm + C::BARS;
   char* const gsm = smem_raw + (sm - raw);
 
-  // warpgroup `wg` owns keys [kw, kw + 64)
+  // warpgroup `wg` owns keys [kw, kw + 64) (float32 Dh 256: both the
+  // block's 64, columns [dc, dc + DC) of dk or dv)
   const long long koff = (long long)kvh * skv * DH;
-  const int wg = threadIdx.x / WG, kw = k0 + ROWS * wg;
+  const int wg = threadIdx.x / WG, rw = C::RSPLIT ? 0 : wg;
+  const int kw = k0 + ROWS * rw, dc = C::RSPLIT ? wg * C::DC : 0;
   const int warp = threadIdx.x % WG / 32, lane = threadIdx.x % 32;
   const int row0 = warp * 16 + lane / 4;
   const int c2 = 2 * (lane % 4);
@@ -610,11 +766,14 @@ __device__ __forceinline__ void dkdv_pass(
   // query tiles holding a query that keeps a key of [k0, klast]: from the
   // first key's diagonal (causal; from query 0 if a key lies in the
   // prefix) to the last query whose window holds the last key
-  const int klast = min(skv, k0 + ROWS * C::NWG) - 1;
+  const int klast = min(skv, k0 + ROWS * C::NRT) - 1;
   const int qbeg = causal && k0 >= prefix ? k0 / BN * BN : 0;
   const int qend = causal && window > 0 ? min(sq, klast + window) : sq;
   const int nq = qend > qbeg ? (qend - qbeg + BN - 1) / BN : 0;
-  const int nt = nh * nq;
+  // this block's part: query tiles [t_lo, t_lo + nqs) of each head
+  const int per = (nq + nspl - 1) / nspl, t_lo = min(nq, sp * per);
+  const int nqs = min(nq, t_lo + per) - t_lo;
+  const int nt = nh * nqs;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < C::NB; ++s) mbar_init(bars + 8 * s, C::THREADS);
@@ -655,10 +814,10 @@ __device__ __forceinline__ void dkdv_pass(
     if constexpr (WDK) fd.fence();
   };
 
-  // step `it`: q head h0 + it / nq, query tile it % nq
+  // step `it`: q head h0 + it / nqs, query tile t_lo + it % nqs
   auto load_stage = [&](int it) {
-    const int st = it % C::NB, q0 = qbeg + it % nq * BN;
-    const long long bh = (long long)h0 + it / nq;
+    const int st = it % C::NB, q0 = qbeg + (t_lo + it % nqs) * BN;
+    const long long bh = (long long)h0 + it / nqs;
     const uint32_t sb = sm + C::ST0 + st * C::STAGE;
     const uint32_t ld = sb + C::LD + (it & 1) * 8 * BN;
     load_rows<T, DH, typename C::CT, BN, C::THREADS>(sb + C::B1,
@@ -676,7 +835,7 @@ __device__ __forceinline__ void dkdv_pass(
 
   if (nt > 0) {
     // K (and V, where dP^T is formed) join stage 0's barrier
-    for (int w = 0; w < C::NWG; ++w) {
+    for (int w = 0; w < C::NRT; ++w) {
       load_rows<T, DH, typename C::RT, ROWS, C::THREADS>(
           sm + C::A1 + w * C::R_B, k + koff, k0 + ROWS * w, skv);
       if constexpr (WDK)
@@ -685,14 +844,14 @@ __device__ __forceinline__ void dkdv_pass(
     }
     for (int s = 0; s < C::NB && s < nt; ++s) load_stage(s);
     mbar_wait(bars, 0);
-    if constexpr (C::F32)
+    if constexpr (C::F32 && !C::RSPLIT)
       split_flat<C::THREADS>(gsm + C::A1, C::A_LO, C::A_LO);
     float zero[BN / 2] = {};
     fp.pack(zero);                 // defined values for the first fence
     fd.pack(zero);
 
     for (int it = 0; it < nt; ++it) {
-      const int st = it % C::NB, q0 = qbeg + it % nq * BN;
+      const int st = it % C::NB, q0 = qbeg + (t_lo + it % nqs) * BN;
       const uint32_t sb = sm + C::ST0 + st * C::STAGE;
       char* const gsb = gsm + C::ST0 + st * C::STAGE;
       // as in the dq pass: the step before's dv and dk products end before
@@ -704,11 +863,19 @@ __device__ __forceinline__ void dkdv_pass(
         __syncthreads();
       }
       mbar_wait(bars + 8 * st, (it / C::NB) & 1);
+      // float32: Q and dO split in place, and transposed where a product
+      // reads Q^T (dk) or dO^T (dv)
       if constexpr (C::F32) {
-        split_transpose<BN, DH, C::THREADS>(gsb + C::B1, 2 * C::C_B,
-                                            gsm + C::C1, C::T_B);
-        split_transpose<BN, DH, C::THREADS>(gsb + C::B2, 2 * C::C_B,
-                                            gsm + C::C1 + 2 * C::T_B, C::T_B);
+        if constexpr (WDK)
+          split_transpose<BN, DH, C::THREADS>(gsb + C::B1, 2 * C::C_B,
+                                              gsm + C::TQ, C::T_B);
+        else
+          split_flat<C::THREADS>(gsb + C::B1, 2 * C::C_B, C::CT::BYTES);
+        if constexpr (WDV)
+          split_transpose<BN, DH, C::THREADS>(gsb + C::B2, 2 * C::C_B,
+                                              gsm + C::TO, C::T_B);
+        else
+          split_flat<C::THREADS>(gsb + C::B2, 2 * C::C_B, C::CT::BYTES);
       }
       fence_proxy_async();
       if constexpr (!C::F32) {
@@ -720,12 +887,20 @@ __device__ __forceinline__ void dkdv_pass(
       if (!C::F32 && it >= 1 && it + 1 < nt) load_stage(it + 1);
 
       float s[BN / 2], dp[WDK ? BN / 2 : 1];
-      wgmma_fence();
-      issue_ss<C, DH, false>(s, sm + C::A1 + wg * C::R_B, sb + C::B1);
-      if constexpr (WDK)
-        issue_ss<C, DH, false>(dp, sm + C::A2 + wg * C::R_B, sb + C::B2);
-      wgmma_commit();
-      wgmma_wait<0>();
+      if constexpr (C::RSPLIT) {
+        issue_split<C, DH, false, WDK>(s, dp, gsm + C::A1, gsm + C::A2,
+                                       sb + C::B1, sb + C::B2);
+        // S^T and dP^T over the other half of Dh; Q's tile is read by no
+        // product any more (dk += dS^T Q reads Q^T)
+        exchange<BN / 2, WDK>(s, dp, gsb + C::B1);
+      } else {
+        wgmma_fence();
+        issue_ss<C, DH, false>(s, sm + C::A1 + wg * C::R_B, sb + C::B1);
+        if constexpr (WDK)
+          issue_ss<C, DH, false>(dp, sm + C::A2 + wg * C::R_B, sb + C::B2);
+        wgmma_commit();
+        wgmma_wait<0>();
+      }
       fence_regs(s);
       if constexpr (WDK) fence_regs(dp);
       // float32: Q and dO are free past the barrier (the products below
@@ -767,15 +942,17 @@ __device__ __forceinline__ void dkdv_pass(
       wgmma_fence();
       if constexpr (WDV) {
         if constexpr (C::STEP_SUM)
-          issue_rs<C, DH>(dvs, fp, sb + C::B2, sm + C::C1 + 2 * C::T_B);
+          issue_rs<C, DH>(dvs, fp, sb + C::B2, sm + C::TO);
         else
-          issue_rs<C, DH>(dva, fp, sb + C::B2, sm + C::C1 + 2 * C::T_B);
+          issue_rs<C, DH>(dva, fp, sb + C::B2,
+                          sm + C::TO + C::TT::start(dc, 0));
       }
       if constexpr (WDK) {
         if constexpr (C::STEP_SUM)
-          issue_rs<C, DH>(dks, fd, sb + C::B1, sm + C::C1);
+          issue_rs<C, DH>(dks, fd, sb + C::B1, sm + C::TQ);
         else
-          issue_rs<C, DH>(dka, fd, sb + C::B1, sm + C::C1);
+          issue_rs<C, DH>(dka, fd, sb + C::B1,
+                          sm + C::TQ + C::TT::start(dc, 0));
       }
       wgmma_commit();
     }
@@ -789,13 +966,13 @@ __device__ __forceinline__ void dkdv_pass(
     const int j = kw + row0 + 8 * h;
     if (j >= skv) continue;
 #pragma unroll
-    for (int c = 0; c < DH / 8; ++c) {
+    for (int c = 0; c < C::DC / 8; ++c) {
       if constexpr (WDK)
-        store2(dk + ooff + (long long)j * DH + 8 * c + c2,
+        store2(dk + ooff + (long long)j * DH + dc + 8 * c + c2,
                dka[4 * c + 2 * h] * scale, dka[4 * c + 2 * h + 1] * scale);
       if constexpr (WDV)
-        store2(dv + ooff + (long long)j * DH + 8 * c + c2, dva[4 * c + 2 * h],
-               dva[4 * c + 2 * h + 1]);
+        store2(dv + ooff + (long long)j * DH + dc + 8 * c + c2,
+               dva[4 * c + 2 * h], dva[4 * c + 2 * h + 1]);
     }
   }
 }
@@ -814,10 +991,10 @@ fa_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // key blocks in order (the causal form's first ones see every query),
   // kv heads innermost
   const int kvh = blockIdx.x % nkv;
-  const int k0 = blockIdx.x / nkv * ROWS * Cfg<T, DH, false>::NWG;
+  const int k0 = blockIdx.x / nkv * ROWS * Cfg<T, DH, false>::NRT;
   dkdv_pass<T, DH, DKDV, T>(q, k, v, dout, lse_in, dsum_in, dk, dv, kvh,
                             kvh * group, group, k0, (long long)kvh * skv * DH,
-                            sq, skv, causal, window, prefix, scale,
+                            0, 1, sq, skv, causal, window, prefix, scale,
                             scale_log2);
 }
 
@@ -835,13 +1012,13 @@ int run(const T* q, const T* k, const T* v, const T* o, const T* dout, T* dq,
   if (err_q) return err_q;
   if (err_k) return err_k;
   const float scale_log2 = scale * 1.4426950408889634f;
-  const int nqb = (sq + ROWS * CQ::NWG - 1) / (ROWS * CQ::NWG);
+  const int nqb = (sq + ROWS * CQ::NRT - 1) / (ROWS * CQ::NRT);
   dq_kernel<<<nqb * bh, CQ::THREADS, CQ::BYTES, stream>>>(
       q, k, v, o, dout, dq, lse, dsum, bh, nqb, group, sq, skv, causal,
-      window, prefix, scale, scale_log2);
+      window, prefix, scale, scale_log2, 1, nullptr, nullptr);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int nkb = (skv + ROWS * CK::NWG - 1) / (ROWS * CK::NWG);
+  const int nkb = (skv + ROWS * CK::NRT - 1) / (ROWS * CK::NRT);
   dkdv_kernel<<<nkb * (bh / group), CK::THREADS, CK::BYTES, stream>>>(
       q, k, v, dout, lse, dsum, dk, dv, bh / group, group, sq, skv, causal,
       window, prefix, scale, scale_log2);
@@ -886,273 +1063,74 @@ int run(const T* q, const T* k, const T* v, const T* o, const T* dout, T* dq,
 // in a block cuts the scratch g-fold but the blocks too: at g = 2, 80 and
 // 96 dk/dv blocks on 132 SMs.
 //
-// float32 at Dh 256 (13c's one step and the gates only) keeps the passes
-// on the CUDA cores, with the same third launch: its 3xTF32 operands and
-// their transposed copies do not fit the tiles above. A thread owns one
-// of the 256 columns of its block's 32 rows (32 sums in the dq pass, 64
-// in the dk/dv pass), and every operand sits in shared memory as float32,
-// rows padded by one float so that a warp's walk down a column hits 32
-// banks:
-// - fa_bwd256_dq_kernel: 32 query rows of one head; each warp owns 4 rows
-//   and its lanes the 32 keys of a tile, so S = Q K^T, dP = dO V^T, the
-//   mask, the online row max and sum and dS~ = P~ (dP - D) close in
-//   shuffles; then every thread adds dS~ K to its column of dq~, rescaled
-//   by the change of the row max. lse (natural log) and D go to the dk/dv
-//   pass.
-// - fa_bwd256_dkdv_kernel: 32 keys of one q head of the group; each warp
-//   owns 4 keys and its lanes the 32 queries of a tile: P^T = exp(S^T
-//   scale - lse), dS^T = P^T (dP^T - D); then every thread adds P^T dO
-//   and dS^T Q to its column of dv and dk, into the scratch.
-// - fa_bwd256_sum_kernel (both types): dk and dv of each kv head, the
-//   scratch summed over its group in head order.
-// Masks and the tiles walked are the tensor-core passes'. Every sum has a
-// fixed order and there are no atomics: two launches agree bitwise.
+// float32 at Dh 256 runs the same three launches on the tensor cores
+// (3xTF32), the dq pass and the dk and dv passes being the templates
+// above at Cfg<float, 256, *>. What stands in the way is shared memory: a
+// 64-row row tile of 256 float32 columns is 64 KB, 128 KB with its tf32
+// lo half, so Q and dO (dq pass) or K and V (dk pass) with lo halves take
+// 256 KB, more than a block's 227 KB. So (RSPLIT):
+// - The row side stays raw float32 and S and dP take their A operand
+//   from registers: each k-step of 8 columns, a warp loads its tf32
+//   fragment from the row tile and splits it hi + lo in registers
+//   (issue_split; split_walk and frag_kmajor in hopper_tile.cuh). The row
+//   tiles keep the swizzled layout, whose 16-byte chunks XOR with the row,
+//   so a fragment's eight rows find 32 banks. The split rounds as the
+//   stored one and the three products take the same values in the same
+//   k-order, so P still agrees between the passes. Each product has its
+//   own accumulator, summed (lo hi + hi lo) + hi hi: one accumulator
+//   chains 96 dependent products.
+// - Column tiles of BN = 16 (K, V, Q or dO BN x 1 KB raw, 2 KB with lo;
+//   a transposed copy 256 x BN x 4 B = 16 KB, 32 KB with lo). Shared
+//   memory, one block a SM: the dq pass Q and dO raw 128 KB, K and V with
+//   lo halves 64 KB, K^T with its lo 32 KB: 224 KB (230,408 B with the
+//   barrier and alignment); the dk / dv passes K and V raw 128 KB (the dv
+//   pass leaves V's unused), Q and dO with lo halves and the tile's lse
+//   and D 65 KB, and one transposed copy with its lo, Q^T (dk) or dO^T
+//   (dv), 32 KB: 225 KB (231,048 B). The dk pass splits dO in place and
+//   transposes Q; the dv pass splits Q in place and transposes dO. BN 32
+//   would need 64 KB more in either pass.
+// - Two warpgroups share a block's 64 rows: each forms S and dP (S^T and
+//   dP^T) over its half of Dh, the halves cross through a stage tile that
+//   no product reads any more (exchange: V's in the dq pass, Q's in the
+//   dk/dv pass; 16 KB), warpgroup 0's first, so both hold the same sums,
+//   and each owns half the columns of dq, dk or dv (a 64-register
+//   accumulator, products of N = 128 on its rows of the transposed copy).
+//   Registers (no spill): the accumulator 64, S and dP's three partial
+//   accumulators 48, two fragment sets 32, dS~ or dS^T as fragments 16.
+//   No STEP_SUM at Dh 256, as at float32 Dh 128, where the dq pass chains
+//   as long.
+// - Where the dk and dv blocks (two a q head and 64 keys) would not fill
+//   the card, each block walks one of `nspl` contiguous parts of its
+//   query tiles and writes its own float32 partial, which the group sum
+//   adds in head order, a head's parts in order (flash_attn.bwd_splits:
+//   at most 4, as many as keep the blocks within two a SM).
+// Blocks at phase 2's (8, 300, 256) group 2 causal case: 40 dq blocks and
+// 80 dk/dv blocks in 3 parts, 240; at the float32 twins of the path
+// cases, (20, 512, 256) group 10 local and (16, 768, 256) group 8 prefix,
+// 160 and 320, 192 and 384 (no parts). The scratch: 2 x 7.4 MB at phase
+// 2's case, 2 x 21.0 MB and 2 x 25.2 MB at the twins.
+// What holds it back (PERF.md §6): S and dP take 192 tf32 `wgmma`
+// of N = 16 for every 16 keys (three products, two operands, 32
+// k-steps), which the SM retires far below the tensor cores' rate (a
+// second warpgroup did not shorten the dq walk); shared memory bounds N.
+// A block's tiles run in turn, one block a SM.
 // ---------------------------------------------------------------------------
-constexpr int R256 = 32;          // rows a block, columns a tile
-constexpr int D256 = 256;
-constexpr int T256 = 256;         // threads: one a column
-constexpr int LD256 = D256 + 1;   // padded row stride, floats
-constexpr int PT256 = R256 + 1;
-
-__device__ __forceinline__ bool kept(int key, int query, int skv, int causal,
-                                     int window, int prefix) {
-  return key < skv &&
-         (!causal || ((key <= query || key < prefix) &&
-                      (window == 0 || key > query - window)));
-}
-
-__device__ __forceinline__ float wmax(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float wsum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// rows [r0, r0 + 32) of a (rows, 256) array into a padded float tile;
-// rows past `nrows` are 0
-template <typename T>
-__device__ __forceinline__ void load256(float* dst, const T* x, int r0,
-                                        int nrows) {
-  for (int i = threadIdx.x; i < R256 * D256; i += T256) {
-    const int r = i / D256, d = i % D256;
-    dst[r * LD256 + d] =
-        r0 + r < nrows ? ftile::to_f(x[(long long)(r0 + r) * D256 + d]) : 0.f;
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(T256, 1)
-fa_bwd256_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ o,
-                    const T* __restrict__ dout, T* __restrict__ dq,
-                    float* __restrict__ lse_out, float* __restrict__ dsum_out,
-                    int nbh, int nqb, int group, int sq, int skv, int causal,
-                    int window, int prefix, float scale) {
-  extern __shared__ float sm256[];
-  float* const Qs = sm256;
-  float* const Os = Qs + R256 * LD256;     // dO
-  float* const Ks = Os + R256 * LD256;
-  float* const Vs = Ks + R256 * LD256;
-  float* const Ps = Vs + R256 * LD256;     // dS~, (32, 33)
-  float* const al = Ps + R256 * PT256;     // each row's rescale
-  float* const ls = al + R256;             // each row's sum at the end
-
-  // heaviest (last) query blocks first, heads innermost
-  const int bh = blockIdx.x % nbh;
-  const int q0 = (nqb - 1 - blockIdx.x / nbh) * R256;
-  const long long qoff = (long long)bh * sq * D256;
-  const T* kb = k + (long long)(bh / group) * skv * D256;
-  const T* vb = v + (long long)(bh / group) * skv * D256;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-
-  load256(Qs, q + qoff, q0, sq);
-  load256(Os, dout + qoff, q0, sq);
-  // D = rowsum(do * o) of the warp's 4 rows, and their online max / sum
-  float dsum[4], m[4], l[4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int i = q0 + warp * 4 + r;
-    float acc = 0.f;
-    if (i < sq)
-      for (int d = lane; d < D256; d += 32) {
-        const long long at = qoff + (long long)i * D256 + d;
-        acc = fmaf(ftile::to_f(dout[at]), ftile::to_f(o[at]), acc);
-      }
-    dsum[r] = wsum(acc);
-    m[r] = -INFINITY;
-    l[r] = 0.f;
-  }
-
-  const int kend = causal ? min(skv, max(q0 + R256, prefix)) : skv;
-  const int kbeg = window > 0 ? max(0, q0 - window + 1) / R256 * R256 : 0;
-  float acc[R256];
-#pragma unroll
-  for (int i = 0; i < R256; ++i) acc[i] = 0.f;
-
-  for (int k0 = kbeg; k0 < kend; k0 += R256) {
-    __syncthreads();               // the last tile's K, V and dS~ are read
-    load256(Ks, kb, k0, skv);
-    load256(Vs, vb, k0, skv);
-    __syncthreads();
-    float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int d = 0; d < D256; ++d) {
-      const float kd = Ks[lane * LD256 + d], vd = Vs[lane * LD256 + d];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        s[r] = fmaf(Qs[(warp * 4 + r) * LD256 + d], kd, s[r]);
-        dp[r] = fmaf(Os[(warp * 4 + r) * LD256 + d], vd, dp[r]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = warp * 4 + r, query = q0 + row;
-      const float x = query < sq && kept(k0 + lane, query, skv, causal,
-                                         window, prefix)
-                          ? s[r] * scale : -INFINITY;
-      const float m_new = fmaxf(m[r], wmax(x));
-      const float mu = m_new == -INFINITY ? 0.f : m_new;
-      const float alpha = expf(m[r] - mu);
-      const float pr = expf(x - mu);
-      l[r] = l[r] * alpha + wsum(pr);
-      m[r] = m_new;
-      Ps[row * PT256 + lane] = pr * (dp[r] - dsum[r]);
-      if (lane == 0) al[row] = alpha;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < R256; ++i) acc[i] *= al[i];
-    for (int j = 0; j < R256; ++j) {
-      const float kd = Ks[j * LD256 + tid];
-#pragma unroll
-      for (int i = 0; i < R256; ++i) acc[i] = fmaf(Ps[i * PT256 + j], kd, acc[i]);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = warp * 4 + r, i = q0 + row;
-    if (lane == 0) {
-      ls[row] = l[r];
-      if (i < sq) {
-        lse_out[(long long)bh * sq + i] = m[r] + logf(l[r]);
-        dsum_out[(long long)bh * sq + i] = dsum[r];
-      }
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int r = 0; r < R256; ++r) {
-    const int i = q0 + r;
-    if (i < sq)
-      dq[qoff + (long long)i * D256 + tid] =
-          from_f<T>(acc[r] * (scale / fmaxf(ls[r], 1e-30f)));
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(T256, 1)
-fa_bwd256_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const T* __restrict__ dout,
-                      const float* __restrict__ lse_in,
-                      const float* __restrict__ dsum_in,
-                      float* __restrict__ dk_part, float* __restrict__ dv_part,
-                      int nbh, int group, int sq, int skv, int causal,
-                      int window, int prefix, float scale) {
-  extern __shared__ float sm256[];
-  float* const Ks = sm256;
-  float* const Vs = Ks + R256 * LD256;
-  float* const Qs = Vs + R256 * LD256;
-  float* const Os = Qs + R256 * LD256;     // dO
-  float* const Pt = Os + R256 * LD256;     // P^T, (32, 33)
-  float* const Dt = Pt + R256 * PT256;     // dS^T
-  float* const lq = Dt + R256 * PT256;     // the tile's lse and D
-  float* const dd = lq + R256;
-
-  // key blocks in order, q heads innermost: head bh reads kv head bh /
-  // group
-  const int bh = blockIdx.x % nbh;
-  const int k0 = blockIdx.x / nbh * R256;
-  const long long koff = (long long)(bh / group) * skv * D256;
-  const long long qoff = (long long)bh * sq * D256;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-
-  load256(Ks, k + koff, k0, skv);
-  load256(Vs, v + koff, k0, skv);
-  const int klast = min(skv, k0 + R256) - 1;
-  const int qbeg = causal && k0 >= prefix ? k0 / R256 * R256 : 0;
-  const int qend = causal && window > 0 ? min(sq, klast + window) : sq;
-
-  float dka[R256], dva[R256];
-#pragma unroll
-  for (int j = 0; j < R256; ++j) dka[j] = dva[j] = 0.f;
-
-  for (int q0 = qbeg; q0 < qend; q0 += R256) {
-    __syncthreads();               // the last tile's Q, dO, P^T, dS^T read
-    load256(Qs, q + qoff, q0, sq);
-    load256(Os, dout + qoff, q0, sq);
-    if (tid < R256) {
-      const bool ok = q0 + tid < sq;
-      lq[tid] = ok ? lse_in[(long long)bh * sq + q0 + tid] : 0.f;
-      dd[tid] = ok ? dsum_in[(long long)bh * sq + q0 + tid] : 0.f;
-    }
-    __syncthreads();
-    float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int d = 0; d < D256; ++d) {
-      const float qd = Qs[lane * LD256 + d], od = Os[lane * LD256 + d];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        s[r] = fmaf(Ks[(warp * 4 + r) * LD256 + d], qd, s[r]);
-        dp[r] = fmaf(Vs[(warp * 4 + r) * LD256 + d], od, dp[r]);
-      }
-    }
-    const int query = q0 + lane;
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = warp * 4 + r;
-      const float pr = query < sq && kept(k0 + row, query, skv, causal,
-                                          window, prefix)
-                           ? expf(s[r] * scale - lq[lane]) : 0.f;
-      Pt[row * PT256 + lane] = pr;
-      Dt[row * PT256 + lane] = pr * (dp[r] - dd[lane]);
-    }
-    __syncthreads();
-    for (int i = 0; i < R256; ++i) {
-      const float qd = Qs[i * LD256 + tid], od = Os[i * LD256 + tid];
-#pragma unroll
-      for (int j = 0; j < R256; ++j) {
-        dva[j] = fmaf(Pt[j * PT256 + i], od, dva[j]);
-        dka[j] = fmaf(Dt[j * PT256 + i], qd, dka[j]);
-      }
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < R256; ++j) {
-    if (k0 + j < skv) {
-      const long long at = ((long long)bh * skv + k0 + j) * D256 + tid;
-      dk_part[at] = dka[j] * scale;
-      dv_part[at] = dva[j];
-    }
-  }
-}
 
 // dk, dv (BH / group, Skv, 256) = each kv head's group of the per-head
-// scratch summed in head order
+// scratch (each head's `nspl` parts of its query walk) summed in head
+// order, a head's parts in order
 template <typename T>
 __global__ void __launch_bounds__(256)
 fa_bwd256_sum_kernel(const float* __restrict__ dk_part,
                      const float* __restrict__ dv_part, T* __restrict__ dk,
-                     T* __restrict__ dv, int group, long long per_head,
-                     long long total) {
+                     T* __restrict__ dv, int group, int nspl,
+                     long long per_head, long long total) {
   const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
   if (i >= total) return;
   const long long kvh = i / per_head, r = i - kvh * per_head;
   float sk = 0.f, sv = 0.f;
-  for (int g = 0; g < group; ++g) {
-    const long long at = (kvh * group + g) * per_head + r;
+  for (int g = 0; g < group * nspl; ++g) {
+    const long long at = (kvh * group * nspl + g) * per_head + r;
     sk += dk_part[at];
     sv += dv_part[at];
   }
@@ -1160,47 +1138,43 @@ fa_bwd256_sum_kernel(const float* __restrict__ dk_part,
   dv[i] = from_f<T>(sv);
 }
 
-template <typename T>
-int run256(const T* q, const T* k, const T* v, const T* o, const T* dout,
-           T* dq, T* dk, T* dv, float* lse, float* dsum, float* part,
-           int bh, int group, int sq, int skv, int causal, int window,
-           int prefix, float scale, cudaStream_t stream) {
-  if (part == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int DQ_BYTES = (4 * R256 * LD256 + R256 * PT256 + 2 * R256) * 4;
-  constexpr int DKDV_BYTES = (4 * R256 * LD256 + 2 * R256 * PT256 +
-                              2 * R256) * 4;
-  auto dq_kernel = fa_bwd256_dq_kernel<T>;
-  auto dkdv_kernel = fa_bwd256_dkdv_kernel<T>;
-  static const int err_q = ftile::allow_smem(dq_kernel, DQ_BYTES);
-  static const int err_k = ftile::allow_smem(dkdv_kernel, DKDV_BYTES);
-  if (err_q) return err_q;
-  if (err_k) return err_k;
-  const int nqb = (sq + R256 - 1) / R256;
-  dq_kernel<<<nqb * bh, T256, DQ_BYTES, stream>>>(
-      q, k, v, o, dout, dq, lse, dsum, bh, nqb, group, sq, skv, causal,
-      window, prefix, scale);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int nkb = (skv + R256 - 1) / R256;
-  const long long per_part = (long long)bh * skv * D256;
-  dkdv_kernel<<<nkb * bh, T256, DKDV_BYTES, stream>>>(
-      q, k, v, dout, lse, dsum, part, part + per_part, bh, group, sq, skv,
-      causal, window, prefix, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long total = per_part / group;
-  fa_bwd256_sum_kernel<T><<<static_cast<int>((total + 255) / 256), 256, 0,
-                            stream>>>(part, part + per_part, dk, dv, group,
-                                      (long long)skv * D256, total);
-  return static_cast<int>(cudaGetLastError());
+// float32 Dh 256 with the dq pass's key walk in `nsq` parts: dq = sum_i
+// w_i dq~_i scale / sum_i w_i l_i and lse = max m + log2 sum_i w_i l_i,
+// w_i = exp2(m_i - max m), the parts in order; a thread four columns of a
+// row
+__global__ void __launch_bounds__(256)
+fa_bwd256_dq_sum_kernel(const float* __restrict__ dqp,
+                        const float* __restrict__ mlp, float* __restrict__ dq,
+                        float* __restrict__ lse, int nsq, long long rows,
+                        float scale) {
+  const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (i >= rows * 64) return;
+  const long long r = i / 64;
+  const int cg = static_cast<int>(i % 64);
+  float mx = -INFINITY;
+  for (int s = 0; s < nsq; ++s) mx = fmaxf(mx, mlp[2 * (s * rows + r)]);
+  const float mu = mx == -INFINITY ? 0.f : mx;
+  float l = 0.f;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int s = 0; s < nsq; ++s) {
+    const long long at = s * rows + r;
+    const float w = exp2f(mlp[2 * at] - mu);
+    l = fmaf(w, mlp[2 * at + 1], l);
+    const float4 v = reinterpret_cast<const float4*>(dqp + at * 256)[cg];
+    acc = make_float4(fmaf(w, v.x, acc.x), fmaf(w, v.y, acc.y),
+                      fmaf(w, v.z, acc.z), fmaf(w, v.w, acc.w));
+  }
+  const float sc = scale / fmaxf(l, 1e-30f);
+  reinterpret_cast<float4*>(dq + r * 256)[cg] =
+      make_float4(acc.x * sc, acc.y * sc, acc.z * sc, acc.w * sc);
+  if (cg == 0) lse[r] = mx + log2f(l);
 }
 
-// Dh 256 on the tensor cores (bf16): the dk/dv pass split in two passes
-// of one launch, dk (S^T, dP^T, dS^T Q) and dv (S^T, P^T dO), each block a
-// key block of one q head, odd blocks dv and even ones dk of the same
-// keys and head (their Q and dO tiles read together through L2); each
-// head's dk and dv go to the float32 scratch that fa_bwd256_sum_kernel
-// sums over the group
+// Dh 256: the dk/dv pass split in two passes of one launch, dk (S^T,
+// dP^T, dS^T Q) and dv (S^T, P^T dO), each block a key block of one q
+// head, odd blocks dv and even ones dk of the same keys and head (their Q
+// and dO tiles read together through L2); each head's dk and dv go to the
+// float32 scratch that fa_bwd256_sum_kernel sums over the group
 template <typename T>
 __global__ void __launch_bounds__(Cfg<T, 256, false>::THREADS, 1)
 fa_bwd_kv256_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -1208,32 +1182,36 @@ fa_bwd_kv256_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const float* __restrict__ lse_in,
                     const float* __restrict__ dsum_in,
                     float* __restrict__ dk_part, float* __restrict__ dv_part,
-                    int nbh, int group, int sq, int skv, int causal,
+                    int nbh, int group, int nspl, int sq, int skv, int causal,
                     int window, int prefix, float scale, float scale_log2) {
-  const int i = blockIdx.x >> 1;
-  const int bh = i % nbh;
-  const int k0 = i / nbh * ROWS * Cfg<T, 256, false>::NWG;
-  const long long ooff = (long long)bh * skv * 256;
+  const int i = blockIdx.x >> 1, sp = i % nspl, j = i / nspl;
+  const int bh = j % nbh;
+  const int k0 = j / nbh * ROWS * Cfg<T, 256, false>::NRT;
+  const long long ooff = ((long long)bh * nspl + sp) * skv * 256;
   if (blockIdx.x & 1)
     dkdv_pass<T, 256, DV, float>(q, k, v, dout, lse_in, dsum_in, dk_part,
-                                 dv_part, bh / group, bh, 1, k0, ooff, sq,
-                                 skv, causal, window, prefix, scale,
+                                 dv_part, bh / group, bh, 1, k0, ooff, sp,
+                                 nspl, sq, skv, causal, window, prefix, scale,
                                  scale_log2);
   else
     dkdv_pass<T, 256, DK, float>(q, k, v, dout, lse_in, dsum_in, dk_part,
-                                 dv_part, bh / group, bh, 1, k0, ooff, sq,
-                                 skv, causal, window, prefix, scale,
+                                 dv_part, bh / group, bh, 1, k0, ooff, sp,
+                                 nspl, sq, skv, causal, window, prefix, scale,
                                  scale_log2);
 }
 
-// bf16 Dh 256: the templated dq pass, the split dk/dv passes and the group
-// sum
+// Dh 256: the templated dq pass, the split dk/dv passes and the group sum
 template <typename T>
-int run_tc256(const T* q, const T* k, const T* v, const T* o, const T* dout,
-              T* dq, T* dk, T* dv, float* lse, float* dsum, float* part,
-              int bh, int group, int sq, int skv, int causal, int window,
-              int prefix, float scale, cudaStream_t stream) {
-  if (part == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+int run256(const T* q, const T* k, const T* v, const T* o, const T* dout,
+           T* dq, T* dk, T* dv, float* lse, float* dsum, float* part, int bh,
+           int group, int nsq, int nspl, int sq, int skv, int causal,
+           int window, int prefix, float scale, cudaStream_t stream) {
+  // `part`: the dk and dv partials (2, BH nspl, Skv, 256), then (nsq > 1,
+  // float32) the dq pass's parts (nsq, BH, Sq, 256) and their rows' m and
+  // l (nsq, BH, Sq, 2)
+  if (part == nullptr || nspl < 1 || nsq < 1 ||
+      (nsq > 1 && !std::is_same<T, float>::value))
+    return static_cast<int>(cudaErrorInvalidValue);
   using CQ = Cfg<T, 256, true>;
   using CK = Cfg<T, 256, false>;
   auto dq_kernel = fa_bwd_dq_kernel<T, 256>;
@@ -1243,31 +1221,43 @@ int run_tc256(const T* q, const T* k, const T* v, const T* o, const T* dout,
   if (err_q) return err_q;
   if (err_k) return err_k;
   const float scale_log2 = scale * 1.4426950408889634f;
-  const int nqb = (sq + ROWS * CQ::NWG - 1) / (ROWS * CQ::NWG);
-  dq_kernel<<<nqb * bh, CQ::THREADS, CQ::BYTES, stream>>>(
+  const int nqb = (sq + ROWS * CQ::NRT - 1) / (ROWS * CQ::NRT);
+  const long long per_part = (long long)bh * nspl * skv * 256;
+  float* dqp = part + 2 * per_part;
+  float* mlp = dqp + (long long)nsq * bh * sq * 256;
+  dq_kernel<<<nqb * bh * nsq, CQ::THREADS, CQ::BYTES, stream>>>(
       q, k, v, o, dout, dq, lse, dsum, bh, nqb, group, sq, skv, causal,
-      window, prefix, scale, scale_log2);
+      window, prefix, scale, scale_log2, nsq, dqp, mlp);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int nkb = (skv + ROWS * CK::NWG - 1) / (ROWS * CK::NWG);
-  const long long per_part = (long long)bh * skv * D256;
-  kv_kernel<<<2 * nkb * bh, CK::THREADS, CK::BYTES, stream>>>(
-      q, k, v, dout, lse, dsum, part, part + per_part, bh, group, sq, skv,
-      causal, window, prefix, scale, scale_log2);
+  if (nsq > 1) {
+    const long long rows = (long long)bh * sq;
+    fa_bwd256_dq_sum_kernel<<<static_cast<int>((rows * 64 + 255) / 256), 256,
+                              0, stream>>>(dqp, mlp,
+                                           reinterpret_cast<float*>(dq), lse,
+                                           nsq, rows, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int nkb = (skv + ROWS * CK::NRT - 1) / (ROWS * CK::NRT);
+  kv_kernel<<<2 * nkb * bh * nspl, CK::THREADS, CK::BYTES, stream>>>(
+      q, k, v, dout, lse, dsum, part, part + per_part, bh, group, nspl, sq,
+      skv, causal, window, prefix, scale, scale_log2);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long total = per_part / group;
+  const long long total = (long long)bh / group * skv * 256;
   fa_bwd256_sum_kernel<T><<<static_cast<int>((total + 255) / 256), 256, 0,
                             stream>>>(part, part + per_part, dk, dv, group,
-                                      (long long)skv * D256, total);
+                                      nspl, (long long)skv * 256, total);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, void* dq, void* dk, void* dv, void* lse,
-           void* dsum, void* part, int bh, int group, int sq, int skv, int dh,
-           int causal, int window, int prefix, float scale, void* stream) {
+           void* dsum, void* part, int bh, int group, int nsq, int nspl,
+           int sq, int skv, int dh, int causal, int window, int prefix,
+           float scale, void* stream) {
   if (bh < 1 || group < 1 || bh % group || sq < 1 || skv < 1 ||
       (causal && sq != skv) || window < 0 || (window && !causal) ||
       prefix < 0 || (prefix && (!causal || window)))
@@ -1288,11 +1278,7 @@ int launch(const void* q, const void* k, const void* v, const void* o,
     case 32: return run<T, 32>(tq, tk, tv, to, td, gq, gk, gv, fl, fd, bh, group, sq, skv, causal, window, prefix, scale, st);
     case 64: return run<T, 64>(tq, tk, tv, to, td, gq, gk, gv, fl, fd, bh, group, sq, skv, causal, window, prefix, scale, st);
     case 128: return run<T, 128>(tq, tk, tv, to, td, gq, gk, gv, fl, fd, bh, group, sq, skv, causal, window, prefix, scale, st);
-    case 256:
-      if constexpr (std::is_same<T, float>::value)
-        return run256<T>(tq, tk, tv, to, td, gq, gk, gv, fl, fd, static_cast<float*>(part), bh, group, sq, skv, causal, window, prefix, scale, st);
-      else
-        return run_tc256<T>(tq, tk, tv, to, td, gq, gk, gv, fl, fd, static_cast<float*>(part), bh, group, sq, skv, causal, window, prefix, scale, st);
+    case 256: return run256<T>(tq, tk, tv, to, td, gq, gk, gv, fl, fd, static_cast<float*>(part), bh, group, nsq, nspl, sq, skv, causal, window, prefix, scale, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1302,22 +1288,24 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 extern "C" int flash_attn_bwd_f32(const void* q, const void* k, const void* v,
                                   const void* o, const void* dout, void* dq,
                                   void* dk, void* dv, void* lse, void* dsum,
-                                  void* part, int bh, int group, int sq,
-                                  int skv, int dh, int causal, int window,
-                                  int prefix, float scale, void* stream) {
+                                  void* part, int bh, int group, int nsq,
+                                  int nspl, int sq, int skv, int dh,
+                                  int causal, int window, int prefix,
+                                  float scale, void* stream) {
   return launch<float>(q, k, v, o, dout, dq, dk, dv, lse, dsum, part, bh,
-                       group, sq, skv, dh, causal, window, prefix, scale,
-                       stream);
+                       group, nsq, nspl, sq, skv, dh, causal, window, prefix,
+                       scale, stream);
 }
 
 extern "C" int flash_attn_bwd_bf16(const void* q, const void* k,
                                    const void* v, const void* o,
                                    const void* dout, void* dq, void* dk,
                                    void* dv, void* lse, void* dsum,
-                                   void* part, int bh, int group, int sq,
-                                   int skv, int dh, int causal, int window,
-                                   int prefix, float scale, void* stream) {
+                                   void* part, int bh, int group, int nsq,
+                                   int nspl, int sq, int skv, int dh,
+                                   int causal, int window, int prefix,
+                                   float scale, void* stream) {
   return launch<__nv_bfloat16>(q, k, v, o, dout, dq, dk, dv, lse, dsum, part,
-                               bh, group, sq, skv, dh, causal, window, prefix,
-                               scale, stream);
+                               bh, group, nsq, nspl, sq, skv, dh, causal,
+                               window, prefix, scale, stream);
 }

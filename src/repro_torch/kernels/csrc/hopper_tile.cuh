@@ -3,7 +3,9 @@
 // matrix descriptors describe, the descriptors themselves, `cp.async`
 // copies that complete on an `mbarrier`, the fences between the generic
 // and the async proxy, and the register fences that keep the compiler
-// from touching a `wgmma` operand while the instruction is in flight.
+// from touching a `wgmma` operand while the instruction is in flight;
+// and for 3xTF32, the hi + lo splits, in registers and in place, and the
+// walk of products whose A fragments are loaded and split in registers.
 // The `wgmma` instructions are in wgmma_ops.cuh (generated).
 //
 // A tile is R rows of ROW_BYTES contiguous bytes. It is stored as panels
@@ -154,6 +156,105 @@ __device__ __forceinline__ float tf32(float x) {
   uint32_t y;
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(y) : "f"(x));
   return __uint_as_float(y);
+}
+
+// the bits of hi = tf32(x) and lo = tf32(x - hi), 3xTF32's two halves,
+// for the splits in registers: the rounding of tf32() as two integer
+// operations (tf32() compiles to four, guarding NaN payloads), the same
+// bits for every finite x and for infinities
+__device__ __forceinline__ uint32_t tf32_bits(uint32_t x) {
+  return (x + 0x1000u) & 0xffffe000u;
+}
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_bits(__float_as_uint(x));
+  lo = tf32_bits(__float_as_uint(x - __uint_as_float(hi)));
+}
+
+// This thread's tf32 A fragment, k-step s (8 columns), of a float32 tile
+// TL: registers a0..a3 hold (m, k), (m + 8, k), (m, k + 4), (m + 8, k +
+// 4), m = row (a multiple of 16 plus lane / 4), k = lane % 4.
+// frag_kmajor: K along the tile's rows (element (m, k) at row m, column
+// 8 s + k). Its rows m and m + 8 share their swizzle (m & 7), which XORs
+// the 16-byte chunk, so a warp's eight rows find eight distinct chunks (32
+// banks) and a k-step's address is a row base, one of eight in-panel
+// offsets and a constant.
+template <typename TL>
+__device__ __forceinline__ void frag_kmajor(const char* tile, int row, int s,
+                                            float (&v)[4]) {
+  static_assert(TL::W == 128, "a tile of 128-byte panels");
+  const int xr = (row & 7) << 4;
+  const char* r = tile + s / 4 * TL::PANEL + row * 128 + 4 * (threadIdx.x % 4);
+  const int c0 = (32 * (s % 4)) ^ xr, c1 = (32 * (s % 4) + 16) ^ xr;
+  v[0] = *reinterpret_cast<const float*>(r + c0);
+  v[1] = *reinterpret_cast<const float*>(r + 1024 + c0);
+  v[2] = *reinterpret_cast<const float*>(r + c1);
+  v[3] = *reinterpret_cast<const float*>(r + 1024 + c1);
+}
+// frag_mn: M along the tile's rows, transposed (element (m, k) at row 8 s
+// + k, column m; m and m + 8 in one 32-column panel). Row 8 s + k's
+// swizzle is k's, so a k-step's address is one of four bases plus 1024 s.
+template <typename TL>
+__device__ __forceinline__ void frag_mn(const char* tile, int m, int s,
+                                        float (&v)[4]) {
+  static_assert(TL::W == 128, "a tile of 128-byte panels");
+  const int k = threadIdx.x % 4;
+  const char* r = tile + m / 32 * TL::PANEL + k * 128 + 1024 * s;
+  const int c0 = 4 * m % 128, c1 = c0 + 32;
+  v[0] = *reinterpret_cast<const float*>(r + (c0 ^ (k << 4)));
+  v[1] = *reinterpret_cast<const float*>(r + (c1 ^ (k << 4)));
+  v[2] = *reinterpret_cast<const float*>(r + 512 + (c0 ^ ((k + 4) << 4)));
+  v[3] = *reinterpret_cast<const float*>(r + 512 + (c1 ^ ((k + 4) << 4)));
+}
+
+// KS k-steps of tf32 products whose A operands are fragments loaded from
+// shared memory and split in registers (3xTF32 with A from registers):
+// load(s, i, hi, lo) fills operand i's (of NA) fragment for k-step s,
+// issue(s, hi, lo) issues that step's products, one commit group a step.
+// Two register sets take turns: step s's loads overlap step s - 1's
+// products, and a set is refilled only once the group that read it has
+// completed (wait_group 1). Ends with every product completed.
+template <int KS, int NA, typename Load, typename Issue>
+__device__ __forceinline__ void split_walk(Load load, Issue issue) {
+  uint32_t hi[2][NA][4], lo[2][NA][4];
+  auto fence_set = [&](int u) {
+#pragma unroll
+    for (int i = 0; i < NA; ++i) {
+      fence_regs(hi[u][i]);
+      fence_regs(lo[u][i]);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < KS; ++s) {
+    const int u = s & 1;
+    if (s >= 2) {
+      wgmma_wait<1>();
+      fence_set(u);
+    }
+#pragma unroll
+    for (int i = 0; i < NA; ++i) load(s, i, hi[u][i], lo[u][i]);
+    wgmma_fence();
+    issue(s, hi[u], lo[u]);
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int u = 0; u < (KS < 2 ? KS : 2); ++u) fence_set(u);
+}
+
+// float32: x -> hi = tf32(x) in place, lo = tf32(x - hi) `lo` bytes
+// further, over `bytes` bytes (a tile's layout is kept)
+template <int THREADS>
+__device__ __forceinline__ void split_flat(char* buf, int lo, int bytes) {
+  float4* h = reinterpret_cast<float4*>(buf);
+  float4* l = reinterpret_cast<float4*>(buf + lo);
+  for (int i = threadIdx.x; i < bytes / 16; i += THREADS) {
+    const float4 x = h[i];
+    const float4 y = make_float4(tf32(x.x), tf32(x.y), tf32(x.z), tf32(x.w));
+    h[i] = y;
+    l[i] = make_float4(tf32(x.x - y.x), tf32(x.y - y.y), tf32(x.z - y.z),
+                       tf32(x.w - y.w));
+  }
 }
 
 // two floats as a bf16x2 register, `lo` in the low half

@@ -34,7 +34,7 @@
 // inside the chunk.
 //
 // bf16 (the path's) runs chunk-parallel on the tensor cores, in three
-// launches and no atomics:
+// launches and no atomics (float32 after it):
 // - ssd_bwd_state_kernel carries the two chains across the chunks, a
 //   block of one warpgroup per (batch, head, 32 columns of P, direction):
 //   forwards S^T += B^T (decayed X), backwards dS^T += C^T (ecum o dY),
@@ -87,18 +87,64 @@
 // chunk pass that prefetches across its items, and a deeper tile
 // pipeline in the state pass.
 //
-// float32 (13c's one step and the gates) keeps the CUDA-core kernels
-// (namespace cuda_cores): its 3xTF32 split and transposed copies do not
-// fit the tiles above, and no path runs it at size. One block of 512
-// threads a (batch, head) first walks the chunks forwards, the state in
-// registers, storing each chunk's entry state S0 to a scratch (B, H,
-// T / QC, P, N), then walks them backwards with dS in shared memory, every
-// operand of a chunk there in float32 (rows padded by one float, so that
-// a warp's walk down a column hits 32 banks); a warp owns rows of each
-// product and its lanes the columns, so a row's sums close in shuffles, in
-// one order. dX and da are written, dB and dC per head to a scratch (B,
-// H, T, N) that ssd_bwd_sum_kernel sums over the heads. No HGMMA.
-// Two launches agree bitwise, in either type.
+// float32 runs the same three launches on the tensor cores, on 3xTF32
+// (each operand x split hi = tf32(x), lo = tf32(x - hi), a product lo hi
+// + hi lo + hi hi into float32 accumulators), with its own state and
+// chunk passes (state_pass_f32, chunk_pass_f32), because bf16's tiles do
+// not carry over. tf32 `wgmma` reads K-major operands only, and every
+// product here contracts over steps or over P or N, so most operands are
+// needed transposed somewhere; and a float32 tile with its lo half takes
+// four times bf16's room: per head at QT 64, P 64, N 128, X and dY 16 KB
+// each raw, the S0 and dS images 32 KB each; B and C 32 KB each; with hi
+// and lo, and the transposed copies bf16 reads MN-major, over 320 KB
+// against a block's 227 KB. So:
+// - An operand on the A side is never stored split or transposed: each
+//   k-step's fragment is loaded from the raw tile in whatever order the
+//   product needs and split in registers (split_walk in hopper_tile.cuh,
+//   two register sets taking turns). Only B operands are stored hi | lo.
+// - Products are oriented so that the B operands are the tiles that
+//   arrive K-major (X, dY: rows steps, P along) or small tiles written for
+//   the purpose: the chunk pass forms dB^T and dC^T (rows N), not dB and
+//   dC, and dX^T (rows P), and writes W^T, R2 and R2^T (64 x 64, hi | lo)
+//   over the room of X and the images once those are read.
+// - The scores C B^T do not depend on the head: a chunk block forms them
+//   once, B split hi | lo into the room of the first head's tiles.
+// - The dX term Z = etail o (B dS^T) contracts over N with both operands
+//   large; the state pass forms it where dS is in registers (B's rows
+//   split, dS written hi | lo, rows P, into shared memory), and writes it
+//   to dx, which the chunk pass reads with the head's tiles, adds W^T dY
+//   to, and also takes e from (e_s = sum_p X[s][p] Z[s][p]).
+// - The images are float32 (rows N, P along), written from the chains'
+//   registers and split on landing as A fragments; tf32 hi | lo images
+//   would double those bytes.
+// State pass (state_pass_f32): a block per (batch, head, direction), all
+// of P, two warpgroups, each owning the chain's 64 rows n of one M tile
+// (S^T += M^T (scaled tile), A = M^T split from M's tile) and, backwards,
+// contracting its 64 n of the dX term (the halves summed through B's tile
+// once both have read it, warpgroup 0's first): two stages of M (B or C)
+// 32 KB, X or dY 16 KB and a, B 32 KB (backwards), dS hi | lo 64 KB, which
+// the scaled X^T or dY^T hi | lo (32 KB) reuses: 196 KB, one block a SM,
+// 320 blocks at the training batch. A P slice of 32 a block, as bf16's,
+// took the same time at two blocks a SM: one warpgroup's walk was the
+// bound, not the blocks.
+// Chunk pass (chunk_pass_f32): a block per (batch, chunk, HG_F = 10
+// heads), two warpgroups: C, B raw 64 KB; X, dY hi | lo 64 KB; the S0 and
+// dS images raw 64 KB; the dX term Z 16 KB; a and the vectors: 214 KB,
+// one block a SM; 128 blocks at the training batch, one wave. Per head,
+// in turn: e from X and Z; warpgroup 0 forms dS^T X^T (dB^T += etail o
+// it), warpgroup 1 S0^T dY^T (its S0 terms, dC^T += ecum o it), one M tile
+// of 64 n at a time; each warpgroup half the columns of dY X^T (W, R2,
+// G2's sums on the fragments with G's); W^T, R2 and R2^T out to shared
+// memory; dB^T += C^T R2 and dC^T += B^T R2^T on the tensor cores;
+// dX^T = dY^T W, added to Z into dx. A head's tiles land only once the
+// head before has read them (no room for a second set).
+// Scratch and bytes at the training batch, (2, 512, 80, 64) N 128: the
+// images 2 x 42 MB written and read once (168 MB), the dX term written,
+// read and written again (63 MB), dB and dC over 8 head groups 2 x 4.2 MB
+// written and read (17 MB), beside x, dy, b, c, a and the outputs (about
+// 60 MB): about 300 MB, 90 us at 3.35 TB/s, against the bound's 57 us
+// (operations at 3xTF32's 165 TFLOP/s). No atomics and every sum in one
+// order: two launches agree bitwise, in either type.
 #include <type_traits>
 
 #include <cuda_bf16.h>
@@ -121,281 +167,8 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-// ---------------------------------------------------------------------------
-// float32 on the CUDA cores
-// ---------------------------------------------------------------------------
-namespace cuda_cores {
-
-constexpr int QC = 64;          // steps a chunk
-constexpr int PMAX = 64;        // head dim
-constexpr int NMAX = 128;       // state dim
-constexpr int THREADS = 512;
-constexpr int WARPS = THREADS / 32;
-constexpr int EPT = PMAX * NMAX / THREADS;   // state elements a thread
-constexpr int XS = PMAX + 1;    // row strides in shared memory
-constexpr int BS = NMAX + 1;
-constexpr int WS = QC + 1;
-
-// shared memory, in floats
-constexpr int OFF_X = 0;
-constexpr int OFF_DY = OFF_X + QC * XS;
-constexpr int OFF_B = OFF_DY + QC * XS;
-constexpr int OFF_C = OFF_B + QC * BS;
-constexpr int OFF_DS = OFF_C + QC * BS;
-constexpr int OFF_S0 = OFF_DS + PMAX * BS;
-constexpr int OFF_W = OFF_S0 + PMAX * BS;
-constexpr int OFF_R2 = OFF_W + QC * WS;
-constexpr int OFF_G2 = OFF_R2 + QC * WS;
-constexpr int OFF_VEC = OFF_G2 + QC * WS;   // 8 vectors of QC
-constexpr int OFF_RED = OFF_VEC + 8 * QC;
-constexpr int SMEM_FLOATS = OFF_RED + WARPS;
-constexpr int SMEM_BYTES = SMEM_FLOATS * 4;
-static_assert(SMEM_BYTES <= 232448, "ssd backward: shared memory");
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// rows [t0, t0 + q) of a (B, T, H, P) tensor's head `hh` into sm[s * XS +
-// p], and of a (B, T, N) tensor into sm[s * BS + n], as float
-template <typename T>
-__device__ __forceinline__ void load_heads(float* sm, const T* x, long long
-                                           base, int q, int h, int p) {
-  for (int i = threadIdx.x; i < q * p; i += THREADS) {
-    const int s = i / p, j = i - s * p;
-    sm[s * XS + j] = ftile::to_f(x[base + (long long)s * h * p + j]);
-  }
-}
-template <typename T>
-__device__ __forceinline__ void load_rows(float* sm, const T* b, long long
-                                          base, int q, int n) {
-  for (int i = threadIdx.x; i < q * n; i += THREADS) {
-    const int s = i / n, j = i - s * n;
-    sm[s * BS + j] = ftile::to_f(b[base + (long long)s * n + j]);
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS, 1)
-ssd_bwd_head_kernel(const T* __restrict__ x, const float* __restrict__ a,
-                    const T* __restrict__ b, const T* __restrict__ c,
-                    const T* __restrict__ dy,
-                    const float* __restrict__ dstate,
-                    const float* __restrict__ state0, T* __restrict__ dx,
-                    float* __restrict__ da, float* __restrict__ ds0,
-                    float* __restrict__ states, float* __restrict__ dbh,
-                    float* __restrict__ dch, int h, int t_len, int p,
-                    int n) {
-  extern __shared__ float sm[];
-  float* const X = sm + OFF_X;
-  float* const DY = sm + OFF_DY;
-  float* const Bm = sm + OFF_B;
-  float* const Cm = sm + OFF_C;
-  float* const dS = sm + OFF_DS;
-  float* const S0 = sm + OFF_S0;
-  float* const W = sm + OFF_W;
-  float* const R2 = sm + OFF_R2;
-  float* const G2 = sm + OFF_G2;
-  float* const cum = sm + OFF_VEC;
-  float* const ecum = cum + QC;
-  float* const etail = ecum + QC;
-  float* const rsum = etail + QC;
-  float* const csum = rsum + QC;
-  float* const ev = csum + QC;
-  float* const g2 = ev + QC;
-  float* const araw = g2 + QC;
-  float* const red = sm + OFF_RED;
-
-  const int bi = blockIdx.x / h, hh = blockIdx.x % h;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int pn = p * n, nc = (t_len + QC - 1) / QC;
-  const long long hbase = (long long)blockIdx.x * pn;     // (B, H, P, N)
-  float* const st = states + (long long)blockIdx.x * nc * pn;
-
-  // ---- forward: each chunk's entry state -------------------------------
-  float S[EPT];
-  int xo[EPT], bo[EPT];      // the element's offsets in X's and B's rows
-#pragma unroll
-  for (int i = 0; i < EPT; ++i) {
-    const int e = tid + THREADS * i;
-    S[i] = state0 != nullptr && e < pn ? state0[hbase + e] : 0.f;
-    xo[i] = e < pn ? e / n : 0;
-    bo[i] = e < pn ? e - xo[i] * n : 0;
-  }
-  for (int k = 0; k < nc; ++k) {
-    const int t0 = k * QC, q = min(QC, t_len - t0);
-#pragma unroll
-    for (int i = 0; i < EPT; ++i) {
-      const int e = tid + THREADS * i;
-      if (e < pn) st[(long long)k * pn + e] = S[i];
-    }
-    load_heads(X, x, ((long long)bi * t_len + t0) * h * p + (long long)hh * p,
-               q, h, p);
-    load_rows(Bm, b, ((long long)bi * t_len + t0) * n, q, n);
-    for (int s = tid; s < q; s += THREADS)
-      araw[s] = a[((long long)bi * t_len + t0 + s) * h + hh];
-    __syncthreads();
-    for (int s = 0; s < q; ++s) {
-      const float dec = expf(araw[s]);
-#pragma unroll
-      for (int i = 0; i < EPT; ++i)
-        S[i] = fmaf(X[s * XS + xo[i]], Bm[s * BS + bo[i]], S[i] * dec);
-    }
-    __syncthreads();
-  }
-
-  // ---- backward, chunk by chunk from the last ---------------------------
-  for (int e = tid; e < pn; e += THREADS) {
-    const int pp = e / n, nn = e - pp * n;
-    dS[pp * BS + nn] = dstate != nullptr ? dstate[hbase + e] : 0.f;
-  }
-  for (int k = nc - 1; k >= 0; --k) {
-    const int t0 = k * QC, q = min(QC, t_len - t0);
-    const long long xrow = ((long long)bi * t_len + t0) * h * p +
-                           (long long)hh * p;
-    const long long brow = ((long long)bi * t_len + t0) * n;
-    for (int e = tid; e < pn; e += THREADS) {
-      const int pp = e / n, nn = e - pp * n;
-      S0[pp * BS + nn] = __ldcg(st + (long long)k * pn + e);
-    }
-    load_heads(X, x, xrow, q, h, p);
-    load_heads(DY, dy, xrow, q, h, p);
-    load_rows(Bm, b, brow, q, n);
-    load_rows(Cm, c, brow, q, n);
-    for (int s = tid; s < q; s += THREADS)
-      araw[s] = a[((long long)bi * t_len + t0 + s) * h + hh];
-    __syncthreads();
-    if (tid == 0) {
-      float run = 0.f;
-      for (int s = 0; s < q; ++s) {
-        run += araw[s];
-        cum[s] = run;
-      }
-    }
-    __syncthreads();
-    for (int s = tid; s < q; s += THREADS) {
-      ecum[s] = expf(cum[s]);
-      etail[s] = expf(cum[q - 1] - cum[s]);
-    }
-
-    // W, R2, G2 (rows t by warp, columns s by lane) and G2's row sums
-    for (int t = warp; t < q; t += WARPS) {
-      float rs = 0.f;
-      for (int s = lane; s < QC; s += 32) {
-        float w = 0.f, r = 0.f, gg = 0.f;
-        if (s <= t) {
-          float cb = 0.f, dxs = 0.f;
-          for (int j = 0; j < n; ++j) cb = fmaf(Cm[t * BS + j], Bm[s * BS + j], cb);
-          for (int j = 0; j < p; ++j) dxs = fmaf(DY[t * XS + j], X[s * XS + j], dxs);
-          const float l = expf(cum[t] - cum[s]);
-          w = l * cb;
-          r = l * dxs;
-          gg = w * dxs;
-        }
-        W[t * WS + s] = w;
-        R2[t * WS + s] = r;
-        G2[t * WS + s] = gg;
-        rs += gg;
-      }
-      rs = warp_sum(rs);
-      if (lane == 0) rsum[t] = rs;
-    }
-    __syncthreads();
-
-    // G2's column sums
-    for (int s = tid; s < q; s += THREADS) {
-      float cs = 0.f;
-      for (int t = s; t < q; ++t) cs += G2[t * WS + s];
-      csum[s] = cs;
-    }
-    // dX (rows s by warp, p by lane)
-    for (int s = warp; s < q; s += WARPS) {
-      for (int j = lane; j < p; j += 32) {
-        float v = 0.f, u = 0.f;
-        for (int t = s; t < q; ++t) v = fmaf(W[t * WS + s], DY[t * XS + j], v);
-        for (int m = 0; m < n; ++m) u = fmaf(Bm[s * BS + m], dS[j * BS + m], u);
-        dx[xrow + (long long)s * h * p + j] = from_f<T>(fmaf(etail[s], u, v));
-      }
-    }
-    // dB per head (rows s by warp, n by lane) and e_s
-    for (int s = warp; s < q; s += WARPS) {
-      float ep = 0.f;
-      for (int m = lane; m < n; m += 32) {
-        float v = 0.f, t6 = 0.f;
-        for (int t = s; t < q; ++t) v = fmaf(R2[t * WS + s], Cm[t * BS + m], v);
-        for (int j = 0; j < p; ++j) t6 = fmaf(X[s * XS + j], dS[j * BS + m], t6);
-        dbh[((long long)blockIdx.x * t_len + t0 + s) * n + m] =
-            fmaf(etail[s], t6, v);
-        ep = fmaf(Bm[s * BS + m], t6, ep);
-      }
-      ep = warp_sum(ep);
-      if (lane == 0) ev[s] = etail[s] * ep;
-    }
-    // dC per head (rows t by warp, n by lane) and the S0 term of g_t
-    for (int t = warp; t < q; t += WARPS) {
-      float gp = 0.f;
-      for (int m = lane; m < n; m += 32) {
-        float v = 0.f, t7 = 0.f;
-        for (int s = 0; s <= t; ++s) v = fmaf(R2[t * WS + s], Bm[s * BS + m], v);
-        for (int j = 0; j < p; ++j) t7 = fmaf(DY[t * XS + j], S0[j * BS + m], t7);
-        dch[((long long)blockIdx.x * t_len + t0 + t) * n + m] =
-            fmaf(ecum[t], t7, v);
-        gp = fmaf(Cm[t * BS + m], t7, gp);
-      }
-      gp = warp_sum(gp);
-      if (lane == 0) g2[t] = ecum[t] * gp;
-    }
-    // <dS, S0>
-    {
-      float dot = 0.f;
-      for (int e = tid; e < pn; e += THREADS) {
-        const int pp = e / n, nn = e - pp * n;
-        dot = fmaf(dS[pp * BS + nn], S0[pp * BS + nn], dot);
-      }
-      dot = warp_sum(dot);
-      if (lane == 0) red[warp] = dot;
-    }
-    __syncthreads();
-
-    // da inside the chunk (one thread, in step order) and the state
-    // gradient carried to the chunk before
-    if (tid == 0) {
-      float dot = 0.f, esum = 0.f;
-      for (int w = 0; w < WARPS; ++w) dot += red[w];
-      for (int s = 0; s < q; ++s) esum += ev[s];
-      float acc = 0.f;
-      for (int s = q - 1; s >= 0; --s) {
-        float g = rsum[s] - csum[s] + g2[s] - ev[s];
-        if (s == q - 1) g += esum + ecum[q - 1] * dot;
-        acc += g;
-        da[((long long)bi * t_len + t0 + s) * h + hh] = acc;
-      }
-    }
-    const float elast = ecum[q - 1];
-    for (int pp = warp; pp < p; pp += WARPS) {
-      for (int m = lane; m < n; m += 32) {
-        float v = 0.f;
-        for (int t = 0; t < q; ++t)
-          v = fmaf(ecum[t] * DY[t * XS + pp], Cm[t * BS + m], v);
-        dS[pp * BS + m] = fmaf(elast, dS[pp * BS + m], v);
-      }
-    }
-    __syncthreads();
-  }
-  if (ds0 != nullptr) {
-    for (int e = tid; e < pn; e += THREADS) {
-      const int pp = e / n, nn = e - pp * n;
-      ds0[hbase + e] = dS[pp * BS + nn];
-    }
-  }
-}
-
-}  // namespace cuda_cores
-
-// db, dc (B, T, N) = the partial gradients (B, H, T, N) summed over H in
-// order: the heads (float32) or the head groups (bf16)
+// db, dc (B, T, N) = the partial gradients (B, groups, T, N) summed over
+// the head groups in order
 template <typename T>
 __global__ void __launch_bounds__(256)
 ssd_bwd_sum_kernel(const float* __restrict__ dbh,
@@ -581,15 +354,13 @@ struct StateCfg {
 // and lo, to the image scratch at ((b, h, chunk, direction, hi | lo), 64
 // x 128 bf16); the backward chain's last dS is dstate0
 template <typename T>
-__global__ void __launch_bounds__(WG, 3)
-ssd_bwd_state_kernel(const T* __restrict__ x, const float* __restrict__ a,
-                     const T* __restrict__ b, const T* __restrict__ c,
-                     const T* __restrict__ dy,
-                     const float* __restrict__ dstate,
-                     const float* __restrict__ state0,
-                     float* __restrict__ ds0, char* __restrict__ images,
-                     int nh, int t_len, int p_dim, int n_dim, int nps,
-                     int vec_x, int vec_bc) {
+__device__ __forceinline__ void state_pass(
+    const T* __restrict__ x, const float* __restrict__ a,
+    const T* __restrict__ b, const T* __restrict__ c,
+    const T* __restrict__ dy, const float* __restrict__ dstate,
+    const float* __restrict__ state0, float* __restrict__ ds0,
+    char* __restrict__ images, int nh, int t_len, int p_dim, int n_dim,
+    int nps, int vec_x, int vec_bc) {
   using C = StateCfg;
   extern __shared__ char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -798,14 +569,13 @@ struct ChunkCfg {
 // warpgroups. Writes dx and da per head, and dB / dC of the group's heads
 // to dbg / dcg (B, groups, T, N)
 template <typename T>
-__global__ void __launch_bounds__(2 * WG, 1)
-ssd_bwd_chunk_kernel(const T* __restrict__ x, const float* __restrict__ a,
-                     const T* __restrict__ b, const T* __restrict__ c,
-                     const T* __restrict__ dy,
-                     const char* __restrict__ images, T* __restrict__ dx,
-                     float* __restrict__ da, float* __restrict__ dbg,
-                     float* __restrict__ dcg, int nh, int t_len, int p_dim,
-                     int n_dim, int ng, int vec_x, int vec_bc) {
+__device__ __forceinline__ void chunk_pass(
+    const T* __restrict__ x, const float* __restrict__ a,
+    const T* __restrict__ b, const T* __restrict__ c,
+    const T* __restrict__ dy, const char* __restrict__ images,
+    T* __restrict__ dx, float* __restrict__ da, float* __restrict__ dbg,
+    float* __restrict__ dcg, int nh, int t_len, int p_dim, int n_dim, int ng,
+    int vec_x, int vec_bc) {
   using C = ChunkCfg;
   constexpr int THREADS = 2 * WG;
   extern __shared__ char smem_raw[];
@@ -1140,86 +910,827 @@ ssd_bwd_chunk_kernel(const T* __restrict__ x, const float* __restrict__ a,
   }
 }
 
+// ---------------------------------------------------------------------------
+// float32 on the tensor cores (3xTF32)
+// ---------------------------------------------------------------------------
+using RowF = Tile<QT, NM * 4>;       // C, B: rows steps, N along (32 KB)
+using XF = Tile<QT, PM * 4>;         // X, dY (hi or lo): rows steps, P along
+using ImgF = Tile<NM, PM * 4>;       // an S0 or dS image: rows N, P along
+using SlT = Tile<PM, QT * 4>;        // the scaled X^T or dY^T: rows p
+using DsS = Tile<PM, NM * 4>;        // dS: rows p, N along (32 KB)
+using DerT = Tile<QT, QT * 4>;       // W^T, R2, R2^T: 64 x 64 (16 KB)
+constexpr int IMG_F = ImgF::BYTES;   // 32 KB: one float32 image
+constexpr int HG_F = 10;             // heads a float32 chunk-pass block
+
+// wgmma operand helpers: a float32 tile's hi and lo as tf32 B descriptors
+// (K-major, k-step s), and 3xTF32 into `acc` from a split A fragment
+template <typename TL>
+__device__ __forceinline__ uint64_t kdesc(uint32_t base, int row, int s) {
+  return kmaj<TL>(base + TL::start(row, 32 * s));
+}
+// the same as a base descriptor and k-step s moved from it: the chunk
+// pass's form (with kdesc its register allocation spilled)
+template <typename TL>
+__device__ __forceinline__ uint64_t kbase(uint32_t base) {
+  return kmaj<TL>(base);
+}
+template <typename TL>
+__device__ __forceinline__ uint64_t kstep(uint64_t d, int row, int s) {
+  return at(d, TL::start(row, 32 * s));
+}
+template <int N>
+__device__ __forceinline__ void mma3(float (&acc)[N / 2],
+                                     uint32_t (&hi)[4], uint32_t (&lo)[4],
+                                     uint64_t bh, uint64_t bl, bool more) {
+  Wgmma<N>::rs_tf32(acc, lo, bh, more);
+  Wgmma<N>::rs_tf32(acc, hi, bl, 1);
+  Wgmma<N>::rs_tf32(acc, hi, bh, 1);
+}
+__device__ __forceinline__ void split4(const float (&v)[4], uint32_t (&hi)[4],
+                                       uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) split_tf32(v[e], hi[e], lo[e]);
+}
+__device__ __forceinline__ void put_split(char* hi, char* lo, uint32_t off,
+                                          float v) {
+  uint32_t h, l;
+  split_tf32(v, h, l);
+  *reinterpret_cast<uint32_t*>(hi + off) = h;
+  *reinterpret_cast<uint32_t*>(lo + off) = l;
+}
+
+// ---- the float32 state pass ----------------------------------------------
+// two stages of M (B forwards, C backwards) | X or dY | a; B (backwards:
+// the dX term), on a barrier of its own, which the warpgroups' halves of
+// that term cross through once both have read it; dS hi | lo, which the
+// scaled X^T or dY^T hi | lo reuses; cum | ecum | etail | decay; three
+// mbarriers
+struct StateCfgF {
+  static constexpr int XS = RowF::BYTES;                      // 32 KB
+  static constexpr int A_OFF = XS + XF::BYTES;                // + 16 KB
+  static constexpr int STAGE = align1024(A_OFF + QT * 4);
+  static constexpr int BB = 2 * STAGE;
+  static constexpr int TS = BB + RowF::BYTES;
+  static constexpr int VEC = TS + 2 * DsS::BYTES;
+  static constexpr int BARS = VEC + (3 * QT + 4) * 4;
+  static constexpr int BYTES = BARS + 24 + 1024;              // + alignment
+  static constexpr int THREADS = 2 * WG;
+  static_assert(BYTES <= 232448, "state pass: shared memory");
+  static_assert(SlT::BYTES <= DsS::BYTES, "the scaled tile's room");
+  static_assert(THREADS * QT / 2 * 4 <= RowF::BYTES, "the exchange's room");
+};
+
+// blocks: (batch, head, direction), direction innermost, every column of
+// P; two warpgroups, warpgroup w owning the chain's rows n in [64 w, 64 w
+// + 64). Each chunk: the chain's value at its start out to the image
+// (rows N, P along, float32: the scratch (B, H, chunks, 2, N, P));
+// backwards also the dX term etail o (B dS^T) of the chunk's steps (each
+// warpgroup contracting its 64 n, the halves summed warpgroup 0's first),
+// written to dx for the chunk pass to add to; then the chain's update,
+// all 3xTF32 with the A operand split from registers. The next chunk's
+// tiles land while one computes.
+__device__ __forceinline__ void state_pass_f32(
+    const float* __restrict__ x, const float* __restrict__ a,
+    const float* __restrict__ b, const float* __restrict__ c,
+    const float* __restrict__ dy, const float* __restrict__ dstate,
+    const float* __restrict__ state0, float* __restrict__ ds0,
+    char* __restrict__ images, float* __restrict__ dx, int nh, int t_len,
+    int p_dim, int n_dim, int vec_x, int vec_bc) {
+  using C = StateCfgF;
+  constexpr int THREADS = C::THREADS;
+  extern __shared__ char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sm = (raw + 1023) & ~1023u;
+  char* const gsm = smem_raw + (sm - raw);
+  float* const vcum = reinterpret_cast<float*>(gsm + C::VEC);
+  float* const vecum = vcum + QT;
+  float* const vetail = vecum + QT;
+  float* const vdecay = vetail + QT;
+
+  const bool back = blockIdx.x & 1;
+  const int bh = blockIdx.x >> 1, hh = bh % nh;
+  const long long bi = bh / nh;
+  const int nc = (t_len + QT - 1) / QT;
+  const int wg = threadIdx.x / WG, warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int r0 = warp % 4 * 16 + lane / 4;   // accumulator rows r0, r0 + 8
+  const int c2 = 2 * (lane % 4);             // and columns c2, c2 + 1 of 8
+  const int n0 = 64 * wg;                    // this warpgroup's rows n
+  const float* msrc = back ? c : b;
+  const float* xsrc = back ? dy : x;
+  const float* vscale = back ? vecum : vetail;
+  const uint32_t bars = sm + C::BARS, bar_b = bars + 16;
+
+  auto chunk_of = [&](int it) { return back ? nc - 1 - it : it; };
+  auto load = [&](int it) {
+    const int t0 = chunk_of(it) * QT, rows = min(QT, t_len - t0);
+    const long long row0 = bi * t_len + t0;
+    const uint32_t sb = sm + (it & 1) * C::STAGE;
+    char* const gsb = gsm + (it & 1) * C::STAGE;
+    load_tile<float, RowF, NM, THREADS>(sb, gsb, msrc + row0 * n_dim, n_dim,
+                                        rows, n_dim, vec_bc);
+    load_tile<float, XF, PM, THREADS>(sb + C::XS, gsb + C::XS,
+                                      xsrc + (row0 * nh + hh) * p_dim,
+                                      (long long)nh * p_dim, rows, p_dim,
+                                      vec_x);
+    load_a<THREADS>(sb + C::A_OFF, a, row0, nh, hh, rows);
+    cp_async_arrive(bars + 8 * (it & 1));
+  };
+  auto load_b = [&](int it) {
+    const int t0 = chunk_of(it) * QT, rows = min(QT, t_len - t0);
+    load_tile<float, RowF, NM, THREADS>(sm + C::BB, gsm + C::BB,
+                                        b + (bi * t_len + t0) * n_dim, n_dim,
+                                        rows, n_dim, vec_bc);
+    cp_async_arrive(bar_b);
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(bars, THREADS);
+    mbar_init(bars + 8, THREADS);
+    mbar_init(bar_b, THREADS);
+    fence_mbar_init();
+  }
+  __syncthreads();
+  load(0);
+  if (nc > 1) load(1);
+  if (back) load_b(0);
+
+  // S^T or dS^T: rows n = n0 + r0 (+ 8), columns p = 8 j + c2 (+ 1)
+  const float* init = back ? dstate : state0;
+  float sacc[PM / 2];
+#pragma unroll
+  for (int j = 0; j < PM / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int n = n0 + r0 + 8 * (e >> 1), p = 8 * j + c2 + (e & 1);
+      sacc[4 * j + e] = init != nullptr && n < n_dim && p < p_dim
+                            ? init[((long long)bh * p_dim + p) * n_dim + n]
+                            : 0.f;
+    }
+
+  for (int it = 0; it < nc; ++it) {
+    const int k = chunk_of(it), t0 = k * QT;
+    const int rows = min(QT, t_len - t0);
+    const long long row0 = bi * t_len + t0;
+    char* const gsb = gsm + (it & 1) * C::STAGE;
+    mbar_wait(bars + 8 * (it & 1), (it >> 1) & 1);
+
+    // the chain's value at the chunk's start: the image's rows n (columns
+    // past P and rows past N are 0 in the chain)
+    float* img = reinterpret_cast<float*>(
+        images + (((long long)bh * nc + k) * 2 + back) * IMG_F);
+#pragma unroll
+    for (int j = 0; j < PM / 8; ++j)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+        *reinterpret_cast<float2*>(img + (n0 + r0 + 8 * hf) * PM + 8 * j +
+                                   c2) =
+            make_float2(sacc[4 * j + 2 * hf], sacc[4 * j + 2 * hf + 1]);
+    if (warp == 0) {
+      const float decay = chunk_cum(
+          reinterpret_cast<const float*>(gsb + C::A_OFF), vcum, vecum,
+          vetail, rows);
+      if (lane == 0) *vdecay = decay;
+    }
+    // backwards: dS (rows p, N along), hi | lo, the B operand of B dS^T
+    if (back) {
+#pragma unroll
+      for (int j = 0; j < PM / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int n = n0 + r0 + 8 * (e >> 1), p = 8 * j + c2 + (e & 1);
+          put_split(gsm + C::TS, gsm + C::TS + DsS::BYTES,
+                    DsS::offset(p, 4 * n), sacc[4 * j + e]);
+        }
+    }
+    fence_proxy_async();
+    __syncthreads();                         // the scales, dS, the stage
+
+    if (back) {
+      // dX's term etail o (B dS^T) (rows s, columns p): this warpgroup's
+      // K = n in [n0, n0 + 64), A = B's rows split from registers, three
+      // products in three accumulators, (lo hi + hi lo) + hi hi
+      mbar_wait(bar_b, it & 1);
+      float z[3][PM / 2];
+      split_walk<NM / 16, 1>(
+          [&](int s, int, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+            float v[4];
+            frag_kmajor<RowF>(gsm + C::BB, r0, n0 / 8 + s, v);
+            split4(v, hi, lo);
+          },
+          [&](int s, uint32_t (&hi)[1][4], uint32_t (&lo)[1][4]) {
+            const uint64_t dh = kdesc<DsS>(sm + C::TS, 0, n0 / 8 + s);
+            const uint64_t dl =
+                kdesc<DsS>(sm + C::TS + DsS::BYTES, 0, n0 / 8 + s);
+            Wgmma<PM>::rs_tf32(z[0], lo[0], dh, s > 0);
+            Wgmma<PM>::rs_tf32(z[1], hi[0], dl, s > 0);
+            Wgmma<PM>::rs_tf32(z[2], hi[0], dh, s > 0);
+          });
+#pragma unroll
+      for (int i = 0; i < 3; ++i) fence_regs(z[i]);
+      // the halves cross through B's tile, warpgroup 0's first in both
+      float zs[PM / 2];
+#pragma unroll
+      for (int i = 0; i < PM / 2; ++i) zs[i] = (z[0][i] + z[1][i]) + z[2][i];
+      __syncthreads();                       // B and dS are read
+      float4* xz = reinterpret_cast<float4*>(gsm + C::BB);
+#pragma unroll
+      for (int i = 0; i < PM / 8; ++i)
+        xz[i * THREADS + threadIdx.x] =
+            make_float4(zs[4 * i], zs[4 * i + 1], zs[4 * i + 2], zs[4 * i + 3]);
+      __syncthreads();
+      // warpgroup w writes columns [32 w, 32 w + 32) of the sum
+#pragma unroll
+      for (int i = 0; i < PM / 8; ++i) {
+        if (i / 4 != wg) continue;
+        const float4 u = xz[i * THREADS + (threadIdx.x ^ WG)];
+        const float o[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          zs[4 * i + e] = wg ? o[e] + zs[4 * i + e] : zs[4 * i + e] + o[e];
+      }
+      __syncthreads();                       // the exchange is read
+      if (it + 1 < nc) load_b(it + 1);
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int s = r0 + 8 * hf;
+        if (s >= rows) continue;
+        const float et = vetail[s];
+        float* row = dx + ((row0 + s) * nh + hh) * p_dim;
+#pragma unroll
+        for (int j = 0; j < PM / 8; ++j) {
+          if (j / 4 != wg) continue;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int p = 8 * j + c2 + e;
+            if (p < p_dim) row[p] = et * zs[4 * j + 2 * hf + e];
+          }
+        }
+      }
+    }
+
+    // the scaled X or dY (etail o X, ecum o dY), transposed, hi | lo
+    for (int i = threadIdx.x; i < QT * PM; i += THREADS) {
+      const int p = i % PM, st = i / PM;
+      const float v = *reinterpret_cast<const float*>(
+                          gsb + C::XS + XF::offset(st, 4 * p)) * vscale[st];
+      put_split(gsm + C::TS, gsm + C::TS + SlT::BYTES, SlT::offset(p, 4 * st),
+                v);
+    }
+    const float decay = *vdecay;
+#pragma unroll
+    for (int i = 0; i < PM / 2; ++i) sacc[i] *= decay;
+    fence_proxy_async();
+    __syncthreads();                         // the scaled tile
+
+    // S^T = decay S^T + M^T (scaled tile), this warpgroup's rows n: A =
+    // M^T (K = steps) split from M's tile
+    split_walk<QT / 8, 1>(
+        [&](int s, int, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+          float v[4];
+          frag_mn<RowF>(gsb, n0 + r0, s, v);
+          split4(v, hi, lo);
+        },
+        [&](int s, uint32_t (&hi)[1][4], uint32_t (&lo)[1][4]) {
+          mma3<PM>(sacc, hi[0], lo[0], kdesc<SlT>(sm + C::TS, 0, s),
+                   kdesc<SlT>(sm + C::TS + SlT::BYTES, 0, s), true);
+        });
+    fence_regs(sacc);
+    __syncthreads();                         // the stage and the tiles
+    if (it + 2 < nc) load(it + 2);
+  }
+
+  if (back && ds0 != nullptr) {
+#pragma unroll
+    for (int j = 0; j < PM / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int n = n0 + r0 + 8 * (e >> 1), p = 8 * j + c2 + (e & 1);
+        if (n < n_dim && p < p_dim)
+          ds0[((long long)bh * p_dim + p) * n_dim + n] = sacc[4 * j + e];
+      }
+  }
+}
+
+// ---- the float32 chunk pass -----------------------------------------------
+// C | B | X hi | X lo | dY hi | dY lo | S0 image | dS image | a | vectors |
+// one mbarrier. Once a head's X and images are read, W^T (hi | lo) takes
+// X's room and R2, R2^T the images'; the prologue's B hi | lo takes X's
+// and dY's.
+struct ChunkCfgF {
+  static constexpr int CS = 0, BS = RowF::BYTES;
+  static constexpr int XH = 2 * RowF::BYTES, XL = XH + XF::BYTES;
+  static constexpr int YH = XL + XF::BYTES, YL = YH + XF::BYTES;
+  static constexpr int S0I = YL + XF::BYTES, DSI = S0I + IMG_F;
+  static constexpr int DXS = DSI + IMG_F;     // the state pass's dX term
+  static constexpr int AR = DXS + XF::BYTES;
+  static constexpr int WTH = XH, WTL = XL;
+  static constexpr int R2H = S0I, R2L = S0I + DerT::BYTES;
+  static constexpr int RTH = DSI, RTL = DSI + DerT::BYTES;
+  static constexpr int GBH = XH, GBL = XH + RowF::BYTES;
+  // cum, ecum, etail; e; the S0 term's partials by warp (4 x QT); G2's
+  // row partials by warpgroup (2 x QT) and column partials by warp (8 x
+  // 32); the warps' <dS, S0>
+  static constexpr int VEC = AR + QT * 4;
+  static constexpr int NVEC = 3 * QT + 5 * QT + 2 * QT + 8 * 32 + 8;
+  static constexpr int BARS = VEC + NVEC * 4;
+  static constexpr int BYTES = BARS + 8 + 1024;              // + alignment
+  static_assert(BYTES <= 232448, "chunk pass: shared memory");
+  static_assert(DerT::BYTES == XF::BYTES && 2 * DerT::BYTES == IMG_F,
+                "derived tiles over X and the images");
+};
+
+// blocks: (batch, chunk, group of HG_F heads), groups innermost; two
+// warpgroups. The scores C B^T once a block (its columns split between
+// the warpgroups); then for each head in order: e_s = sum_p X[s][p]
+// Z[s][p] from the state pass's dX term Z = etail o (B dS^T), which lands
+// with the head's tiles; (C) warpgroup 0 forms dS^T X^T and dB^T +=
+// etail o it, warpgroup 1 S0^T dY^T, its S0 terms and dC^T += ecum o it;
+// (A) each warpgroup forms half the
+// columns of dY X^T, then W, R2 and G2's sums, and writes W^T, R2 and R2^T
+// hi | lo; (B) warpgroup 0 dB^T += C^T R2, warpgroup 1 dC^T += B^T R2^T,
+// and each half the columns of dX^T = dY^T W, added to Z into dx. dB^T and
+// dC^T sum over the block's heads and leave once a block to dbg / dcg (B,
+// groups, T, N).
+__device__ __forceinline__ void chunk_pass_f32(
+    const float* __restrict__ x, const float* __restrict__ a,
+    const float* __restrict__ b, const float* __restrict__ c,
+    const float* __restrict__ dy, const char* __restrict__ images,
+    float* __restrict__ dx, float* __restrict__ da, float* __restrict__ dbg,
+    float* __restrict__ dcg, int nh, int t_len, int p_dim, int n_dim, int ng,
+    int vec_x, int vec_bc) {
+  using C = ChunkCfgF;
+  constexpr int THREADS = 2 * WG;
+  extern __shared__ char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sm = (raw + 1023) & ~1023u;
+  char* const gsm = smem_raw + (sm - raw);
+
+  const int nc = (t_len + QT - 1) / QT;
+  const int g = blockIdx.x % ng, k = blockIdx.x / ng % nc;
+  const long long bi = blockIdx.x / ng / nc;
+  const int h0 = g * HG_F, hn = min(HG_F, nh - h0);
+  const int t0 = k * QT, q = min(QT, t_len - t0);
+  const long long row0 = bi * t_len + t0;
+  const int wg = threadIdx.x / WG, warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int r0 = warp % 4 * 16 + lane / 4;   // accumulator rows r0, r0 + 8
+  const int c2 = 2 * (lane % 4);             // and columns c2, c2 + 1 of 8
+  const uint32_t bar = sm + C::BARS;
+
+  auto load_head = [&](int i) {
+    const int hh = h0 + i;
+    const long long xo = (row0 * nh + hh) * p_dim;
+    load_tile<float, XF, PM, THREADS>(sm + C::XH, gsm + C::XH, x + xo,
+                                      (long long)nh * p_dim, q, p_dim, vec_x);
+    load_tile<float, XF, PM, THREADS>(sm + C::YH, gsm + C::YH, dy + xo,
+                                      (long long)nh * p_dim, q, p_dim, vec_x);
+    load_tile<float, XF, PM, THREADS>(sm + C::DXS, gsm + C::DXS, dx + xo,
+                                      (long long)nh * p_dim, q, p_dim, vec_x);
+    const char* im = images + ((bi * nh + hh) * nc + k) * 2LL * IMG_F;
+    for (int j = threadIdx.x; j < 2 * IMG_F / 16; j += THREADS) {
+      const int d = j / (IMG_F / 16), r = j % (IMG_F / 16) / 16;
+      const int cb = j % 16 * 16;
+      cp_async16(sm + (d ? C::DSI : C::S0I) + ImgF::offset(r, cb),
+                 im + d * IMG_F + r * PM * 4 + cb, true);
+    }
+    load_a<THREADS>(sm + C::AR, a, row0, nh, hh, q);
+    cp_async_arrive(bar);
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar, THREADS);
+    fence_mbar_init();
+  }
+  __syncthreads();
+  load_tile<float, RowF, NM, THREADS>(sm + C::CS, gsm + C::CS,
+                                      c + row0 * n_dim, n_dim, q, n_dim,
+                                      vec_bc);
+  load_tile<float, RowF, NM, THREADS>(sm + C::BS, gsm + C::BS,
+                                      b + row0 * n_dim, n_dim, q, n_dim,
+                                      vec_bc);
+  cp_async_arrive(bar);
+  mbar_wait(bar, 0);
+  __syncthreads();
+
+  // the scores G = C B^T, columns [32 wg, 32 wg + 32) (rows t, columns s):
+  // A = C split from registers, B = B's hi | lo
+  float gacc[QT / 4];
+  {
+    for (int i = threadIdx.x; i < RowF::BYTES / 16; i += THREADS) {
+      const float4 v = *reinterpret_cast<const float4*>(gsm + C::BS + 16 * i);
+      uint32_t hv[4], lv[4];
+      split4({v.x, v.y, v.z, v.w}, hv, lv);
+      *reinterpret_cast<uint4*>(gsm + C::GBH + 16 * i) =
+          make_uint4(hv[0], hv[1], hv[2], hv[3]);
+      *reinterpret_cast<uint4*>(gsm + C::GBL + 16 * i) =
+          make_uint4(lv[0], lv[1], lv[2], lv[3]);
+    }
+    fence_proxy_async();
+    __syncthreads();
+    split_walk<NM / 8, 1>(
+        [&](int s, int, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+          float v[4];
+          frag_kmajor<RowF>(gsm + C::CS, r0, s, v);
+          split4(v, hi, lo);
+        },
+        [&](int s, uint32_t (&hi)[1][4], uint32_t (&lo)[1][4]) {
+          mma3<QT / 2>(gacc, hi[0], lo[0], kdesc<RowF>(sm + C::GBH, 32 * wg, s),
+                       kdesc<RowF>(sm + C::GBL, 32 * wg, s), s > 0);
+        });
+    fence_regs(gacc);
+    __syncthreads();                         // B's hi | lo are read
+  }
+  load_head(0);
+
+  // dB^T (warpgroup 0) or dC^T (warpgroup 1): rows n = 64 w + r0 (+ 8),
+  // columns s or t = 8 j + c2 (+ 1)
+  float acc[2][QT / 2];
+#pragma unroll
+  for (int w = 0; w < 2; ++w)
+#pragma unroll
+    for (int i = 0; i < QT / 2; ++i) acc[w][i] = 0.f;
+
+  for (int i = 0; i < hn; ++i) {
+    const int hh = h0 + i;
+    float* const vcum = reinterpret_cast<float*>(gsm + C::VEC);
+    float* const vecum = vcum + QT;
+    float* const vetail = vecum + QT;
+    float* const vev = vetail + QT;      // [QT]: e
+    float* const vgp = vev + QT;         // [4][QT]: sum_n C o (S0^T dY^T)
+    float* const vrowp = vgp + 4 * QT;   // [2][QT]: G2's row sums by half
+    float* const vcolp = vrowp + 2 * QT; // [8][32]: G2's column sums
+    float* const vdot = vcolp + 8 * 32;  // [8]: <dS, S0> by warp
+    mbar_wait(bar, (i + 1) & 1);
+    __syncthreads();                 // and the tiles' element-wise stores
+    if (warp == 0)
+      chunk_cum(reinterpret_cast<const float*>(gsm + C::AR), vcum, vecum,
+                vetail, q);
+    split_flat<THREADS>(gsm + C::XH, XF::BYTES, XF::BYTES);
+    split_flat<THREADS>(gsm + C::YH, XF::BYTES, XF::BYTES);
+    // <dS, S0> from the images (the same layout)
+    {
+      float dot = 0.f;
+      for (int j = threadIdx.x; j < IMG_F / 16; j += THREADS) {
+        const float4 u = reinterpret_cast<const float4*>(gsm + C::S0I)[j];
+        const float4 v = reinterpret_cast<const float4*>(gsm + C::DSI)[j];
+        dot = fmaf(u.x, v.x, fmaf(u.y, v.y, fmaf(u.z, v.z, fmaf(u.w, v.w,
+                                                                dot))));
+      }
+      dot = lane_sum(dot);
+      if (lane == 0) vdot[warp] = dot;
+    }
+    // e_s = etail_s b_s . (X dS)_s = sum_p X[s][p] Z[s][p], Z the state
+    // pass's dX term etail o (B dS^T): a row's quarter a thread, X as hi +
+    // lo (rows past the chunk are 0 in both)
+    {
+      const int r = threadIdx.x / 4, p0 = threadIdx.x % 4 * (PM / 4);
+      float e = 0.f;
+#pragma unroll
+      for (int u = 0; u < PM / 4; ++u) {
+        const uint32_t off = XF::offset(r, 4 * (p0 + u));
+        const float xv = *reinterpret_cast<const float*>(gsm + C::XH + off) +
+                         *reinterpret_cast<const float*>(gsm + C::XL + off);
+        e = fmaf(xv, *reinterpret_cast<const float*>(gsm + C::DXS + off), e);
+      }
+      e = quad_sum(e);
+      if (threadIdx.x % 4 == 0) vev[r] = e;
+    }
+    fence_proxy_async();
+    __syncthreads();                 // the split tiles and the vectors
+
+    // (C) warpgroup 0: dS^T X^T (rows n, columns s), into dB^T scaled by
+    // etail; warpgroup 1: S0^T dY^T (rows n, columns t), into dC^T scaled
+    // by ecum, and the S0 term's partial sums over this warp's n of C o
+    // it. K = p, A = the image's rows split; one M tile of 64 n at a time.
+    // (Element (col, n) of C at RowF::offset(col, 4 n): col & 7 = c2 + e1
+    // and n / 32 = 2 w + r0 / 32, so four bases and constants.)
+    {
+      const char* img = gsm + (wg ? C::S0I : C::DSI);
+      const uint32_t bo = sm + (wg ? C::YH : C::XH);
+      const uint64_t bh = kbase<XF>(bo), bl = kbase<XF>(bo + XF::BYTES);
+      const float* sc = wg ? vecum : vetail;
+      float gs[QT / 8][2] = {};
+#pragma unroll
+      for (int w = 0; w < 2; ++w) {
+        float pc[QT / 2];
+        split_walk<PM / 8, 1>(
+            [&](int s, int, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+              float v[4];
+              frag_kmajor<ImgF>(img, 64 * w + r0, s, v);
+              split4(v, hi, lo);
+            },
+            [&](int s, uint32_t (&hi)[1][4], uint32_t (&lo)[1][4]) {
+              mma3<QT>(pc, hi[0], lo[0], kstep<XF>(bh, 0, s),
+                       kstep<XF>(bl, 0, s), s > 0);
+            });
+        fence_regs(pc);
+        if (wg) {
+#pragma unroll
+          for (int j = 0; j < QT / 8; ++j)
+#pragma unroll
+            for (int e1 = 0; e1 < 2; ++e1)
+#pragma unroll
+              for (int hf = 0; hf < 2; ++hf)
+                gs[j][e1] = fmaf(
+                    *reinterpret_cast<const float*>(
+                        gsm + C::CS + (2 * w + r0 / 32) * RowF::PANEL +
+                        128 * (c2 + e1) + 1024 * j +
+                        ((4 * (r0 + 8 * hf) % 128) ^ ((c2 + e1) << 4))),
+                    pc[4 * j + 2 * hf + e1], gs[j][e1]);
+        }
+#pragma unroll
+        for (int j = 0; j < QT / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[w][4 * j + e] =
+                fmaf(pc[4 * j + e], sc[8 * j + c2 + (e & 1)],
+                     acc[w][4 * j + e]);
+      }
+      if (wg) {
+#pragma unroll
+        for (int j = 0; j < QT / 8; ++j)
+#pragma unroll
+          for (int e1 = 0; e1 < 2; ++e1) {
+            float sum = gs[j][e1];
+            sum += __shfl_xor_sync(0xffffffffu, sum, 4);
+            sum += __shfl_xor_sync(0xffffffffu, sum, 8);
+            sum += __shfl_xor_sync(0xffffffffu, sum, 16);
+            if (lane < 4) vgp[warp % 4 * QT + 8 * j + c2 + e1] = sum;
+          }
+      }
+    }
+
+    // (A) D = dY X^T, columns [32 wg, 32 wg + 32) (rows t, columns s);
+    // W = L o G, R2 = L o D, G2 = W o D, L = exp2(cum_t - cum_s) for s <= t
+    float wv[QT / 4], rv[QT / 4];
+    {
+      float dacc[QT / 4];
+      const uint64_t ah0 = kbase<XF>(sm + C::YH), al0 = kbase<XF>(sm + C::YL);
+      const uint64_t bh0 = kbase<XF>(sm + C::XH), bl0 = kbase<XF>(sm + C::XL);
+      wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < PM / 8; ++s) {
+        const uint64_t ah = kstep<XF>(ah0, 0, s);
+        const uint64_t al = kstep<XF>(al0, 0, s);
+        const uint64_t bh = kstep<XF>(bh0, 32 * wg, s);
+        const uint64_t bl = kstep<XF>(bl0, 32 * wg, s);
+        Wgmma<QT / 2>::ss_tf32(dacc, al, bh, s > 0);
+        Wgmma<QT / 2>::ss_tf32(dacc, ah, bl, 1);
+        Wgmma<QT / 2>::ss_tf32(dacc, ah, bh, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dacc);
+      float rs[2] = {0.f, 0.f}, cs[QT / 16][2] = {};
+#pragma unroll
+      for (int j = 0; j < QT / 16; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int t = r0 + 8 * (e >> 1), s = 32 * wg + 8 * j + c2 + (e & 1);
+          const float l = s <= t ? exp2f(vcum[t] - vcum[s]) : 0.f;
+          const float w = gacc[4 * j + e] * l, g2 = w * dacc[4 * j + e];
+          wv[4 * j + e] = w;
+          rv[4 * j + e] = dacc[4 * j + e] * l;
+          rs[e >> 1] += g2;
+          cs[j][e & 1] += g2;
+        }
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const float v = quad_sum(rs[hf]);
+        if (lane % 4 == 0) vrowp[wg * QT + r0 + 8 * hf] = v;
+      }
+#pragma unroll
+      for (int j = 0; j < QT / 16; ++j)
+#pragma unroll
+        for (int e1 = 0; e1 < 2; ++e1) {
+          float v = cs[j][e1];
+          v += __shfl_xor_sync(0xffffffffu, v, 4);
+          v += __shfl_xor_sync(0xffffffffu, v, 8);
+          v += __shfl_xor_sync(0xffffffffu, v, 16);
+          if (lane < 4) vcolp[warp * 32 + 8 * j + c2 + e1] = v;
+        }
+    }
+    __syncthreads();                 // X and the images are read
+    // W^T (rows s, t along), R2 (rows t, s along), R2^T, hi | lo
+#pragma unroll
+    for (int j = 0; j < QT / 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int t = r0 + 8 * (e >> 1), s = 32 * wg + 8 * j + c2 + (e & 1);
+        put_split(gsm + C::WTH, gsm + C::WTL, DerT::offset(s, 4 * t),
+                  wv[4 * j + e]);
+        put_split(gsm + C::R2H, gsm + C::R2L, DerT::offset(t, 4 * s),
+                  rv[4 * j + e]);
+        put_split(gsm + C::RTH, gsm + C::RTL, DerT::offset(s, 4 * t),
+                  rv[4 * j + e]);
+      }
+    fence_proxy_async();
+    __syncthreads();                 // the derived tiles
+
+    // (B) warpgroup 0: C^T R2 (rows n, columns s, K = t); warpgroup 1: B^T
+    // R2^T (rows n, columns t, K = s); A = C^T or B^T split from registers,
+    // one M tile of 64 n at a time, into dB^T or dC^T
+    {
+      const char* m = gsm + (wg ? C::BS : C::CS);
+      const uint32_t bo = sm + (wg ? C::R2H : C::RTH);
+      const uint64_t bh = kbase<DerT>(bo), bl = kbase<DerT>(bo + DerT::BYTES);
+#pragma unroll
+      for (int w = 0; w < 2; ++w) {
+        split_walk<QT / 8, 1>(
+            [&](int s, int, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+              float v[4];
+              frag_mn<RowF>(m, 64 * w + r0, s, v);
+              split4(v, hi, lo);
+            },
+            [&](int s, uint32_t (&hi)[1][4], uint32_t (&lo)[1][4]) {
+              mma3<QT>(acc[w], hi[0], lo[0], kstep<DerT>(bh, 0, s),
+                       kstep<DerT>(bl, 0, s), true);
+            });
+        fence_regs(acc[w]);
+      }
+    }
+    // dX^T = dY^T W, columns [32 wg, 32 wg + 32) (rows p, columns s, K =
+    // t): A = dY^T from dY's hi and lo tiles, B = W^T's rows
+    float xacc[QT / 4];
+    const uint64_t wh = kbase<DerT>(sm + C::WTH), wl = kbase<DerT>(sm + C::WTL);
+    split_walk<QT / 8, 1>(
+        [&](int s, int, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+          float v[4], u[4];
+          frag_mn<XF>(gsm + C::YH, r0, s, v);
+          frag_mn<XF>(gsm + C::YL, r0, s, u);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            hi[e] = __float_as_uint(v[e]);
+            lo[e] = __float_as_uint(u[e]);
+          }
+        },
+        [&](int s, uint32_t (&hi)[1][4], uint32_t (&lo)[1][4]) {
+          mma3<QT / 2>(xacc, hi[0], lo[0], kstep<DerT>(wh, 32 * wg, s),
+                       kstep<DerT>(wl, 32 * wg, s), s > 0);
+        });
+    fence_regs(xacc);
+
+    // dx = the state pass's term + dX^T: rows p = r0 (+ 8), columns s = 32
+    // wg + 8 j + c2 (+ 1)
+#pragma unroll
+    for (int j = 0; j < QT / 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int p = r0 + 8 * (e >> 1), s = 32 * wg + 8 * j + c2 + (e & 1);
+        if (s < q && p < p_dim)
+          dx[((row0 + s) * nh + hh) * p_dim + p] =
+              *reinterpret_cast<const float*>(gsm + C::DXS +
+                                              XF::offset(s, 4 * p)) +
+              xacc[4 * j + e];
+      }
+
+    __syncthreads();                 // every tile of this head is read
+    if (i + 1 < hn) load_head(i + 1);
+
+    // da of this head: g's suffix sums inside the chunk, by warp 0 (two
+    // steps a lane), every sum in one order
+    if (warp == 0) {
+      float dot = 0.f;
+#pragma unroll
+      for (int w = 0; w < 8; ++w) dot += vdot[w];
+      float gv[2], ev[2];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int s = 2 * lane + u;
+        float s0t = 0.f, col = 0.f;
+#pragma unroll
+        for (int w = 0; w < 4; ++w) {
+          s0t += vgp[w * QT + s];
+          col += vcolp[(s / 32 * 4 + w) * 32 + s % 32];
+        }
+        ev[u] = s < q ? vev[s] : 0.f;
+        gv[u] = s < q ? vrowp[s] + vrowp[QT + s] - col + vecum[s] * s0t - ev[u]
+                      : 0.f;
+      }
+      const float tail = lane_sum(ev[0] + ev[1]) + vecum[q - 1] * dot;
+      if (2 * lane == q - 1) gv[0] += tail;
+      if (2 * lane + 1 == q - 1) gv[1] += tail;
+      float suf = gv[0] + gv[1];
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const float o = __shfl_down_sync(0xffffffffu, suf, off);
+        if (lane + off < 32) suf += o;
+      }
+      if (2 * lane < q) da[(row0 + 2 * lane) * nh + hh] = suf;
+      if (2 * lane + 1 < q) da[(row0 + 2 * lane + 1) * nh + hh] = suf - gv[0];
+    }
+  }
+
+  // dB^T (warpgroup 0) or dC^T (warpgroup 1) of the group's heads
+  float* out = (wg ? dcg : dbg) + (((long long)bi * ng + g) * t_len + t0) *
+                                      n_dim;
+#pragma unroll
+  for (int w = 0; w < 2; ++w)
+#pragma unroll
+    for (int j = 0; j < QT / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int n = 64 * w + r0 + 8 * (e >> 1), s = 8 * j + c2 + (e & 1);
+        if (s < q && n < n_dim)
+          out[(long long)s * n_dim + n] = acc[w][4 * j + e];
+      }
+}
+
+// the kernels: the bf16 passes above or the float32 ones, by type
+template <typename T>
+__global__ void __launch_bounds__(std::is_same<T, float>::value ? 2 * WG : WG,
+                                  std::is_same<T, float>::value ? 1 : 3)
+ssd_bwd_state_kernel(const T* __restrict__ x, const float* __restrict__ a,
+                     const T* __restrict__ b, const T* __restrict__ c,
+                     const T* __restrict__ dy,
+                     const float* __restrict__ dstate,
+                     const float* __restrict__ state0,
+                     float* __restrict__ ds0, char* __restrict__ images,
+                     T* __restrict__ dx, int nh, int t_len, int p_dim,
+                     int n_dim, int nps, int vec_x, int vec_bc) {
+  if constexpr (std::is_same<T, float>::value)
+    state_pass_f32(x, a, b, c, dy, dstate, state0, ds0, images, dx, nh,
+                   t_len, p_dim, n_dim, vec_x, vec_bc);
+  else
+    state_pass<T>(x, a, b, c, dy, dstate, state0, ds0, images, nh, t_len,
+                  p_dim, n_dim, nps, vec_x, vec_bc);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(2 * WG, 1)
+ssd_bwd_chunk_kernel(const T* __restrict__ x, const float* __restrict__ a,
+                     const T* __restrict__ b, const T* __restrict__ c,
+                     const T* __restrict__ dy,
+                     const char* __restrict__ images, T* __restrict__ dx,
+                     float* __restrict__ da, float* __restrict__ dbg,
+                     float* __restrict__ dcg, int nh, int t_len, int p_dim,
+                     int n_dim, int ng, int vec_x, int vec_bc) {
+  if constexpr (std::is_same<T, float>::value)
+    chunk_pass_f32(x, a, b, c, dy, images, dx, da, dbg, dcg, nh, t_len,
+                   p_dim, n_dim, ng, vec_x, vec_bc);
+  else
+    chunk_pass<T>(x, a, b, c, dy, images, dx, da, dbg, dcg, nh, t_len,
+                  p_dim, n_dim, ng, vec_x, vec_bc);
+}
+
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-// bf16: the state pass, the chunk pass, the sum over the head groups
+// the state pass, the chunk pass, the sum over the head groups
 template <typename T>
-int launch_tc(const T* x, const float* a, const T* b, const T* c, const T* dy,
-              const float* dstate, const float* state0, T* dx, float* da,
-              T* db, T* dc, float* ds0, char* images, float* dbg, float* dcg,
-              int bsz, int h, int t_len, int p, int n, cudaStream_t st) {
+int launch(const void* x, const void* a, const void* b, const void* c,
+           const void* dy, const void* dstate, const void* state0, void* dx,
+           void* da, void* db, void* dc, void* ds0, void* images, void* dbg,
+           void* dcg, int bsz, int h, int t_len, int p, int n,
+           void* stream) {
+  if (bsz < 1 || h < 1 || t_len < 1 || p < 1 || p > PM || n < 1 || n > NM ||
+      (long long)bsz * h > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr bool F32 = std::is_same<T, float>::value;
+  constexpr int SB = F32 ? StateCfgF::BYTES : StateCfg::BYTES;
+  constexpr int CB = F32 ? ChunkCfgF::BYTES : ChunkCfg::BYTES;
+  constexpr int hg = F32 ? HG_F : HG;
   auto state = ssd_bwd_state_kernel<T>;
   auto chunk = ssd_bwd_chunk_kernel<T>;
-  static const int err_s = ftile::allow_smem(state, StateCfg::BYTES);
-  static const int err_c = ftile::allow_smem(chunk, ChunkCfg::BYTES);
+  static const int err_s = ftile::allow_smem(state, SB);
+  static const int err_c = ftile::allow_smem(chunk, CB);
   if (err_s) return err_s;
   if (err_c) return err_c;
-  const int nc = (t_len + QT - 1) / QT, nps = (p + PB - 1) / PB;
-  const int ng = (h + HG - 1) / HG;
-  const int vec_x = (p * 2) % 16 == 0 && aligned16(x) && aligned16(dy);
-  const int vec_bc = (n * 2) % 16 == 0 && aligned16(b) && aligned16(c);
-  state<<<2 * bsz * h * nps, WG, StateCfg::BYTES, st>>>(
-      x, a, b, c, dy, dstate, state0, ds0, images, h, t_len, p, n, nps,
-      vec_x, vec_bc);
+  const auto* tx = static_cast<const T*>(x);
+  const auto* tb = static_cast<const T*>(b);
+  const auto* tc = static_cast<const T*>(c);
+  const auto* tdy = static_cast<const T*>(dy);
+  const auto* fa = static_cast<const float*>(a);
+  auto* tdx = static_cast<T*>(dx);
+  auto* fdbg = static_cast<float*>(dbg);
+  auto* fdcg = static_cast<float*>(dcg);
+  auto* img = static_cast<char*>(images);
+  auto st = static_cast<cudaStream_t>(stream);
+  // float32 state blocks cover all of P, bf16's a slice of PB columns
+  const int nc = (t_len + QT - 1) / QT, nps = F32 ? 1 : (p + PB - 1) / PB;
+  const int ng = (h + hg - 1) / hg;
+  const int e = sizeof(T);
+  const int vec_x = (p * e) % 16 == 0 && aligned16(x) && aligned16(dy) &&
+                    aligned16(dx);
+  const int vec_bc = (n * e) % 16 == 0 && aligned16(b) && aligned16(c);
+  state<<<2 * bsz * h * nps, F32 ? StateCfgF::THREADS : WG, SB, st>>>(
+      tx, fa, tb, tc, tdy, static_cast<const float*>(dstate),
+      static_cast<const float*>(state0), static_cast<float*>(ds0), img, tdx,
+      h, t_len, p, n, nps, vec_x, vec_bc);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  chunk<<<bsz * nc * ng, 2 * WG, ChunkCfg::BYTES, st>>>(
-      x, a, b, c, dy, images, dx, da, dbg, dcg, h, t_len, p, n, ng, vec_x,
-      vec_bc);
+  chunk<<<bsz * nc * ng, 2 * WG, CB, st>>>(
+      tx, fa, tb, tc, tdy, img, tdx, static_cast<float*>(da), fdbg, fdcg, h,
+      t_len, p, n, ng, vec_x, vec_bc);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long total = (long long)bsz * t_len * n;
   ssd_bwd_sum_kernel<T><<<static_cast<int>((total + 255) / 256), 256, 0,
-                          st>>>(dbg, dcg, db, dc, ng, t_len, n, total);
+                          st>>>(fdbg, fdcg, static_cast<T*>(db),
+                                static_cast<T*>(dc), ng, t_len, n, total);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch(const void* x, const void* a, const void* b, const void* c,
-           const void* dy, const void* dstate, const void* state0, void* dx,
-           void* da, void* db, void* dc, void* ds0, void* states, void* dbh,
-           void* dch, int bsz, int h, int t_len, int p, int n,
-           void* stream) {
-  using cuda_cores::NMAX;
-  using cuda_cores::PMAX;
-  if (bsz < 1 || h < 1 || t_len < 1 || p < 1 || p > PMAX || n < 1 ||
-      n > NMAX || (long long)bsz * h > 0x7fffffffLL)
-    return static_cast<int>(cudaErrorInvalidValue);
-  auto st = static_cast<cudaStream_t>(stream);
-  if constexpr (!std::is_same<T, float>::value) {
-    return launch_tc<T>(
-        static_cast<const T*>(x), static_cast<const float*>(a),
-        static_cast<const T*>(b), static_cast<const T*>(c),
-        static_cast<const T*>(dy), static_cast<const float*>(dstate),
-        static_cast<const float*>(state0), static_cast<T*>(dx),
-        static_cast<float*>(da), static_cast<T*>(db), static_cast<T*>(dc),
-        static_cast<float*>(ds0), static_cast<char*>(states),
-        static_cast<float*>(dbh), static_cast<float*>(dch), bsz, h, t_len, p,
-        n, st);
-  } else {
-    auto head = cuda_cores::ssd_bwd_head_kernel<T>;
-    static const int err_smem = ftile::allow_smem(head,
-                                                  cuda_cores::SMEM_BYTES);
-    if (err_smem) return err_smem;
-    head<<<bsz * h, cuda_cores::THREADS, cuda_cores::SMEM_BYTES, st>>>(
-        static_cast<const T*>(x), static_cast<const float*>(a),
-        static_cast<const T*>(b), static_cast<const T*>(c),
-        static_cast<const T*>(dy), static_cast<const float*>(dstate),
-        static_cast<const float*>(state0), static_cast<T*>(dx),
-        static_cast<float*>(da), static_cast<float*>(ds0),
-        static_cast<float*>(states), static_cast<float*>(dbh),
-        static_cast<float*>(dch), h, t_len, p, n);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const long long total = (long long)bsz * t_len * n;
-    ssd_bwd_sum_kernel<T><<<static_cast<int>((total + 255) / 256), 256, 0,
-                            st>>>(
-        static_cast<const float*>(dbh), static_cast<const float*>(dch),
-        static_cast<T*>(db), static_cast<T*>(dc), h, t_len, n, total);
-    return static_cast<int>(cudaGetLastError());
-  }
 }
 
 }  // namespace

@@ -15,10 +15,12 @@ goes through a `torch.autograd.Function` whose forward is the kernel and
 whose backward is the backward kernel in csrc/flash_attn_bwd.cu, in two
 launches: dq with each row's lse and D, then dk and dv. It is
 FlashAttention-2's backward on the tensor cores (`wgmma` like the
-forward) at every Dh in bf16 and up to Dh 128 in float32; at Dh 256 the
-dk/dv pass splits into a dk and a dv pass of one launch, one q head a
-block, and a third launch sums dk and dv over each kv head's group
-(float32 Dh 256 runs these three on the CUDA cores; see the source).
+forward; 3xTF32 for float32) at every Dh; at Dh 256 the dk/dv pass
+splits into a dk and a dv pass of one launch, one q head a block, and a
+third launch sums dk and dv over each kv head's group. In float32 at Dh
+256, where a pass's blocks would not fill the card, each block walks a
+part of its keys (dq) or queries (dk, dv), `bwd_splits`, the dq parts
+combined by a fourth launch.
 Every mask of the forward has its
 backward: bidir (Sq and Skv may differ), causal, local (a window) and
 prefix. On CPU tensors the same Function takes the plain versions
@@ -170,7 +172,7 @@ def _bwd_fn(dtype: torch.dtype):
     f = _bwd_fns.get(dtype)
     if f is None:
         f = getattr(build.lib("flash_attn_bwd"), _BWD_FN[dtype])
-        f.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 \
+        f.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10 \
             + [ctypes.c_float, ctypes.c_void_p]
         f.restype = ctypes.c_int
         _bwd_fns[dtype] = f
@@ -187,6 +189,41 @@ def check_bwd(q, k, causal: bool) -> None:
             f"flash_attn backward kernel: head dim {q.shape[2]} (takes "
             f"{BWD_HEAD_DIMS}) or causal Sq {q.shape[1]} != Skv "
             f"{k.shape[1]}")
+
+
+def bwd_splits(dtype: torch.dtype, bh: int, sq: int, skv: int,
+               sms: int) -> tuple[int, int]:
+    """(dq parts, dk/dv parts) of the float32 Dh-256 backward on a card
+    of `sms` SMs: each pass's block walks one of that many contiguous
+    parts of its key tiles (dq: a part writes dq~ with its rows' max and
+    sum, which a fourth launch combines in part order) or query tiles
+    (dk, dv: a part writes its own float32 partial, which the group sum
+    adds in order). As many parts as keep a pass's blocks (a q head's 64
+    rows, two of them in the dk/dv launch) within two for each SM, at
+    most 4; bf16 walks whole."""
+    if dtype != torch.float32:
+        return 1, 1
+    def parts(blocks):
+        return max(1, min(4, 2 * sms // blocks))
+    return parts(bh * -(-sq // 64)), parts(2 * bh * -(-skv // 64))
+
+
+def bwd_launches(dh: int, nsq: int = 1) -> int:
+    """Kernels one backward call launches: the dq pass and the dk/dv
+    pass; at Dh 256 the group sum too, and the combine of `nsq` > 1 dq
+    parts."""
+    return 2 if dh != 256 else 3 + (nsq > 1)
+
+
+_sms: dict = {}
+
+
+def _sm_count(device) -> int:
+    n = _sms.get(device)
+    if n is None:
+        n = _sms[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return n
 
 
 def launch_bwd(q, k, v, o, do, causal: bool, window: int = 0,
@@ -215,23 +252,30 @@ def launch_bwd(q, k, v, o, do, causal: bool, window: int = 0,
     # kernel to the dk/dv kernel
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
     dsum = torch.empty_like(lse)
-    # Dh 256: each q head's dk and dv in float32, summed over the group by
-    # the third launch
-    part = torch.empty((2, bh, k.shape[1], dh), dtype=torch.float32,
+    # Dh 256: each q head's dk and dv in float32 (a partial for each part
+    # of its query walk), summed over the group by the third launch; then
+    # the dq pass's parts with their rows' max and sum, if it has more
+    # than one
+    nsq, nspl = bwd_splits(q.dtype, bh, sq, k.shape[1],
+                           _sm_count(q.device)) if dh == 256 else (1, 1)
+    part = torch.empty(2 * bh * nspl * k.shape[1] * dh
+                       + (nsq * bh * sq * (dh + 2) if nsq > 1 else 0),
+                       dtype=torch.float32,
                        device=q.device) if dh == 256 else None
     err = _bwd_fn(q.dtype)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                            o.data_ptr(), do.data_ptr(), dq.data_ptr(),
                            dk.data_ptr(), dv.data_ptr(), lse.data_ptr(),
                            dsum.data_ptr(),
                            None if part is None else part.data_ptr(),
-                           bh, group, sq, k.shape[1], dh,
+                           bh, group, nsq, nspl, sq, k.shape[1], dh,
                            int(causal), window, prefix_len, dh ** -0.5,
                            torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attn backward kernel launch failed: CUDA "
                            f"error {err}")
-    # the dq kernel, then the dk/dv one (and at Dh 256 the group sum)
-    _bwd_stats["kernel"] += 3 if dh == 256 else 2
+    # the dq kernel, then the dk/dv one (and at Dh 256 the group sum, and
+    # the dq parts' combine where there are parts)
+    _bwd_stats["kernel"] += bwd_launches(dh, nsq)
     return dq, dk, dv
 
 

@@ -14,8 +14,8 @@ Gradients: when grad mode is on and an operand requires grad, the call
 goes through `SsdScan`, a `torch.autograd.Function` whose forward is the
 kernel and whose backward is the kernel in csrc/ssd_bwd.cu: dx, da, db,
 dc and, when an initial state was given, its gradient, from dy and the
-final state's gradient (when the final state is used); bf16 chunk-parallel
-on the tensor cores (three launches), float32 on the CUDA cores (two).
+final state's gradient (when the final state is used), chunk-parallel on
+the tensor cores in three launches (bf16 products, 3xTF32 for float32).
 On CPU tensors the same Function takes the plain versions
 `ref.ssd_chunked` and `ref.ssd_bwd`. `bwd_work` counts what the backward
 must do.
@@ -110,16 +110,18 @@ def launch(x, a, b, c, chunk: int = MAX_CHUNK, state0=None):
 
 
 BWD_CHUNK = 64           # steps a chunk of the backward (csrc/ssd_bwd.cu)
-# bf16 backward (csrc/ssd_bwd.cu, QT, HG, IMG): heads a chunk-pass block,
-# and the bytes of one S0 or dS tile image (64 x 128 bf16)
-BWD_HEADS, BWD_IMAGE_BYTES = 5, 64 * 128 * 2
+# the backward's scratch (csrc/ssd_bwd.cu, QT, HG, HG_F, IMG, IMG_F): heads
+# a chunk-pass block, and the bytes of one chunk's S0 or dS image: bf16 a
+# 64 x 128 tile image, hi and lo; float32 128 x 64 raw
+BWD_HEADS = {torch.bfloat16: 5, torch.float32: 10}
+BWD_IMAGE_BYTES = {torch.bfloat16: 2 * 64 * 128 * 2,
+                   torch.float32: 128 * 64 * 4}
 
 
 def bwd_launches(dtype: torch.dtype) -> int:
-    """Kernels one backward call launches: bf16 the state pass, the
-    chunk pass and the sum over head groups; float32 the per-head pass and
-    the sum over heads."""
-    return 3 if dtype == torch.bfloat16 else 2
+    """Kernels one backward call launches, in either type: the state
+    pass, the chunk pass and the sum over head groups."""
+    return 3
 
 
 def bwd_work(bsz: int, t: int, h: int, p: int, n: int,
@@ -205,17 +207,11 @@ def launch_bwd(x, a, b, c, dy, dstate=None, state0=None):
         return dx, da, db, dc, ds0
     nc = -(-t // BWD_CHUNK)
     f32 = dict(dtype=torch.float32, device=x.device)
-    if x.dtype == torch.bfloat16:
-        # scratch: each chunk's S0 and dS as hi and lo bf16 tile images,
-        # and b's and c's gradients per group of BWD_HEADS heads
-        states = torch.empty(bsz * h * nc * 4 * BWD_IMAGE_BYTES,
-                             dtype=torch.uint8, device=x.device)
-        parts = -(-h // BWD_HEADS)
-    else:
-        # scratch: each chunk's entry state, and b's and c's gradients per
-        # head
-        states = torch.empty((bsz, h, nc, p, n), **f32)
-        parts = h
+    # scratch: each chunk's S0 and dS images, and b's and c's gradients per
+    # group of BWD_HEADS heads
+    states = torch.empty(bsz * h * nc * 2 * BWD_IMAGE_BYTES[x.dtype],
+                         dtype=torch.uint8, device=x.device)
+    parts = -(-h // BWD_HEADS[x.dtype])
     dbh = torch.empty((bsz, parts, t, n), **f32)
     dch = torch.empty_like(dbh)
 

@@ -9,17 +9,19 @@ rescaled when m grows, dq = dq~ scale / l at the end, and it writes lse =
 m + log2 l (base 2) and D = rowsum(do o). The dk/dv pass gives a
 warpgroup 64 keys and walks the group's q heads and each one's query
 tiles in order: P^T = exp2(S^T scale log2 e - lse), dS^T = P^T (dP^T - D),
-dv += P^T do, dk += dS^T q. At bf16 Dh 256 the dk/dv pass is two passes
-of one launch (dk: S^T, dP^T, dk += dS^T q; dv: S^T, dv += P^T do), each
-block one q head's 128 keys, and a third launch sums each head's float32
-dk and dv over the kv head's group in head order. `kernel_model` below is
-that arithmetic in plain torch, a model for this test that runs on no
-path:
+dv += P^T do, dk += dS^T q. At Dh 256 the dk/dv pass is two passes of
+one launch (dk: S^T, dP^T, dk += dS^T q; dv: S^T, dv += P^T do), each
+block one q head's keys, and a third launch sums each head's float32 dk
+and dv over the kv head's group in head order; in float32 there the row
+side stays raw and each k-step's A fragment is split hi / lo in
+registers, the same split as the stored one, with 16-key and 16-query
+column tiles. `kernel_model` below is that arithmetic in plain torch, a
+model for this test that runs on no path:
 
 - the tile walk of each pass, with the blocks' skipped (wholly masked)
   tiles under the window and prefix masks, and dk / dv summed over a kv
   head's group in the kernel's order (one accumulator walking the heads,
-  or at bf16 Dh 256 each head's float32 partial, then their sum);
+  or at Dh 256 each head's float32 partial, then their sum);
 - float32 (3xTF32): every operand x split into hi = tf32(x) and lo =
   tf32(x - hi), a product lo hi + hi lo + hi hi; the register operands (P,
   dS) split the same way, and the products that contract over keys or
@@ -53,6 +55,7 @@ SRC = Path(fa.__file__).parent / "csrc" / "flash_attn_bwd.cu"
 # the kernel's tiles (test_tile_constants_match_the_kernel_source)
 ROWS = 64
 DQ_BN_BF16, DQ_BN_F32, DKDV_BN_BF16, DKDV_BN_F32 = 64, 64, 64, 32
+DQ_BN_F32_256, DKDV_BN_F32_256 = 16, 16
 DQ_NWG, DKDV_NWG = 2, 2
 F32_TOL, BF16_TOL = 1e-4, 1e-2
 LOG2E = 1.4426950408889634
@@ -64,6 +67,8 @@ def plan(dq: bool, f32: bool, dh: int) -> tuple[int, int]:
     the kernel source."""
     dq256 = dq and not f32 and dh == 256      # one warpgroup, whole tiles
     nwg = 1 if (f32 and dh >= 128) or dq256 else DQ_NWG if dq else DKDV_NWG
+    if f32 and dh == 256:                     # the row side split in registers
+        return (DQ_BN_F32_256 if dq else DKDV_BN_F32_256), nwg
     bn = ((DQ_BN_F32 if f32 else DQ_BN_BF16) if dq
           else DKDV_BN_F32 if f32 else DKDV_BN_BF16)
     return bn // (2 if dh >= 128 and not dq256 else 1), nwg
@@ -173,11 +178,14 @@ def keep(qi, kj, causal, window, prefix=0):
 
 
 def kernel_model(q, k, v, o, do, causal=False, window=0, passes=3,
-                 perm=vt_col, prefix=0):
+                 perm=vt_col, prefix=0, nsq=1, nspl=1):
     """(dq, dk, dv) in the inputs' dtype, computed as the kernel computes
-    them."""
+    them; at Dh 256 each dq block's key walk in `nsq` contiguous parts
+    (each part's dq~, row max m and sum l, combined in part order with
+    weights exp2(m_i - max m)) and each dk/dv block's query walk in `nspl`
+    (each part's float32 partial added in order), `fa.bwd_splits`."""
     f32 = q.dtype == torch.float32
-    split_group = not f32 and q.shape[2] == 256   # per-head partials, summed
+    split_group = q.shape[2] == 256   # per-head partials, summed
     bh, sq, dh = q.shape
     nkv, skv = k.shape[:2]
     group = bh // nkv
@@ -192,25 +200,42 @@ def kernel_model(q, k, v, o, do, causal=False, window=0, passes=3,
     for rows, tiles, bn in dq_walk(sq, skv, dh, f32, causal, window,
                                    prefix):
         r = slice(rows.start, rows.stop)
-        m = torch.full((bh, len(rows)), -math.inf)
-        l = torch.zeros(bh, len(rows))
-        acc = torch.zeros(bh, len(rows), dh)
-        for k0 in tiles:
-            c = slice(k0, min(skv, k0 + bn))
-            s = ss(qf[:, r], kq[:, c], f32, passes)
-            dp = ss(dof[:, r], vq[:, c], f32, passes)
-            s = torch.where(keep(rows, range(c.start, c.stop), causal,
-                                 window, prefix), s, ninf)
-            x = s * sl2
-            m_new = torch.maximum(m, x.amax(-1))
-            mu = torch.where(m_new == -math.inf, 0.0, m_new)
-            alpha = torch.exp2(m - mu)
-            m = m_new
-            p = torch.exp2(x - mu[..., None])
-            l = l * alpha + p.sum(-1)
-            ds = p * (dp - dsum[:, r, None])
-            acc = acc * alpha[..., None] + rs(ds, kq[:, c], f32, passes,
-                                              perm)
+        per = -(-len(tiles) // nsq) if split_group else max(1, len(tiles))
+        stats = []                      # each part's (m, l, dq~)
+        for i in range(nsq if split_group else 1):
+            m = torch.full((bh, len(rows)), -math.inf)
+            l = torch.zeros(bh, len(rows))
+            acc = torch.zeros(bh, len(rows), dh)
+            for k0 in tiles[i * per:(i + 1) * per]:
+                c = slice(k0, min(skv, k0 + bn))
+                s = ss(qf[:, r], kq[:, c], f32, passes)
+                dp = ss(dof[:, r], vq[:, c], f32, passes)
+                s = torch.where(keep(rows, range(c.start, c.stop), causal,
+                                     window, prefix), s, ninf)
+                x = s * sl2
+                m_new = torch.maximum(m, x.amax(-1))
+                mu = torch.where(m_new == -math.inf, 0.0, m_new)
+                alpha = torch.exp2(m - mu)
+                m = m_new
+                p = torch.exp2(x - mu[..., None])
+                l = l * alpha + p.sum(-1)
+                ds = p * (dp - dsum[:, r, None])
+                acc = acc * alpha[..., None] + rs(ds, kq[:, c], f32, passes,
+                                                  perm)
+            stats.append((m, l, acc))
+        if len(stats) == 1:
+            m, l, acc = stats[0]
+        else:
+            # the combine: the parts in order, each weighted by exp2(m_i -
+            # max m)
+            m = torch.stack([st[0] for st in stats]).amax(0)
+            mu = torch.where(m == -math.inf, 0.0, m)
+            l = torch.zeros_like(m)
+            acc = torch.zeros(bh, len(rows), dh)
+            for mi, li, ai in stats:
+                w = torch.exp2(mi - mu)
+                l = l + w * li
+                acc = acc + w[..., None] * ai
         dq[:, r] = acc * (scale / l.clamp_min(1e-30))[..., None]
         lse[:, r] = m + torch.log2(l)
     dk = torch.zeros(nkv, skv, dh)
@@ -220,25 +245,32 @@ def kernel_model(q, k, v, o, do, causal=False, window=0, passes=3,
         kr = slice(keys.start, keys.stop)
         dka = torch.zeros(nkv, len(keys), dh)
         dva = torch.zeros(nkv, len(keys), dh)
+        per = -(-len(tiles) // nspl) if split_group else max(1, len(tiles))
+        parts = [tiles[i * per:(i + 1) * per]
+                 for i in range(nspl if split_group else 1)]
         for g in range(group):                  # q heads kvh * group + g
             hq = slice(g, bh, group)
-            for q0 in tiles:
-                c = slice(q0, min(sq, q0 + bn))
-                st = ss(kf[:, kr], qf[hq, c], f32, passes, dq_order=False)
-                dpt = ss(vf[:, kr], dof[hq, c], f32, passes, dq_order=False)
-                kept = keep(range(c.start, c.stop), keys, causal, window,
-                            prefix).T
-                p = torch.where(kept, torch.exp2(st * sl2 - lse[hq, None, c]),
-                                0.0)
-                dst = p * (dpt - dsum[hq, None, c])
-                dva = dva + rs(p, dof[hq, c], f32, passes, perm)
-                dka = dka + rs(dst, qf[hq, c], f32, passes, perm)
-            if split_group:
-                # the head's float32 partial (dk scaled), added to the sum
-                # in head order by the third launch
-                dk[:, kr] += dka * scale
-                dv[:, kr] += dva
-                dka, dva = torch.zeros_like(dka), torch.zeros_like(dva)
+            for part in parts:
+                for q0 in part:
+                    c = slice(q0, min(sq, q0 + bn))
+                    st = ss(kf[:, kr], qf[hq, c], f32, passes,
+                            dq_order=False)
+                    dpt = ss(vf[:, kr], dof[hq, c], f32, passes,
+                             dq_order=False)
+                    kept = keep(range(c.start, c.stop), keys, causal,
+                                window, prefix).T
+                    p = torch.where(kept, torch.exp2(
+                        st * sl2 - lse[hq, None, c]), 0.0)
+                    dst = p * (dpt - dsum[hq, None, c])
+                    dva = dva + rs(p, dof[hq, c], f32, passes, perm)
+                    dka = dka + rs(dst, qf[hq, c], f32, passes, perm)
+                if split_group:
+                    # the part's float32 partial (dk scaled), added to the
+                    # sum in head order, a head's parts in order, by the
+                    # third launch
+                    dk[:, kr] += dka * scale
+                    dv[:, kr] += dva
+                    dka, dva = torch.zeros_like(dka), torch.zeros_like(dva)
         if not split_group:
             dk[:, kr] = dka * scale
             dv[:, kr] = dva
@@ -352,12 +384,16 @@ def test_kernel_model_on_the_pallas_forward(s, causal):
     _check(got, want, F32_TOL)
 
 
-@pytest.mark.parametrize("causal,window", [(False, 0), (True, 70)])
-def test_one_tf32_pass_misses_where_3xtf32_holds(causal, window):
+@pytest.mark.parametrize("dh,causal,window", [(64, False, 0),
+                                               (64, True, 70),
+                                               (256, False, 0),
+                                               (256, True, 40)])
+def test_one_tf32_pass_misses_where_3xtf32_holds(dh, causal, window):
     """At inputs x3 (scores ~30) one tf32 product misses 1e-4, so the x3
-    cases test the split."""
-    q, k, v, o, do = _inputs(2, 200, 64, 1, F32, 3.0, causal=causal,
-                             window=window)
+    cases test the split; at Dh 256 too, where the row side's split is
+    the registers'."""
+    q, k, v, o, do = _inputs(2, 200 if dh == 64 else 100, dh, 1, F32, 3.0,
+                             causal=causal, window=window)
     want = ref.flash_attn_bwd(q, k, v, o, do, causal=causal, window=window)
     _check(kernel_model(q, k, v, o, do, causal, window), want, F32_TOL)
     one = kernel_model(q, k, v, o, do, causal, window, passes=1)
@@ -502,28 +538,134 @@ def test_dh256_walks_visit_every_kept_pair_once(case):
     assert (seen[mask] == 1).all()
 
 
+# float32 Dh 256 (the row side split in registers, 16-key and 16-query
+# tiles, the group's per-head partials summed in head order): (BH, S,
+# group, causal, window, prefix) at inputs x3 (scores ~30), S off the
+# tiles, group 1 and split groups, a window whose first key tile is
+# partial, a prefix past a tile and = S, bidirectional
+CASES_256_F32 = [
+    (4, 100, 1, True, 0, 0),
+    (6, 75, 3, True, 0, 0),
+    (4, 90, 2, True, 23, 0),
+    (4, 84, 2, True, 0, 37),
+    (2, 48, 1, True, 0, 48),
+    (2, 53, 2, False, 0, 0),
+]
+
+
+@pytest.fixture(scope="module")
+def dh256_f32_cases():
+    out = {}
+    for case in CASES_256_F32:
+        bh, s, group, causal, window, prefix = case
+        ins = _inputs(bh, s, 256, group, F32, 3.0, causal=causal,
+                      window=window, prefix=prefix, seed=4)
+        nsq, nspl = fa.bwd_splits(F32, bh, s, s, H100_SMS)
+        out[case] = ins, kernel_model(*ins, causal, window, prefix=prefix,
+                                      nsq=nsq, nspl=nspl)
+    return out
+
+
+H100_SMS = 132
+
+
+def test_bwd_splits_at_the_timed_shapes():
+    """The float32 Dh-256 walks' parts on an H100's 132 SMs: phase 2's
+    (8, 300) has 40 dq blocks, split in 4, and 80 dk and dv blocks, in 3;
+    the float32 twins of the path cases, 160 / 320 and 192 / 384 blocks,
+    walk whole; bf16 never splits; the CPU cases above, a few blocks,
+    take the most, 4. A split dq pass adds a fourth launch."""
+    assert fa.bwd_splits(F32, 8, 300, 300, H100_SMS) == (4, 3)
+    assert fa.bwd_splits(F32, 20, 512, 512, H100_SMS) == (1, 1)
+    assert fa.bwd_splits(F32, 16, 768, 768, H100_SMS) == (1, 1)
+    assert fa.bwd_splits(BF, 8, 300, 300, H100_SMS) == (1, 1)
+    assert {fa.bwd_splits(F32, c[0], c[1], c[1], H100_SMS)
+            for c in CASES_256_F32} == {(4, 4)}
+    assert (fa.bwd_launches(256, 4), fa.bwd_launches(256, 1),
+            fa.bwd_launches(64)) == (4, 3, 2)
+
+
+@pytest.mark.parametrize("case", CASES_256_F32, ids=_id256)
+def test_dh256_f32_model_matches_plain(dh256_f32_cases, case):
+    bh, s, group, causal, window, prefix = case
+    (q, k, v, o, do), got = dh256_f32_cases[case]
+    want = ref.flash_attn_bwd(q, k, v, o, do, causal=causal, window=window,
+                              prefix_len=prefix)
+    assert all(g.dtype == F32 for g in got)
+    _check(got, want, F32_TOL)
+
+
+@pytest.mark.parametrize("case", CASES_256_F32, ids=_id256)
+def test_dh256_f32_model_matches_jax_vjp(dh256_f32_cases, case):
+    """Against jax.vjp of the JAX package's plain attention with the same
+    mask (models/attention.py:attend_full), in float32."""
+    bh, s, group, causal, window, prefix = case
+    (q, k, v, o, do), got = dh256_f32_cases[case]
+    kind = ("bidir" if not causal else "local" if window
+            else "prefix" if prefix else "causal")
+
+    def heads(x):                          # (BH, S, Dh) -> (1, S, BH, Dh)
+        return jnp.asarray(x.numpy().transpose(1, 0, 2)[None])
+    _, vjp = jax.vjp(lambda q, k, v: j_attn.attend_full(
+        q, k, v, mask_kind=kind, window=window, prefix_len=prefix),
+        heads(q), heads(k), heads(v))
+    want = [torch.from_numpy(np.array(w)[0].transpose(1, 0, 2))
+            for w in vjp(heads(do))]
+    _check(got, want, F32_TOL)
+
+
+@pytest.mark.parametrize("case", CASES_256_F32, ids=_id256)
+def test_dh256_f32_walks_visit_every_kept_pair_once(case):
+    """The float32 Dh-256 plan's walks (one warpgroup of 64 rows a block,
+    16-key tiles in the dq pass and 16-query tiles in the dk and dv
+    passes) under every mask."""
+    bh, s, group, causal, window, prefix = case
+    assert plan(True, True, 256) == (16, 1)
+    assert plan(False, True, 256) == (16, 1)
+    mask = keep(range(s), range(s), causal, window, prefix).numpy()
+    seen = np.zeros((s, s), dtype=int)
+    for rows, tiles, bn in dq_walk(s, s, 256, True, causal, window, prefix):
+        for k0 in tiles:
+            seen[rows.start:rows.stop, k0:min(s, k0 + bn)] += 1
+    assert (seen[mask] == 1).all()
+    seen = np.zeros((s, s), dtype=int)
+    for keys, tiles, bn in dkdv_walk(s, s, 256, True, causal, window,
+                                     prefix):
+        for q0 in tiles:
+            assert mask[q0:q0 + bn, keys.start:keys.stop].any()
+            seen[q0:min(s, q0 + bn), keys.start:keys.stop] += 1
+    assert (seen[mask] == 1).all()
+
+
 def test_tile_constants_match_the_kernel_source():
     src = SRC.read_text()
     for name, want in (("ROWS", ROWS), ("DQ_BN_BF16", DQ_BN_BF16),
                        ("DQ_BN_F32", DQ_BN_F32),
                        ("DKDV_BN_BF16", DKDV_BN_BF16),
-                       ("DKDV_BN_F32", DKDV_BN_F32), ("DQ_NWG", DQ_NWG),
-                       ("DKDV_NWG", DKDV_NWG)):
+                       ("DKDV_BN_F32", DKDV_BN_F32),
+                       ("DQ_BN_F32_256", DQ_BN_F32_256),
+                       ("DKDV_BN_F32_256", DKDV_BN_F32_256),
+                       ("DQ_NWG", DQ_NWG), ("DKDV_NWG", DKDV_NWG)):
         m = re.search(rf"constexpr int {name} = (\d+);", src)
         assert m and int(m.group(1)) == want, name
     assert "(j & ~7) | ((j & 1) << 2) | ((j & 7) >> 1)" in src
-    # the Dh-256 plan: column tiles halved from Dh 128 (plan()), bf16 on
-    # the tensor-core passes (one q head a dk/dv block: its float32
-    # partials, summed over the group), float32 on the CUDA cores
+    # the Dh-256 plan: column tiles halved from Dh 128 (plan()), both
+    # types on the tensor-core passes (one q head a dk/dv block: its
+    # float32 partials, summed over the group); float32 with the row side
+    # raw and split in registers, at its own column tiles
     assert "DQ256 = DQ && !F32 && DH == 256;" in src
-    assert "NWG = BIG || DQ256 ? 1 : DQ ? DQ_NWG : DKDV_NWG;" in src
+    assert "RSPLIT = F32 && DH == 256;" in src
+    assert "RSPLIT ? (DQ ? DQ_BN_F32_256 : DKDV_BN_F32_256)" in src
+    assert "RSPLIT ? 2 : BIG || DQ256 ? 1 : DQ ? DQ_NWG : DKDV_NWG;" in src
     assert "(DH >= 128 && !DQ256 ? 2 : 1)" in src
+    assert "fa_bwd256_dq_kernel" not in src
+    assert "fa_bwd256_dkdv_kernel" not in src
     assert "enum Part { DKDV = 0, DK = 1, DV = 2 };" in src
     assert re.search(r"dkdv_pass<T, 256, DV, float>\(.*?bh / group, bh, 1,",
                      src, re.S)
     assert re.search(r"dkdv_pass<T, 256, DK, float>\(.*?bh / group, bh, 1,",
                      src, re.S)
-    assert re.search(r"is_same<T, float>::value\)\s*return run256<T>", src)
+    assert re.search(r"case 256: return run256<T>\(", src)
 
 
 def test_bwd_work_at_the_path_case():

@@ -938,7 +938,9 @@ def test_flash_attn_backward_refuses_what_it_lacks(cuda):
     """Only causal attention with Sq != Skv has no backward (the forward
     refuses it too): asking for it raises, never a plain gradient. Dh 256
     has its backward kernels now: three launches (dq, dk/dv per head, the
-    group sum), within FLOAT_TOL of autograd of the plain forward."""
+    group sum), a fourth where float32's dq pass walks its keys in parts
+    (`bwd_splits`, `bwd_launches`), within FLOAT_TOL of autograd of the
+    plain forward."""
     from repro_torch.kernels import flash_attn as fa
     q = torch.randn(2, 16, 64, device=cuda, requires_grad=True)
     k = torch.randn(2, 24, 64, device=cuda)
@@ -950,7 +952,9 @@ def test_flash_attn_backward_refuses_what_it_lacks(cuda):
     do = randn(g, (4, 70, 256))
     fa.reset_bwd_stats()
     got = _grads(fa.flash_attn(q, k, v, causal=True), (q, k, v), do)
-    assert fa.bwd_stats() == {"kernel": 3, "ref": 0}
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    nsq = fa.bwd_splits(torch.float32, 4, 70, 70, sms)[0]
+    assert fa.bwd_stats() == {"kernel": fa.bwd_launches(256, nsq), "ref": 0}
     want = _grads(ref.flash_attn(q, k, v, causal=True), (q, k, v), do)
     for a, b in zip(got, want):
         assert_close(a, b, FLOAT_TOL[torch.float32])
@@ -1099,7 +1103,9 @@ def test_fronts_without_backward_refuse_grad(cuda, kernel):
     # cut in BH; bf16 Dh 256 at S off 64, a group of 3 that two key blocks
     # share unevenly, a window whose first tile is partial and a prefix
     # past a tile; prefixes of 1, = S and past a key tile; Dh 256 float32
-    # with a window and bidir; the prefix at Dh 64 and 128
+    # with a window and bidir, at S off its 16-row tiles with a group of
+    # 3, with a window whose first 16-key tile is partial, and split into
+    # query-walk parts; the prefix at Dh 64 and 128
     (torch.bfloat16, 10, 512, 256, 10, 2048, 0),
     (torch.bfloat16, 8, 768, 256, 8, 0, 256),
     (torch.bfloat16, 6, 150, 256, 3, 0, 0),
@@ -1111,13 +1117,16 @@ def test_fronts_without_backward_refuse_grad(cuda, kernel):
     (torch.float32, 4, 130, 256, 2, 0, 97),
     (torch.float32, 4, 200, 256, 2, 70, 0),
     (torch.float32, 4, 150, 256, 1, -1, 0),
+    (torch.float32, 6, 83, 256, 3, 0, 0),
+    (torch.float32, 4, 90, 256, 2, 23, 0),
+    (torch.float32, 8, 300, 256, 2, 0, 0),
     (torch.float32, 6, 300, 64, 3, 0, 100),
     (torch.bfloat16, 4, 300, 128, 1, 0, 65),
     (torch.float32, 4, 70, 64, 1, 0, 70)])
 def test_flash_attn_backward_dh256_and_prefix_match_plain(cuda, case):
-    """The backward at Dh 256 (bf16 on the tensor cores: the dq pass,
-    the dk and dv passes per q head, the group sum; float32 on the CUDA
-    cores, the same three launches) and with the prefix mask, against
+    """The backward at Dh 256 (on the tensor cores in both types: the dq
+    pass, the dk and dv passes per q head, in float32 also per part of
+    the query walk, the group sum) and with the prefix mask, against
     autograd of the plain version (window -1: bidirectional)."""
     from repro_torch.kernels import flash_attn as fa
     dtype, bh, s, dh, group, window, prefix = case
@@ -1129,7 +1138,9 @@ def test_flash_attn_backward_dh256_and_prefix_match_plain(cuda, case):
     fa.reset_bwd_stats()
     kw = dict(causal=causal, window=window, prefix_len=prefix)
     got = _grads(fa.flash_attn(q, k, v, **kw), (q, k, v), do)
-    assert fa.bwd_stats() == {"kernel": 3 if dh == 256 else 2, "ref": 0}
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    nsq = fa.bwd_splits(dtype, bh, s, s, sms)[0]
+    assert fa.bwd_stats() == {"kernel": fa.bwd_launches(dh, nsq), "ref": 0}
     want = _grads(ref.flash_attn(q, k, v, **kw), (q, k, v), do)
     for a, b in zip(got, want):
         assert a.dtype == dtype and a.shape == b.shape
@@ -1144,9 +1155,9 @@ def test_flash_attn_backward_dh256_and_prefix_match_plain(cuda, case):
     # (dtype, B, T, H, P, N, decay, state0, dstate): Mamba-2's training
     # shape cut to 8 heads, in bf16 and float32; a chunk's worth and a
     # ragged T; no decay; decays that underflow; a large initial state
-    # with its gradient; a final-state gradient; P and N off 32; bf16 (the
-    # tensor-core passes) at T off the chunk, heads off the block's group,
-    # P and N off the tiles (element loads), P past one state slice
+    # with its gradient; a final-state gradient; P and N off 32; T off the
+    # chunk, heads off the chunk block's group (5 in bf16, 10 in float32),
+    # P and N off the tiles (element loads); bf16 P past one state slice
     (torch.bfloat16, 2, 512, 8, 64, 128, "rand", False, False),
     (torch.bfloat16, 2, 150, 7, 64, 128, "rand", True, True),
     (torch.bfloat16, 1, 77, 3, 5, 7, "rand", True, True),
@@ -1158,6 +1169,8 @@ def test_flash_attn_backward_dh256_and_prefix_match_plain(cuda, case):
     (torch.float32, 2, 150, 3, 16, 32, "underflow", True, False),
     (torch.float32, 2, 97, 4, 64, 128, "rand", True, True),
     (torch.float32, 1, 33, 2, 5, 7, "rand", True, True),
+    (torch.float32, 2, 150, 13, 64, 128, "rand", True, True),
+    (torch.float32, 2, 100, 6, 40, 96, "underflow", False, True),
     (torch.bfloat16, 1, 200, 4, 64, 128, "rand", True, True)])
 def test_ssd_backward_matches_plain_autograd(cuda, case):
     from repro_torch.kernels import ssd as ssdk

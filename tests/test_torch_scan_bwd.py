@@ -4,14 +4,15 @@ with the prefix and window masks), each held against torch autograd of
 its plain forward, and, through the port's models, against `jax.grad` of
 the JAX package's functions: `models/rglru.rglru_scan`,
 `models/ssd.ssd_scan` and `models/attention.attend_full` (the JAX
-`kernels/ref.py` attention has no window or prefix mask). A plain model
-of the ssd backward kernel's chunked arithmetic (csrc/ssd_bwd.cu) is held
-against `ref.ssd_bwd`. Inputs come from numpy. Tolerances, of each
-gradient's max |reference|: 1e-5 against autograd of the same float32
-forward (the sums run in another order), 1e-4 against JAX (another
-forward: JAX's associative and chunked scans and its float32
-attention), 1e-6 for the float64 model of the kernel against the
-float32 plain version.
+`kernels/ref.py` attention has no window or prefix mask). Plain models
+of the ssd backward kernel's chunked arithmetic (csrc/ssd_bwd.cu), bf16
+and float32 (3xTF32), are held against `ref.ssd_bwd` and `jax.grad`.
+Inputs come from numpy. Tolerances, of each gradient's max |reference|:
+1e-5 against autograd of the same float32 forward (the sums run in
+another order), 1e-4 against JAX (another forward: JAX's associative and
+chunked scans and its float32 attention) and for the float32 kernel
+model (the card's gate), 1e-6 for the float64 model of the kernel
+against the float32 plain version.
 """
 import jax
 import jax.numpy as jnp
@@ -372,6 +373,198 @@ def test_ssd_bwd_chains_need_the_hi_lo_split(ssd_bf16_case):
     assert err_one > 3 * err_split
 
 
+# ---------------------------------------------------------------------------
+# the float32 ssd backward kernel (3xTF32)
+# ---------------------------------------------------------------------------
+
+SSD_HG_F32 = 10         # csrc/ssd_bwd.cu: HG_F
+SSD_F32_TOL = 1e-4      # the card's float32 gate (chip_smoke.py TOL)
+
+
+def _tf32(v):
+    """cvt.rna.tf32.f32: 10 mantissa bits, to nearest, ties away."""
+    bits = v.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm3(a, b, passes=3):
+    """a @ b as the kernel's 3xTF32 products: each operand split hi =
+    tf32(x), lo = tf32(x - hi), (lo hi + hi lo) + hi hi in float32; with
+    `passes` 1, hi hi alone (one tf32 product)."""
+    ah, bh = _tf32(a), _tf32(b)
+    if passes == 1:
+        return ah @ bh
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def ssd_bwd_model_f32(x, a, b, c, dy, dstate, state0, passes=3):
+    """The float32 ssd backward kernel's arithmetic (csrc/ssd_bwd.cu,
+    state_pass_f32 and chunk_pass_f32), in chunks of SSD_QT steps, as a
+    plain model for this test (it runs on no path); every product 3xTF32
+    (`_mm3`). The state pass: the chains S <- e^{cum_last} S + (etail o
+    X)^T B and dS <- e^{cum_last} dS + (ecum o dY)^T C, each chunk's S0
+    and dS kept as float32 images, and the dX term etail o (B dS^T). The
+    chunk pass, per (batch, chunk, head): G = C B^T and D = dY X^T, W = L o
+    G, R2 = L o D, G2 = W o D; e_s = sum_p X[s][p] Z[s][p] from the dX
+    term Z; dS^T X^T (into dB^T scaled by etail) and S0^T dY^T (its S0
+    terms, into dC^T scaled by ecum); dB^T
+    += C^T R2, dC^T += B^T R2^T, dX += (dY^T W)^T; da from G2's row and
+    column sums, the S0 and e terms and <dS, S0>. dB and dC sum over the
+    heads in groups of SSD_HG_F32, then over the groups, in order."""
+    bsz, t, h, p = x.shape
+    n = b.shape[-1]
+    mm = (lambda u, v: _mm3(u, v, passes))
+    starts = list(range(0, t, SSD_QT))
+    nc = len(starts)
+
+    def chunk(bi, k, hh):
+        sl = slice(starts[k], min(t, starts[k] + SSD_QT))
+        cum = torch.cumsum(a[bi, sl, hh], 0)
+        return (sl, cum, torch.exp(cum), torch.exp(cum[-1] - cum),
+                torch.exp(cum[-1]))
+
+    s0_img = torch.zeros((bsz, h, nc, p, n))
+    ds_img = torch.zeros_like(s0_img)
+    zterm = torch.zeros_like(x)                 # the dX term etail o B dS^T
+    dx = torch.zeros_like(x)
+    ds0 = torch.zeros((bsz, h, p, n))
+    for bi in range(bsz):
+        for hh in range(h):
+            st = (torch.zeros((p, n)) if state0 is None
+                  else state0[bi, hh].clone())
+            for k in range(nc):
+                s0_img[bi, hh, k] = st
+                sl, cum, ecum, etail, decay = chunk(bi, k, hh)
+                st = decay * st + mm((etail[:, None] * x[bi, sl, hh]).T,
+                                     b[bi, sl])
+            gs = (torch.zeros((p, n)) if dstate is None
+                  else dstate[bi, hh].clone())
+            for k in reversed(range(nc)):
+                ds_img[bi, hh, k] = gs
+                sl, cum, ecum, etail, decay = chunk(bi, k, hh)
+                zterm[bi, sl, hh] = etail[:, None] * mm(b[bi, sl], gs.T)
+                dx[bi, sl, hh] = zterm[bi, sl, hh]
+                gs = decay * gs + mm((ecum[:, None] * dy[bi, sl, hh]).T,
+                                     c[bi, sl])
+            ds0[bi, hh] = gs
+
+    da = torch.zeros_like(a)
+    ngr = -(-h // SSD_HG_F32)
+    dbg = torch.zeros((bsz, ngr, t, n))
+    dcg = torch.zeros_like(dbg)
+    for bi in range(bsz):
+        for k in range(nc):
+            sl = slice(starts[k], min(t, starts[k] + SSD_QT))
+            B, C = b[bi, sl], c[bi, sl]
+            G = mm(C, B.T)
+            for gi in range(ngr):
+                dbt = torch.zeros((n, B.shape[0]))
+                dct = torch.zeros_like(dbt)
+                for hh in range(gi * SSD_HG_F32, min(h, (gi + 1) * SSD_HG_F32)):
+                    _, cum, ecum, etail, _ = chunk(bi, k, hh)
+                    q = cum.shape[0]
+                    X, DY = x[bi, sl, hh], dy[bi, sl, hh]
+                    S0, dS = s0_img[bi, hh, k], ds_img[bi, hh, k]
+                    tri = torch.ones((q, q), dtype=torch.bool).tril()
+                    L = torch.where(tri, torch.exp(cum[:, None]
+                                                   - cum[None, :]), 0.0)
+                    D = mm(DY, X.T)
+                    W, R2 = L * G, L * D
+                    G2 = W * D
+                    qx = mm(dS.T, X.T)                  # (n, s)
+                    # e_s = sum_p X[s][p] Z[s][p], Z the state pass's term
+                    ev = (X * zterm[bi, sl, hh]).sum(1)
+                    dbt = dbt + qx * etail[None, :]
+                    rs0 = mm(S0.T, DY.T)                # (n, t)
+                    g2 = ecum * (C.T * rs0).sum(0)
+                    dct = dct + rs0 * ecum[None, :]
+                    dbt = dbt + mm(C.T, R2)
+                    dct = dct + mm(B.T, R2.T)
+                    dx[bi, sl, hh] = dx[bi, sl, hh] + mm(DY.T, W).T
+                    g = G2.sum(1) - G2.sum(0) + g2 - ev
+                    g[-1] += ev.sum() + ecum[-1] * (dS * S0).sum()
+                    da[bi, sl, hh] = torch.flip(
+                        torch.cumsum(torch.flip(g, [0]), 0), [0])
+                dbg[bi, gi, sl] = dbt.T
+                dcg[bi, gi, sl] = dct.T
+    return (dx, da, dbg.sum(1), dcg.sum(1),
+            None if state0 is None else ds0)
+
+
+def _f32_err(got, want) -> float:
+    g, w = (np.asarray(v.detach().double()) if torch.is_tensor(v)
+            else np.array(v, dtype=np.float64) for v in (got, want))
+    return float(np.abs(g - w).max() / max(1.0, float(np.abs(w).max())))
+
+
+def _ssd_f32_inputs(seed, bsz, t, h, p, n, decay):
+    r = rng_np(seed)
+    x, b, c, dy = (torch.tensor(r.standard_normal(sh), dtype=torch.float32)
+                   for sh in ((bsz, t, h, p), (bsz, t, n), (bsz, t, n),
+                              (bsz, t, h, p)))
+    u = r.random((bsz, t, h))
+    a = torch.tensor({"rand": -0.1 - 2.0 * u, "none": 0.0 * u,
+                      "underflow": -50.0 - u}[decay], dtype=torch.float32)
+    s0 = torch.tensor(r.standard_normal((bsz, h, p, n)) * 100,
+                      dtype=torch.float32)
+    ds = torch.tensor(r.standard_normal((bsz, h, p, n)), dtype=torch.float32)
+    return x, a, b, c, dy, ds, s0
+
+
+# (B, T, H, P, N, decay): Mamba-2's widths with T off the chunk and heads
+# off the group of 10; P and N off 32; no decay; decays that underflow
+SSD_F32_CASES = [(1, 150, 13, 64, 128, "rand"), (2, 77, 3, 5, 7, "rand"),
+                 (1, 100, 4, 40, 96, "none"),
+                 (1, 130, 3, 16, 32, "underflow")]
+
+
+@pytest.fixture(scope="module")
+def ssd_f32_cases():
+    """Each case's inputs (an initial state x100 and a final-state
+    gradient), the float32 kernel model and the plain backward."""
+    out = {}
+    for case in SSD_F32_CASES:
+        ins = _ssd_f32_inputs(9, *case)
+        out[case] = ins, ssd_bwd_model_f32(*ins), ref.ssd_bwd(*ins)
+    return out
+
+
+@pytest.mark.parametrize("case", SSD_F32_CASES, ids=lambda c: "-".join(
+    str(v) for v in c))
+def test_ssd_bwd_kernel_model_f32_matches_plain(ssd_f32_cases, case):
+    """The float32 kernel's decomposition on 3xTF32 against the plain
+    step-by-step backward, within the card's float32 gate, 1e-4 of max(1,
+    max |plain|), each gradient."""
+    _, got, want = ssd_f32_cases[case]
+    for g, w in zip(got, want):
+        assert _f32_err(g, w) <= SSD_F32_TOL, _f32_err(g, w)
+
+
+def test_ssd_bwd_kernel_model_f32_matches_jax(ssd_f32_cases):
+    """The same at Mamba-2's widths against jax.grad of the JAX package's
+    chunked scan (repro/models/ssd.py:ssd_scan, chunk 50)."""
+    (x, a, b, c, dy, ds, s0), got, _ = ssd_f32_cases[SSD_F32_CASES[0]]
+
+    def j_loss(x, a, b, c, s0):
+        y, s = j_ssd.ssd_scan(x, a, b, c, chunk=50, state0=s0)
+        return jnp.sum(y * dy.numpy()) + jnp.sum(s * ds.numpy())
+    want = jax.grad(j_loss, argnums=(0, 1, 2, 3, 4))(
+        *[jnp.asarray(v.numpy()) for v in (x, a, b, c, s0)])
+    for g, w in zip(got, want):
+        assert _f32_err(g, np.asarray(w)) <= SSD_F32_TOL
+
+
+def test_ssd_bwd_f32_one_tf32_pass_misses(ssd_f32_cases):
+    """At Mamba-2's widths one tf32 product (hi hi alone) misses the
+    1e-4 gate where 3xTF32 holds: the split is what the float32 kernel
+    needs."""
+    ins, got, want = ssd_f32_cases[SSD_F32_CASES[0]]
+    one = ssd_bwd_model_f32(*ins, passes=1)
+    assert max(_f32_err(g, w) for g, w in zip(got, want)) <= SSD_F32_TOL
+    assert max(_f32_err(g, w) for g, w in zip(one, want)) > SSD_F32_TOL
+
+
 def test_ssd_bwd_constants_match_the_kernel_source():
     """The model's chunk and head group, and the wrapper's scratch sizes,
     are the kernel's (csrc/ssd_bwd.cu)."""
@@ -383,11 +576,19 @@ def test_ssd_bwd_constants_match_the_kernel_source():
                        ("NM", 128)):
         m = re.search(rf"constexpr int {name} = (\d+);", src)
         assert m and int(m.group(1)) == want, name
-    assert (ssd_k.BWD_CHUNK, ssd_k.BWD_HEADS) == (SSD_QT, SSD_HG)
-    assert ssd_k.BWD_IMAGE_BYTES == 64 * 128 * 2
+    m = re.search(r"constexpr int HG_F = (\d+);", src)
+    assert m and int(m.group(1)) == SSD_HG_F32
+    assert ssd_k.BWD_CHUNK == SSD_QT
+    assert ssd_k.BWD_HEADS == {torch.bfloat16: SSD_HG,
+                               torch.float32: SSD_HG_F32}
+    # a chunk's S0 or dS image: bf16 hi and lo tile images, float32 raw
+    assert ssd_k.BWD_IMAGE_BYTES == {torch.bfloat16: 2 * 64 * 128 * 2,
+                                     torch.float32: 128 * 64 * 4}
     assert "using ImgT = Tile<PM, NM * 2>;" in src
+    assert "using ImgF = Tile<NM, PM * 4>;" in src
     assert ssd_k.bwd_launches(torch.bfloat16) == 3
-    assert ssd_k.bwd_launches(torch.float32) == 2
+    assert ssd_k.bwd_launches(torch.float32) == 3
+    assert "cuda_cores" not in src
 
 
 # ---------------------------------------------------------------------------

@@ -2,8 +2,7 @@
 """Time the flash_attn backward kernel of one checkout of this repository
 at one of its path cases, on one NVIDIA GPU:
 
-    python3 tools/flash_attn_bwd_ab.py --tree DIR [--case mg|local|prefix]
-        [--reps 50]
+    python3 tools/flash_attn_bwd_ab.py --tree DIR [--case CASE] [--reps 50]
 
 DIR is the root of a checkout (this one by default); its
 src/repro_torch/kernels/flash_attn.py is imported and its kernels built
@@ -14,7 +13,11 @@ from its own sources. The cases (chip_smoke.py phase 2):
 - local: RecurrentGemma's local layer at the training batch of 2, q (20,
   512, 256), k, v (2, 512, 256) (group 10), causal, window 2048, bf16;
 - prefix: PaliGemma's layer at the training batch of 2, q (16, 768, 256),
-  k, v (2, 768, 256) (group 8), the prefix mask of 256, bf16.
+  k, v (2, 768, 256) (group 8), the prefix mask of 256, bf16;
+- f32: phase 2's float32 Dh-256 case, q (8, 300, 256), k, v (4, 300,
+  256) (group 2), causal, float32;
+- local_f32, prefix_f32: the float32 twins of local and prefix, the
+  shapes a user who sets the model's dtype to float32 trains at.
 Inputs are N(0, 1) from --seed and o comes from the forward kernel. Each
 gradient is checked against the plain version `ref.flash_attn_bwd`
 within 1e-4 (float32) or 1e-2 (bf16) of max(1, max |plain|), and a second
@@ -26,7 +29,7 @@ dk, dv). To compare two trees, run it in one call on one card, in turns
 of mean CUDA-event times in ms: `ms` with the host issuing each call as
 the program would, `device_ms` with every launch queued first behind a
 device-side sleep, so that the events read the device alone; beside them
-the plain version's host-issued `plain_ms` (local and prefix), torch's
+the plain version's host-issued `plain_ms` (all but mg), torch's
 scaled_dot_product_attention with the same mask (a yardstick, not on the
 path), forward and backward together and the forward alone, their
 difference `library_bwd_device_ms`, the bound of `flash_attn.bwd_work`
@@ -48,7 +51,10 @@ import sys
 # dtypes)
 CASES = {"mg": (96, 512, 64, 1, 12, False, 0, 0, ("float32", "bfloat16")),
          "local": (20, 512, 256, 10, 10, True, 2048, 0, ("bfloat16",)),
-         "prefix": (16, 768, 256, 8, 8, True, 0, 256, ("bfloat16",))}
+         "prefix": (16, 768, 256, 8, 8, True, 0, 256, ("bfloat16",)),
+         "f32": (8, 300, 256, 2, 4, True, 0, 0, ("float32",)),
+         "local_f32": (20, 512, 256, 10, 10, True, 2048, 0, ("float32",)),
+         "prefix_f32": (16, 768, 256, 8, 8, True, 0, 256, ("float32",))}
 TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = {"float32": 495e12 / 3, "bfloat16": 989e12}
